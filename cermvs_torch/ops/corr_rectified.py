@@ -86,7 +86,7 @@ def build_corr_volume_rectified(fmaps, poses, intrinsics, ii, jj, origin,
     """
     B, N, h, w, C = fmaps.shape
     V = int(jj.shape[0])
-    assert B == 1, "rectified construction supports batch size 1"
+    assert B == 1, "one sample; batches: build_corr_volume_rectified_batched"
     feature_dtype = gather_dtype or fmaps.dtype
     if rect_ctx is None:
         rect_ctx = rect_features(fmaps, poses, intrinsics, ii, jj, plan,
@@ -131,8 +131,27 @@ def build_corr_volume_rectified(fmaps, poses, intrinsics, ii, jj, origin,
     return torch.stack([one_view(v) for v in range(V)])[None]
 
 
+def build_corr_volume_rectified_batched(
+        fmaps, poses, intrinsics, ii, jj, origin, n_hyp: int, incre: float,
+        plan: RectPlan, mean_over_views: bool = False, gather_dtype=None,
+        impl: str = "kernel", zero_slab: bool = False, rect_ctxs=None):
+    """Batch-B construction: the B == 1 builder per sample, concatenated
+    (B == 1 returns its volume as it is). ``plan`` must cover every sample
+    (``rectify.plan_union`` of the samples' plans); ``rect_ctxs`` holds one
+    :func:`rect_features` context per sample."""
+    B = fmaps.shape[0]
+    vols = [build_corr_volume_rectified(
+        fmaps[b:b + 1], poses[b:b + 1], intrinsics[b:b + 1], ii, jj,
+        origin[b:b + 1], n_hyp, incre, plan, mean_over_views=mean_over_views,
+        gather_dtype=gather_dtype, impl=impl, zero_slab=zero_slab,
+        rect_ctx=rect_ctxs[b] if rect_ctxs else None) for b in range(B)]
+    return vols[0] if B == 1 else torch.cat(vols, 0)
+
+
 class RectifiedVolume:
-    """Rectified construction for one :class:`RectPlan` (batch size 1)."""
+    """Rectified construction for one :class:`RectPlan`. A batch of B > 1
+    samples needs a plan that covers each of them (``rectify.plan_union``);
+    :meth:`prepare` builds one context per sample."""
 
     def __init__(self, plan: RectPlan, impl: str = "kernel"):
         if not plan.ok:
@@ -142,18 +161,20 @@ class RectifiedVolume:
 
     def prepare(self, fmaps, poses, intrinsics, ii, jj, feature_dtype):
         feature_dtype = feature_dtype or fmaps.dtype
-        return (fmaps, poses, intrinsics, ii, jj, feature_dtype,
-                rect_features(fmaps, poses, intrinsics, ii, jj, self.plan,
-                              feature_dtype))
+        ctxs = [rect_features(fmaps[b:b + 1], poses[b:b + 1],
+                              intrinsics[b:b + 1], ii, jj, self.plan,
+                              feature_dtype)
+                for b in range(fmaps.shape[0])]
+        return (fmaps, poses, intrinsics, ii, jj, feature_dtype, ctxs)
 
     def build(self, ctx, origin, n_hyp, incre, hyp_chunk=16,
               mean_over_views=False, zero_slab=False):
         del hyp_chunk  # memory is bounded by the per-view loop
-        fmaps, poses, intrinsics, ii, jj, fd, rect_ctx = ctx
-        return build_corr_volume_rectified(
+        fmaps, poses, intrinsics, ii, jj, fd, ctxs = ctx
+        return build_corr_volume_rectified_batched(
             fmaps, poses, intrinsics, ii, jj, origin, n_hyp, incre,
             self.plan, mean_over_views=mean_over_views, gather_dtype=fd,
-            impl=self.impl, zero_slab=zero_slab, rect_ctx=rect_ctx)
+            impl=self.impl, zero_slab=zero_slab, rect_ctxs=ctxs)
 
 
 def make_rectified_volume_fn(plan: RectPlan, impl: str = "kernel"):

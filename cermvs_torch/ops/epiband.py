@@ -1,5 +1,5 @@
-"""Rectified epipolar band resample: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""Rectified epipolar band resample: the CUDA kernels' wrappers and their
+plain PyTorch versions.
 
 ``epiband(fr, fs, base, sigma, n_hyp, s_max)`` -> (V, h_r, w_r, n_hyp) fp32:
 
@@ -10,85 +10,34 @@ with each interpolation tap zeroed outside ``[0, ws - 1]``. ``fr``
 (V, h_r, w_r, C) and ``fs`` (V, h_r, ws, C) are bf16 or fp32; ``base`` and
 ``sigma`` (V, h_r, w_r) fp32; ``base=None`` means base == 0 (stage 0).
 
-On CUDA tensors the wrapper launches the hand-written kernel
-(``cermvs_torch/csrc/epiband.cu``), built with ``nvcc`` at first use into
-``build/`` at the repository root; on CPU tensors it runs
-:func:`epiband_reference`. There is no fallback from one to the other.
+It is differentiable in ``fr`` and ``fs``: the backward returns ``dfr`` and
+``dfs`` in the features' dtype (:func:`epiband_backward_reference` says
+what they are) and no gradient for ``base`` and ``sigma``, as the JAX
+package's custom VJP gives them zero (not autograd's gradient of the plain
+version, which is non-zero).
+
+On CUDA tensors the wrappers launch the hand-written kernels
+(``cermvs_torch/csrc/epiband.cu``: ``epiband_forward``,
+``epiband_backward_dfr``, ``epiband_backward_dfs``), built with ``nvcc`` at
+first use (``ops/cudalib.py``); on CPU tensors they run the plain versions.
+There is no fallback from one to the other.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "epiband.cu"
-BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+from cermvs_torch.ops import cudalib
 
-launches = 0  # kernel launches since the last reset (reset_launches)
-
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def reset_launches() -> None:
-    global launches
-    launches = 0
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = Path(cuda_home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME)")
-    return found
-
-
-def build(verbose: bool = False) -> Path:
-    """Compile ``csrc/epiband.cu`` into ``build/`` (named by the source's
-    hash, so an edited source rebuilds) and return the library path."""
-    digest = hashlib.sha256(_SRC.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libepiband_{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS] + (["-Xptxas", "-v"] if verbose else []) + [
-        "-o", str(tmp), str(_SRC)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stdout + res.stderr, flush=True)
-    os.replace(tmp, lib)
-    return lib
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.epiband_forward.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
-                                            i, i, p]
-            lib.epiband_forward.restype = i
-            lib.epiband_error_string.argtypes = [i]
-            lib.epiband_error_string.restype = ctypes.c_char_p
-            _lib = lib
-    return _lib
+_p, _i = ctypes.c_void_p, ctypes.c_int
+LIB = cudalib.KernelLibrary("epiband", {
+    "epiband_forward": [_p, _p, _p, _p, _p] + [_i] * 8 + [_p],
+    "epiband_backward_dfr": [_p, _p, _p, _p, _p] + [_i] * 8 + [_p],
+    "epiband_backward_dfs": [_p, _p, _p, _p, _p] + [_i] * 8 + [_p],
+})
+KERNELS = ("epiband_fwd", "epiband_bwd_dfr", "epiband_bwd_dfs")
 
 
 def epiband_reference(fr, fs, base, sigma, n_hyp: int, s_max: int):
@@ -162,30 +111,121 @@ def _check_kernel_args(fr, fs, base, sigma):
                              f"(storage offset {t.storage_offset()})")
 
 
+def _dtype_code(t) -> int:
+    return 1 if t.dtype == torch.bfloat16 else 0
+
+
 def _launch(fr, fs, base, sigma, n_hyp, s_max):
-    global launches
     V, h_r, w_r, C = fr.shape
     _check_kernel_args(fr, fs, base, sigma)
-    lib = _load()
     out = torch.empty((V, h_r, w_r, n_hyp), dtype=torch.float32,
                       device=fr.device)
     with torch.cuda.device(fr.device):
-        stream = torch.cuda.current_stream(fr.device).cuda_stream
-        err = lib.epiband_forward(
-            fr.data_ptr(), fs.data_ptr(),
-            None if base is None else base.data_ptr(), sigma.data_ptr(),
-            out.data_ptr(), V, h_r, w_r, fs.shape[2], C, n_hyp, int(s_max),
-            1 if fr.dtype == torch.bfloat16 else 0, stream)
-    if err != 0:
-        raise RuntimeError("epiband kernel launch failed: "
-                           + lib.epiband_error_string(err).decode())
-    launches += 1
+        LIB.call("epiband_forward", fr.data_ptr(), fs.data_ptr(),
+                 None if base is None else base.data_ptr(), sigma.data_ptr(),
+                 out.data_ptr(), V, h_r, w_r, fs.shape[2], C, n_hyp,
+                 int(s_max), _dtype_code(fr), cudalib.stream_of(fr))
+    cudalib.count_launch("epiband_fwd")
     return out
+
+
+def epiband_backward_reference(fr, fs, base, sigma, dout, s_max: int):
+    """Plain PyTorch version of the backward: with the forward's tap
+    positions, ``dG[v,y,x,s] = sum_k dout[v,y,x,k] * (weight of tap s)``
+    over the in-band taps, then ``dfr = dG @ fs`` and ``dfs = dG^T @ fr``,
+    returned in the features' dtype. Sums and products are fp32; with bf16
+    features ``dout``, each tap's ``weight * dout`` and ``dG`` are rounded
+    to bf16 first, where the JAX package's backward kernels round them."""
+    V, h_r, w_r, _ = fr.shape
+    ws = fs.shape[2]
+    D = dout.shape[-1]
+    dev = fr.device
+
+    def rd(t):
+        return t.to(fr.dtype).float()
+
+    x = torch.arange(w_r, dtype=torch.float32, device=dev)
+    k = torch.arange(D, dtype=torch.float32, device=dev)
+    dfr, dfs = [], []
+    for v in range(V):
+        b = (torch.zeros((h_r, w_r), dtype=torch.float32, device=dev)
+             if base is None else base[v])
+        idx = (x + float(s_max))[None, :, None] - (
+            b[..., None] + sigma[v][..., None] * k)
+        x0 = torch.floor(idx)
+        f = idx - x0
+        i0 = x0.clamp(-2, ws + 1).to(torch.int64)
+        i1 = i0 + 1
+        g = rd(dout[v].float())
+        w0 = rd((1.0 - f) * g) * ((i0 >= 0) & (i0 <= ws - 1)).float()
+        w1 = rd(f * g) * ((i1 >= 0) & (i1 <= ws - 1)).float()
+        dG = torch.zeros((h_r, w_r, ws), dtype=torch.float32, device=dev)
+        dG.scatter_add_(-1, i0.clamp(0, ws - 1), w0)
+        dG.scatter_add_(-1, i1.clamp(0, ws - 1), w1)
+        dG = rd(dG)
+        dfr.append(torch.einsum("hxs,hsc->hxc", dG, fs[v].float()))
+        dfs.append(torch.einsum("hxs,hxc->hsc", dG, fr[v].float()))
+    return (torch.stack(dfr).to(fr.dtype), torch.stack(dfs).to(fs.dtype))
+
+
+def backward_dfr(fr, fs, base, sigma, dout, s_max: int):
+    """Launch ``epiband_backward_dfr`` on checked CUDA tensors: dfr in the
+    features' dtype."""
+    V, h_r, w_r, C = fr.shape
+    _check_kernel_args(fr, fs, base, sigma)
+    dfr = torch.empty_like(fr)
+    with torch.cuda.device(fr.device):
+        LIB.call("epiband_backward_dfr", fs.data_ptr(),
+                 None if base is None else base.data_ptr(), sigma.data_ptr(),
+                 dout.data_ptr(), dfr.data_ptr(), V, h_r, w_r, fs.shape[2],
+                 C, dout.shape[-1], int(s_max), _dtype_code(fr),
+                 cudalib.stream_of(fr))
+    cudalib.count_launch("epiband_bwd_dfr")
+    return dfr
+
+
+def backward_dfs(fr, fs, base, sigma, dout, s_max: int):
+    """Launch ``epiband_backward_dfs`` on checked CUDA tensors: the scatter
+    into a zeroed fp32 buffer, cast to the features' dtype."""
+    V, h_r, w_r, C = fr.shape
+    ws = fs.shape[2]
+    _check_kernel_args(fr, fs, base, sigma)
+    dfs32 = torch.zeros((V, h_r, ws, C), dtype=torch.float32,
+                        device=fr.device)
+    with torch.cuda.device(fr.device):
+        LIB.call("epiband_backward_dfs", fr.data_ptr(),
+                 None if base is None else base.data_ptr(), sigma.data_ptr(),
+                 dout.data_ptr(), dfs32.data_ptr(), V, h_r, w_r, ws, C,
+                 dout.shape[-1], int(s_max), _dtype_code(fr),
+                 cudalib.stream_of(fr))
+    cudalib.count_launch("epiband_bwd_dfs")
+    return dfs32.to(fs.dtype)
+
+
+def epiband_backward(fr, fs, base, sigma, dout, s_max: int):
+    """``(dfr, dfs)`` for the output gradient ``dout`` (V, h_r, w_r, D)
+    fp32: the kernels on CUDA tensors, :func:`epiband_backward_reference`
+    on CPU tensors."""
+    _check(fr, fs, base, sigma, dout.shape[-1], s_max)
+    if (dout.dtype != torch.float32 or dout.device != fr.device
+            or tuple(dout.shape[:3]) != tuple(fr.shape[:3])):
+        raise ValueError(f"dout must be float32 (V, h_r, w_r, D) on "
+                         f"{fr.device}, got {dout.dtype} "
+                         f"{tuple(dout.shape)} on {dout.device}")
+    dout = dout.contiguous()
+    if fr.is_cuda:
+        return (backward_dfr(fr, fs, base, sigma, dout, s_max),
+                backward_dfs(fr, fs, base, sigma, dout, s_max))
+    if fr.device.type != "cpu":
+        raise ValueError(f"unsupported device {fr.device}")
+    return epiband_backward_reference(fr, fs, base, sigma, dout, s_max)
 
 
 class _Epiband(torch.autograd.Function):
     @staticmethod
     def forward(ctx, fr, fs, base, sigma, n_hyp, s_max):
+        ctx.save_for_backward(fr, fs, base, sigma)
+        ctx.s_max = s_max
         if fr.is_cuda:
             return _launch(fr, fs, base, sigma, n_hyp, s_max)
         if fr.device.type != "cpu":
@@ -194,7 +234,11 @@ class _Epiband(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        raise NotImplementedError("epiband backward: Queue 2 item 2")
+        fr, fs, base, sigma = ctx.saved_tensors
+        dfr, dfs = epiband_backward(fr, fs, base, sigma, dout.float(),
+                                    ctx.s_max)
+        # base and sigma: no gradient (zero in the JAX package's VJP)
+        return dfr, dfs, None, None, None, None
 
 
 def epiband(fr, fs, base, sigma, n_hyp: int, s_max: int) -> torch.Tensor:

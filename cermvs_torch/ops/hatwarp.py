@@ -1,0 +1,167 @@
+"""1-D hat resample along rows: the CUDA kernels' wrappers and their plain
+PyTorch versions. Each pass of the two-pass warp
+(``rectify.warp_image_twopass``) is one such resample.
+
+``hat_resample_rows(img, pos)`` with ``img`` (R, S, C) bf16 or fp32 and
+``pos`` (R, O) fp32 returns (R, O, C) fp32:
+
+    out[r, o, :] = sum_s hat(s - pos[r, o]) * img[r, s, :],  hat(d) = max(0, 1 - |d|)
+
+so out-of-range positions get zero weight. It is differentiable in ``img``
+through the transposed resample ``dimg[r, s, :] = sum_o hat(s - pos[r, o])
+* dout[r, o, :]``, returned in ``img``'s dtype; ``pos`` gets no gradient.
+Numerics follow the JAX package's kernel: for a bf16 image the hat weights
+(and, in the backward, ``dout``) are rounded to bf16, and every product and
+sum is fp32.
+
+On CUDA tensors the wrappers launch the hand-written kernels
+(``cermvs_torch/csrc/hatwarp.cu``: ``hat_rows_forward``,
+``hat_rows_backward``), which read each output's two non-zero taps; autograd
+saves only ``pos``. On CPU tensors they run the plain versions, the
+hat-matrix products built in row chunks of at most ``HAT_BUDGET`` bytes.
+There is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from cermvs_torch.ops import cudalib
+
+_p, _i = ctypes.c_void_p, ctypes.c_int
+LIB = cudalib.KernelLibrary("hatwarp", {
+    "hat_rows_forward": [_p, _p, _p] + [_i] * 5 + [_p],
+    "hat_rows_backward": [_p, _p, _p] + [_i] * 5 + [_p],
+})
+KERNELS = ("hat_rows_fwd", "hat_rows_bwd")
+HAT_BUDGET = 384 * 1024 * 1024  # bytes of one hat-matrix chunk (plain)
+
+
+def _hats(pos, S: int, dtype):
+    """(r, S, O) hat matrices ``hat(s - pos[r, o])``, rounded to ``dtype``
+    and widened back to fp32 (bf16 values are exact in fp32)."""
+    s = torch.arange(S, dtype=torch.float32, device=pos.device)[None, :, None]
+    w = torch.clamp(1.0 - (s - pos[:, None, :]).abs(), min=0.0)
+    return w.to(dtype).float()
+
+
+def _row_chunk(R: int, S: int, O: int, hat_budget=None) -> int:
+    budget = HAT_BUDGET if hat_budget is None else hat_budget
+    return max(1, min(R, budget // max(1, S * O * 4)))
+
+
+def hat_resample_rows_reference(img, pos, hat_budget=None):
+    """Plain forward: ``out[r] = hat(r)^T @ img[r]`` as fp32 matrix products
+    over row chunks."""
+    R, S, C = img.shape
+    out = torch.empty((R, pos.shape[1], C), dtype=torch.float32,
+                      device=img.device)
+    rc = _row_chunk(R, S, pos.shape[1], hat_budget)
+    for r0 in range(0, R, rc):
+        hat = _hats(pos[r0:r0 + rc], S, img.dtype)       # (r, S, O)
+        out[r0:r0 + rc] = torch.bmm(hat.transpose(1, 2),
+                                    img[r0:r0 + rc].float())
+    return out
+
+
+def hat_resample_rows_backward_reference(dout, pos, S: int, img_dtype,
+                                         hat_budget=None):
+    """Plain transpose: ``dimg[r] = hat(r) @ dout[r]`` with ``dout`` rounded
+    to ``img_dtype`` first, fp32 products, returned in ``img_dtype``."""
+    R, O, C = dout.shape
+    dimg = torch.empty((R, S, C), dtype=torch.float32, device=dout.device)
+    g = dout.to(img_dtype).float()
+    rc = _row_chunk(R, S, O, hat_budget)
+    for r0 in range(0, R, rc):
+        hat = _hats(pos[r0:r0 + rc], S, img_dtype)       # (r, S, O)
+        dimg[r0:r0 + rc] = torch.bmm(hat, g[r0:r0 + rc])
+    return dimg.to(img_dtype)
+
+
+def _check(img, pos):
+    if img.dim() != 3 or pos.dim() != 2 or pos.shape[0] != img.shape[0]:
+        raise ValueError(f"expected img (R,S,C) and pos (R,O), got "
+                         f"{tuple(img.shape)} and {tuple(pos.shape)}")
+    if img.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"img must be float32 or bfloat16, got {img.dtype}")
+    if pos.dtype != torch.float32:
+        raise TypeError(f"pos must be float32, got {pos.dtype}")
+    if img.device != pos.device:
+        raise ValueError("img and pos must be on one device")
+    for name, t in (("img", img), ("pos", pos)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if max(img.shape + pos.shape) >= 2 ** 31:
+        raise ValueError("every dimension must fit a 32-bit int")
+
+
+def _dtype_code(dtype) -> int:
+    return 1 if dtype == torch.bfloat16 else 0
+
+
+def _launch_forward(img, pos):
+    R, S, C = img.shape
+    O = pos.shape[1]
+    out = torch.empty((R, O, C), dtype=torch.float32, device=img.device)
+    with torch.cuda.device(img.device):
+        LIB.call("hat_rows_forward", img.data_ptr(), pos.data_ptr(),
+                 out.data_ptr(), R, S, O, C, _dtype_code(img.dtype),
+                 cudalib.stream_of(img))
+    cudalib.count_launch("hat_rows_fwd")
+    return out
+
+
+def _launch_backward(dout, pos, S, img_dtype):
+    R, O, C = dout.shape
+    dimg = torch.zeros((R, S, C), dtype=torch.float32, device=dout.device)
+    with torch.cuda.device(dout.device):
+        LIB.call("hat_rows_backward", dout.data_ptr(), pos.data_ptr(),
+                 dimg.data_ptr(), R, S, O, C, _dtype_code(img_dtype),
+                 cudalib.stream_of(dout))
+    cudalib.count_launch("hat_rows_bwd")
+    return dimg.to(img_dtype)
+
+
+def hat_rows_backward(dout, pos, S: int, img_dtype):
+    """``dimg`` (R, S, C) in ``img_dtype`` for ``dout`` (R, O, C): the kernel
+    on CUDA tensors, the plain version on CPU tensors."""
+    if dout.dim() != 3 or tuple(dout.shape[:2]) != tuple(pos.shape):
+        raise ValueError(f"dout {tuple(dout.shape)} does not match pos "
+                         f"{tuple(pos.shape)}")
+    if dout.device != pos.device or pos.dtype != torch.float32:
+        raise ValueError("dout and float32 pos must be on one device")
+    if img_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"unsupported image dtype {img_dtype}")
+    dout = dout.float().contiguous()
+    if dout.is_cuda:
+        return _launch_backward(dout, pos.contiguous(), S, img_dtype)
+    if dout.device.type != "cpu":
+        raise ValueError(f"unsupported device {dout.device}")
+    return hat_resample_rows_backward_reference(dout, pos, S, img_dtype)
+
+
+class _HatRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, img, pos):
+        ctx.save_for_backward(pos)
+        ctx.S, ctx.img_dtype = img.shape[1], img.dtype
+        if img.is_cuda:
+            return _launch_forward(img, pos)
+        if img.device.type != "cpu":
+            raise ValueError(f"unsupported device {img.device}")
+        return hat_resample_rows_reference(img, pos)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (pos,) = ctx.saved_tensors
+        # pos: no gradient (zero in the JAX package's VJP)
+        return hat_rows_backward(dout, pos, ctx.S, ctx.img_dtype), None
+
+
+def hat_resample_rows(img: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """(R, S, C) x (R, O) -> (R, O, C) fp32 row resample; see the module
+    docstring."""
+    _check(img, pos)
+    return _HatRows.apply(img, pos.detach())

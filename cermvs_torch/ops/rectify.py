@@ -24,7 +24,7 @@ Two halves:
     (:class:`RectPlan`);
   * in-graph geometry and warps as torch ops in float32:
     :func:`rect_geometry`, :func:`warp_image` (quad bilinear),
-    :func:`warp_image_twopass` (two 1-D hat-matrix resamples).
+    :func:`warp_image_twopass` (two 1-D hat resamples).
 """
 
 from __future__ import annotations
@@ -35,6 +35,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from cermvs_torch.ops.hatwarp import hat_resample_rows
 
 # ---------------------------------------------------------------------------
 # Host planner (numpy, float64)
@@ -105,6 +107,37 @@ class RectPlan:
             lo, hi = self.view_rates[v]
             return lo, hi, self.view_s_max[v]
         return self.rate_lo, self.rate_hi, self.s_max
+
+    def covers(self, other: "RectPlan") -> bool:
+        """True iff a construction for ``self`` is sound for a batch whose
+        own plan is ``other``: grids, rate intervals and disparity bands at
+        least as large. ``twopass`` is not monotone: ``other``'s two-pass
+        gate sampled a 25% margin around its own grids, so a two-pass plan
+        may serve it only while its grids stay inside that margin (the rule
+        :func:`plan_union` applies)."""
+        if not (self.ok and other.ok):
+            return False
+        if len(self.view_s_max) != len(other.view_s_max):
+            return False
+        if not (self.h_r >= other.h_r and self.w_r >= other.w_r
+                and self.s_max >= other.s_max and self.s_neg >= other.s_neg
+                and self.rate_lo <= other.rate_lo + 1e-12
+                and self.rate_hi >= other.rate_hi - 1e-12):
+            return False
+        if bool(self.view_rates) != bool(other.view_rates):
+            return False
+        for (slo, shi), (olo, ohi), ss, os_ in zip(
+                self.view_rates, other.view_rates,
+                self.view_s_max, other.view_s_max):
+            if not (slo <= olo + 1e-12 and shi >= ohi - 1e-12 and ss >= os_):
+                return False
+        if self.twopass:
+            if not other.twopass:
+                return False
+            if (self.h_r > 1.25 * other.h_r or self.w_r > 1.25 * other.w_r
+                    or self.s_max > other.s_max + 0.25 * other.ws_r):
+                return False
+        return True
 
 
 def _round_up(v: float, m: int) -> int:
@@ -263,6 +296,81 @@ def plan_rectification(poses: np.ndarray, intrinsics: np.ndarray, h: int,
                     rate_lo=float(lo), rate_hi=float(hi),
                     view_rates=view_rates, view_s_max=view_s_max,
                     twopass=twopass)
+
+
+def plan_union(plans) -> RectPlan:
+    """Smallest plan covering every plan in ``plans`` (one training batch:
+    per-sample geometry differs, one plan serves the batch). The plans must
+    share the view count; a plan that is not ok is returned as it is."""
+    plans = list(plans)
+    for p in plans:
+        if not p.ok:
+            return p
+    nv = {len(p.view_s_max) for p in plans}
+    if len(nv) > 1:
+        return _reject("view-count mismatch in union")
+    V = nv.pop() if all(p.view_rates for p in plans) else 0
+    view_rates = tuple(
+        (min(p.view_rates[v][0] for p in plans),
+         max(p.view_rates[v][1] for p in plans))
+        for v in range(V))
+    s_max = max(p.s_max for p in plans)
+    return RectPlan(
+        max(p.h_r for p in plans), max(p.w_r for p in plans),
+        s_max, max(p.s_neg for p in plans), True, "",
+        rate_lo=min(p.rate_lo for p in plans),
+        rate_hi=max(p.rate_hi for p in plans),
+        view_rates=view_rates,
+        view_s_max=tuple(min(max(p.view_s_max[v] for p in plans), s_max)
+                         for v in range(V)),
+        # each plan's gate sampled a 25% margin around its own grids
+        twopass=all(
+            p.twopass
+            and max(q.h_r for q in plans) <= 1.25 * p.h_r
+            and max(q.w_r for q in plans) <= 1.25 * p.w_r
+            and s_max <= p.s_max + 0.25 * p.ws_r
+            for p in plans))
+
+
+def widen_plan(plan: RectPlan, notches: int = 2) -> RectPlan:
+    """Widen a plan's rate intervals outward by ``notches`` steps of the
+    log-1.15 snap grid, staying on the grid, so one plan covers the nearby
+    plans of a long run of batches."""
+    if not plan.ok:
+        return plan
+    f = 1.15 ** notches
+
+    def out(lo, hi):
+        return _snap_rates(lo / f, hi * f)
+
+    lo, hi = out(plan.rate_lo, plan.rate_hi)
+    return RectPlan(
+        plan.h_r, plan.w_r, plan.s_max, plan.s_neg, True, "",
+        rate_lo=lo, rate_hi=hi,
+        view_rates=tuple(out(a, b) for a, b in plan.view_rates),
+        view_s_max=plan.view_s_max, twopass=plan.twopass)
+
+
+class PlanCache:
+    """Bounds the number of distinct plans (and constructions kept for
+    them) over a run: :meth:`key_for` returns a cached plan that covers the
+    batch's plan, else registers and returns the widened plan.
+    Deterministic in the stream of plans."""
+
+    def __init__(self, notches: int = 2):
+        self.notches = notches
+        self._plans: list = []
+
+    def key_for(self, plan: RectPlan) -> RectPlan:
+        for q in self._plans:
+            if q.covers(plan):
+                return q
+        wide = widen_plan(plan, self.notches)
+        self._plans.append(wide)
+        return wide
+
+    def __len__(self) -> int:
+        return len(self._plans)
 
 
 def host_rect_homographies(poses, intrinsics, h: int, w: int, h_r: int,
@@ -486,25 +594,25 @@ def _twopass_maps(Hi: torch.Tensor, h_s: int, out_w: int) -> torch.Tensor:
 
 
 def warp_image_twopass(img: torch.Tensor, H_inv: torch.Tensor, out_h: int,
-                       out_w: int, mode: str = "zero",
-                       hat_budget: int = 384 * 1024 * 1024) -> torch.Tensor:
+                       out_w: int, mode: str = "zero") -> torch.Tensor:
     """Inverse-warp ``img`` (h_s, w_s, C) through homography ``H_inv`` as two
-    1-D hat-matrix resamples (matrix products) -> (out_h, out_w, C) fp32.
+    1-D hat resamples (``ops/hatwarp.hat_resample_rows``) -> (out_h, out_w,
+    C) fp32.
 
-      pass 1 (horizontal): ``tmp[y', x, :] = img[y', :, :]^T @ hat(s - m)``
+      pass 1 (horizontal): ``tmp[y', x, :] = sum_s hat(s - m(y', x)) img[y', s, :]``
         with ``m(y', x)`` from :func:`_twopass_maps`;
-      pass 2 (vertical):   ``out[y, x, :] = hat(y' - k)^T @ tmp[:, x, :]``
+      pass 2 (vertical):   ``out[y, x, :] = sum_y' hat(y' - k(x, y)) tmp[y', x, :]``
         with ``k(x, y)`` the direct vertical map.
 
     Equals direct bilinear exactly for separable warps; for general
     homographies the two samples sit on the warp curve at integer input rows
-    (eligibility is decided host-side, ``RectPlan.twopass``). bf16 inputs
-    multiply in bf16 with fp32 accumulation (``tmp`` is rounded to bf16, as
-    in the JAX package); fp32 inputs multiply in full fp32. Hat tensors above
-    ``hat_budget`` bytes are built in row / column chunks.
+    (eligibility is decided host-side, ``RectPlan.twopass``). A bf16 image
+    resamples with bf16 hat weights and fp32 sums, and ``tmp`` is rounded to
+    bf16 between the passes, as in the JAX package; an fp32 image stays
+    fp32. The position maps get no gradient; the image's flows through the
+    transposed resamples.
     """
     h_s, w_s, C = img.shape
-    dev = img.device
     k = homography_grid(H_inv, out_h, out_w)[1]            # (out_h, out_w)
     m = _twopass_maps(H_inv, h_s, out_w)
     if mode == "clamp":
@@ -512,30 +620,8 @@ def warp_image_twopass(img: torch.Tensor, H_inv: torch.Tensor, out_h: int,
                         m.clamp(0.0, w_s - 1.0))
         k = k.clamp(0.0, h_s - 1.0)
     cdtype = img.dtype if img.dtype == torch.bfloat16 else torch.float32
-    bpe = 2 if cdtype == torch.bfloat16 else 4
-    row_chunk = h_s if h_s * w_s * out_w * bpe <= hat_budget else 32
-    col_chunk = out_w if out_w * h_s * out_h * bpe <= hat_budget else 64
-    imgc = img.to(cdtype)
-
-    tmp = torch.empty((h_s, out_w, C), dtype=cdtype, device=dev)
-    s = torch.arange(w_s, dtype=torch.float32, device=dev)[None, :, None]
-    for r0 in range(0, h_s, row_chunk):
-        m_c = m[r0:r0 + row_chunk]                         # (r, out_w)
-        S = torch.clamp(1.0 - (s - m_c[:, None, :]).abs(), min=0.0)
-        # (r, C, w_s) @ (r, w_s, out_w) -> (r, C, out_w), fp32 accumulate
-        t = torch.bmm(imgc[r0:r0 + row_chunk].transpose(1, 2), S.to(cdtype))
-        tmp[r0:r0 + row_chunk] = t.transpose(1, 2).to(cdtype)
-
-    out = torch.empty((out_h, out_w, C), dtype=torch.float32, device=dev)
-    tmpT = tmp.permute(1, 2, 0)                            # (out_w, C, h_s)
-    yy = torch.arange(h_s, dtype=torch.float32, device=dev)[None, :, None]
-    kT = k.t()                                             # (out_w, out_h)
-    for c0 in range(0, out_w, col_chunk):
-        k_c = kT[c0:c0 + col_chunk]
-        T = torch.clamp(1.0 - (yy - k_c[:, None, :]).abs(), min=0.0)
-        # (cc, C, h_s) @ (cc, h_s, out_h) in fp32: bf16 operands are exact in
-        # fp32, so this is the fp32-accumulated product of the bf16 values
-        o = torch.bmm(tmpT[c0:c0 + col_chunk].float(),
-                      T.to(cdtype).float())                # (cc, C, out_h)
-        out[:, c0:c0 + col_chunk] = o.permute(2, 0, 1)
-    return out
+    tmp = hat_resample_rows(img.to(cdtype).contiguous(),
+                            m.detach().contiguous()).to(cdtype)
+    out = hat_resample_rows(tmp.transpose(0, 1).contiguous(),
+                            k.detach().t().contiguous())  # (out_w, out_h, C)
+    return out.transpose(0, 1)

@@ -1,6 +1,7 @@
-"""CUDA-only tests of the port: the epiband kernel against its plain
-PyTorch version on the card, and the small end-to-end agreement of the
-rectified (kernel) and exact constructions. They skip where
+"""CUDA-only tests of the port: the epiband forward and backward kernels and
+the hat-resample kernels against their plain PyTorch versions on the card,
+wrong inputs raising and leaving the card usable, and the small end-to-end
+agreement of the rectified (kernel) and exact constructions. They skip where
 ``torch.cuda.is_available()`` is false. This file imports nothing of JAX, so
 it also runs on a machine without it:
 
@@ -8,14 +9,21 @@ it also runs on a machine without it:
 
 Tolerances: kernel against plain on the same tensors rtol 1e-4 / atol 1e-3
 with fp32 features and rtol 1e-3 / atol 1e-2 with bf16 features (both
-accumulate in fp32; only the summation order differs).
+accumulate in fp32; only the summation order differs). The backward kernels
+scatter with atomics, whose order changes from run to run; they are held
+at the same tolerances, on the fp32 values before the cast for bf16
+(returned in bf16 they may differ by one bf16 rounding: rtol 1e-2); with
+bf16 features they round where the plain version rounds, so under 1% of
+the elements may differ at all.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from cermvs_torch.ops import cudalib
 from cermvs_torch.ops import epiband as eb
+from cermvs_torch.ops import hatwarp as hw
 
 V, H_R, W_R, WS, C = 2, 8, 128, 224, 8
 S_MAX = WS - W_R - 16
@@ -64,12 +72,115 @@ def test_kernel_matches_plain(cuda_device, dtype, rtol, atol, name, sig,
               for a in (fr, fs))
     base = None if base_rng is None else torch.from_numpy(base).to(dev)
     sigma = torch.from_numpy(sigma).to(dev)
-    before = eb.launches
+    before = cudalib.launches.get("epiband_fwd", 0)
     out = eb.epiband(fr, fs, base, sigma, D, S_MAX)
     torch.cuda.synchronize()
-    assert eb.launches == before + 1
+    assert cudalib.launches["epiband_fwd"] == before + 1
     ref = eb.epiband_reference(fr, fs, base, sigma, D, S_MAX)
     torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 1e-4, 1e-3),
+                                             (torch.bfloat16, 1e-2, 1e-2)])
+@pytest.mark.parametrize("name,sig,base_rng,D,bounds", CASES,
+                         ids=[c[0] for c in CASES])
+def test_backward_kernels_match_plain(cuda_device, dtype, rtol, atol, name,
+                                      sig, base_rng, D, bounds):
+    rng = np.random.RandomState(1)
+    fr, fs, base, sigma = inputs(rng, base_rng or (0.0, 0.0), sig)
+    dev = cuda_device
+    fr, fs = (torch.from_numpy(a).to(dev, dtype).contiguous()
+              for a in (fr, fs))
+    base = None if base_rng is None else torch.from_numpy(base).to(dev)
+    sigma = torch.from_numpy(sigma).to(dev)
+    dout = torch.from_numpy(rng.randn(V, H_R, W_R, D).astype(np.float32)
+                            ).to(dev)
+    before = dict(cudalib.launches)
+    dfr, dfs = eb.epiband_backward(fr, fs, base, sigma, dout, S_MAX)
+    torch.cuda.synchronize()
+    for k in ("epiband_bwd_dfr", "epiband_bwd_dfs"):
+        assert cudalib.launches[k] == before.get(k, 0) + 1
+    rfr, rfs = eb.epiband_backward_reference(fr, fs, base, sigma, dout,
+                                             S_MAX)
+    assert dfr.dtype == dfs.dtype == dtype
+    torch.testing.assert_close(dfr.float(), rfr.float(), rtol=rtol,
+                               atol=atol)
+    torch.testing.assert_close(dfs.float(), rfs.float(), rtol=rtol,
+                               atol=atol)
+    if dtype == torch.bfloat16:
+        # the same bf16 roundings as the plain version: all but a few
+        # elements equal
+        for a, b in ((dfr, rfr), (dfs, rfs)):
+            assert float((a != b).float().mean()) < 0.01
+
+
+@pytest.mark.cuda
+def test_backward_through_autograd_launches_both_kernels(cuda_device):
+    rng = np.random.RandomState(2)
+    fr, fs, base, sigma = (torch.from_numpy(a).to(cuda_device) for a in
+                           inputs(rng, (-4.0, 40.0), (1.0, 3.0)))
+    fr.requires_grad_(True)
+    fs.requires_grad_(True)
+    cudalib.reset_launches()
+    out = eb.epiband(fr, fs, base, sigma, 8, S_MAX)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    assert {k: cudalib.launches.get(k, 0) for k in eb.KERNELS} == {
+        "epiband_fwd": 1, "epiband_bwd_dfr": 1, "epiband_bwd_dfs": 1}
+    rfr, rfs = eb.epiband_backward_reference(
+        fr.detach(), fs.detach(), base, sigma, 2 * out.detach(), S_MAX)
+    torch.testing.assert_close(fr.grad, rfr, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(fs.grad, rfs, rtol=1e-4, atol=1e-3)
+
+
+def hat_inputs(rng, R=16, S=300, O=420, C=44):
+    img = rng.randn(R, S, C).astype(np.float32)
+    pos = (np.linspace(-5, S + 5, O)[None] * np.ones((R, 1))
+           + rng.uniform(-0.7, 0.7, (R, O))).astype(np.float32)
+    pos[0, :3] = [-1e4, 1e4, -1.0]
+    return img, pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [44, 64, 3])
+def test_hat_kernels_match_plain(cuda_device, dtype, C):
+    rng = np.random.RandomState(3)
+    img, pos = hat_inputs(rng, C=C)
+    img = torch.from_numpy(img).to(cuda_device, dtype)
+    pos = torch.from_numpy(pos).to(cuda_device)
+    dout = torch.from_numpy(rng.randn(16, 420, C).astype(np.float32)).to(
+        cuda_device)
+    before = dict(cudalib.launches)
+    out = hw.hat_resample_rows(img, pos)
+    dimg = hw.hat_rows_backward(dout, pos, img.shape[1], dtype)
+    torch.cuda.synchronize()
+    for k in hw.KERNELS:
+        assert cudalib.launches[k] == before.get(k, 0) + 1
+    torch.testing.assert_close(out, hw.hat_resample_rows_reference(img, pos),
+                               rtol=1e-5, atol=1e-5)
+    ref = hw.hat_resample_rows_backward_reference(dout, pos, img.shape[1],
+                                                  dtype)
+    assert dimg.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(dimg.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_hat_kernel_rejects_bad_inputs_and_card_stays_usable(cuda_device):
+    img = torch.zeros(4, 30, 8, device=cuda_device)
+    pos = torch.zeros(4, 10, device=cuda_device)
+    with pytest.raises(ValueError, match="one device"):
+        hw.hat_resample_rows(img, pos.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        hw.hat_resample_rows(img.transpose(0, 1).contiguous().transpose(0, 1),
+                             pos)
+    with pytest.raises(TypeError):
+        hw.hat_resample_rows(img.half(), pos)
+    out = hw.hat_resample_rows(img + 1.0, pos + 3.0)
+    torch.cuda.synchronize()
+    assert float(out.min()) == float(out.max()) == 1.0
 
 
 @pytest.mark.cuda
@@ -99,12 +210,16 @@ def test_kernel_rejects_misaligned_view(cuda_device, dtype):
     flat = torch.zeros(1 + 2 * 200 * 8, device=cuda_device, dtype=dtype)
     fs = flat[1:].view(1, 2, 200, 8)
     sigma = torch.ones(1, 2, 128, device=cuda_device)
-    before = eb.launches
+    before = cudalib.launches.get("epiband_fwd", 0)
     with pytest.raises(ValueError, match="fs must start on a"):
         eb.epiband(fr, fs, None, sigma, 4, 40)
+    with pytest.raises(ValueError, match="fs must start on a"):
+        eb.epiband_backward(fr, fs, None, sigma,
+                            torch.zeros(1, 2, 128, 4, device=cuda_device), 40)
     out = eb.epiband(fr, fs.contiguous().clone(), None, sigma, 4, 40)
     torch.cuda.synchronize()
-    assert eb.launches == before + 1 and float(out.abs().max()) == 0.0
+    assert cudalib.launches["epiband_fwd"] == before + 1
+    assert float(out.abs().max()) == 0.0
 
 
 @pytest.mark.cuda
@@ -133,9 +248,12 @@ def test_rectified_kernel_route_matches_exact_on_lateral_scene(cuda_device):
                            rect_lambda_max=0.1, device=cuda_device)
     exact = InferenceRunner(model=model, construction="exact",
                             device=cuda_device)
-    before = eb.launches
+    cudalib.reset_launches()
     a = rect.submit(images, poses, intr, 1.0)[0].cpu().numpy()
     assert rect.last_path == "rectified"
-    assert eb.launches == before + 2 * (n - 1)
+    # per view: the epiband forward in each stage; two passes for each of
+    # the two feature warps and of each stage's volume back-warp
+    assert cudalib.launches["epiband_fwd"] == 2 * (n - 1)
+    assert cudalib.launches["hat_rows_fwd"] == 8 * (n - 1)
     b = exact.submit(images, poses, intr, 1.0)[0].cpu().numpy()
     np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-7)

@@ -163,7 +163,12 @@ def test_warp_image_twopass_matches_jax(rng, mode, scene):
                                    atol=1e-4)
 
 
-def test_warp_image_twopass_chunked_equals_unchunked(rng):
+def test_warp_image_twopass_chunked_equals_unchunked(rng, monkeypatch):
+    """The plain hat resample builds its hat matrices in row chunks of at
+    most ``hatwarp.HAT_BUDGET`` bytes; one row per chunk gives the same
+    warp."""
+    from cermvs_torch.ops import hatwarp
+
     poses, intr, h, w = ring_scene()
     plan = prect.plan_rectification(poses, intr, h, w)
     ii, jj = _pairs(poses.shape[1])
@@ -172,8 +177,9 @@ def test_warp_image_twopass_chunked_equals_unchunked(rng):
     img = _t(rng.randn(h, w, 4).astype(np.float32))
     full = prect.warp_image_twopass(img, geo["H_src_inv"][1], plan.h_r,
                                     plan.ws_r)
+    monkeypatch.setattr(hatwarp, "HAT_BUDGET", 1)
     chunked = prect.warp_image_twopass(img, geo["H_src_inv"][1], plan.h_r,
-                                       plan.ws_r, hat_budget=1)
+                                       plan.ws_r)
     np.testing.assert_allclose(chunked.numpy(), full.numpy(), rtol=1e-6,
                                atol=1e-6)
 

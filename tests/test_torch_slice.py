@@ -33,7 +33,7 @@ from cermvs_tpu.utils.torch_import import convert_raft
 from cermvs_torch import config as pconfig
 from cermvs_torch.io.pfm import read_pfm
 from cermvs_torch.models.raft import RAFT
-from cermvs_torch.ops import epiband as eb
+from cermvs_torch.ops import cudalib
 from cermvs_torch.pipeline.inference import InferenceRunner, inference
 
 REPO = Path(__file__).resolve().parent.parent
@@ -71,9 +71,9 @@ def test_runner_matches_jax(weights, construction):
     pr = InferenceRunner(model=port, construction=construction,
                          rect_lambda_max=0.1, device="cpu")
     dj = np.asarray(jr.submit(images, poses, intr, 1.0))[0]
-    before = eb.launches
+    before = dict(cudalib.launches)
     dp = pr.submit(images, poses, intr, 1.0)[0].numpy()
-    assert eb.launches == before  # CPU tensors: the plain version
+    assert cudalib.launches == before  # CPU tensors: the plain versions
     assert pr.last_path == jr._last_path == construction
     assert dp.shape == dj.shape == (16, 48)
     assert np.abs(dj).max() > 1e-4
