@@ -142,7 +142,8 @@ class RAFT(nn.Module):
                     vol_fn, vctx, disp.detach()[..., 0][:, None], n_hyp,
                     incre, shift=(stage == 0), num_levels=self.num_levels,
                     hyp_chunk=self.hyp_chunk,
-                    mean_over_views=self.mean_volume, zero_slab=(stage == 0))
+                    mean_over_views=self.mean_volume, zero_slab=(stage == 0),
+                    materialize_pyramid=(self.lookup_impl != "pallas"))
             with record_function(f"raft.iterations_stage{stage}"):
                 g_ctx = self.update_block.gru_ctx(inp, stage)
                 for _ in range(n_iters):

@@ -25,13 +25,15 @@ from typing import List, NamedTuple
 import torch
 
 from cermvs_torch.ops.geometry import apply_projection, relative_projection
+from cermvs_torch.ops.lookup import lookup_fused
 from cermvs_torch.ops.sampling import interp1d
 
 
 class CorrPyramid(NamedTuple):
     """Correlation pyramid + slab parameters for one cascade stage."""
 
-    levels: List[torch.Tensor]  # each (B, V, H, W, D / 2^i), fp32
+    levels: List[torch.Tensor]  # each (B, V, H, W, D / 2^i), fp32; level 0
+    #                             alone for the fused lookup
     origin: torch.Tensor        # (B, 1, H, W) per-pixel slab origin
     incre: float                # hypothesis spacing (inverse-depth units)
     n_hyp: int                  # D at level 0
@@ -179,14 +181,23 @@ def lookup(pyramid: CorrPyramid, zinv: torch.Tensor, radius: int = 5,
     """Sample 2r+1 taps per pyramid level around the current estimate.
 
     zinv: (B, V, H, W) current reference disparity per view. Returns
-    (B, V, H, W, num_levels*(2r+1)), level-major, tap-minor.
+    (B, V, H, W, num_levels*(2r+1)), level-major, tap-minor. ``impl``:
+    "banded" and "gather" read the materialized pyramid; "pallas" (the JAX
+    package's name for it) runs the fused lookup kernel on level 0 alone.
     """
     x0 = torch.clamp((zinv - pyramid.origin) / pyramid.incre
                      + pyramid.n_hyp // 2, min=0.0)
+    if impl == "pallas":
+        # the fused kernel pools level 0 itself (``ops/lookup.py``)
+        return lookup_fused(pyramid.levels[0], x0, radius, pyramid.num_levels)
+    if len(pyramid.levels) != pyramid.num_levels:
+        raise ValueError(f"lookup impl {impl!r} needs the materialized "
+                         f"pyramid")
     if impl == "banded":
         return _lookup_banded(pyramid.levels, x0, radius)
     if impl != "gather":
-        raise ValueError(f"unknown lookup impl {impl!r} (banded/gather)")
+        raise ValueError(f"unknown lookup impl {impl!r} "
+                         f"(banded/gather/pallas)")
     dx = torch.arange(-radius, radius + 1, dtype=x0.dtype, device=x0.device)
     outs = []
     for i, corr in enumerate(pyramid.levels):
@@ -220,14 +231,18 @@ def _lookup_banded(levels, x0: torch.Tensor, radius: int) -> torch.Tensor:
 def build_corr_pyramid(vol_fn, ctx, disp, n_hyp, incre, shift: bool,
                        num_levels: int = 3, hyp_chunk: int = 16,
                        mean_over_views: bool = False,
-                       zero_slab: bool = False) -> CorrPyramid:
+                       zero_slab: bool = False,
+                       materialize_pyramid: bool = True) -> CorrPyramid:
     """One cascade stage's volume and pyramid. ``vol_fn`` is an
     :class:`ExactVolume` or a rectified volume and ``ctx`` its prepared
     context; disp: (B, 1, H, W) detached current estimate. ``zero_slab``
-    tells ``vol_fn`` the origin is statically ``(n_hyp//2)*incre``."""
+    tells ``vol_fn`` the origin is statically ``(n_hyp//2)*incre``. With
+    ``materialize_pyramid=False`` only level 0 is kept (for the fused
+    lookup, which pools in the kernel)."""
     origin = slab_origin(disp, n_hyp, incre, shift)
     corr = vol_fn.build(ctx, origin, n_hyp, incre, hyp_chunk=hyp_chunk,
                          mean_over_views=mean_over_views,
                          zero_slab=zero_slab and shift)
-    return CorrPyramid(levels=build_pyramid(corr, num_levels), origin=origin,
-                       incre=incre, n_hyp=n_hyp, num_levels=num_levels)
+    levels = build_pyramid(corr, num_levels) if materialize_pyramid else [corr]
+    return CorrPyramid(levels=levels, origin=origin, incre=incre, n_hyp=n_hyp,
+                       num_levels=num_levels)

@@ -154,8 +154,10 @@ def inference(test_loader, ckpt=None, output_folder="results",
 
     ``test_loader`` yields ``(images, poses, intrinsics, image_names,
     scale)`` items and has ``.dataset.num_frames``. Weights come from
-    ``model`` (a port RAFT), ``params`` (a JAX parameter tree) or ``ckpt``
-    (a reference ``.pth``, with or without a ``module.`` prefix).
+    ``model`` (a port RAFT), ``params`` (a JAX parameter tree) or ``ckpt``:
+    a reference ``.pth`` (with or without a ``module.`` prefix), or else a
+    weights file of the port's own (``training.checkpoint.save_params``).
+    Returns one ``(name, seconds, construction)`` record per view.
     """
     if view_batch != 1:
         raise NotImplementedError("the port runs one reference view per "
@@ -163,13 +165,19 @@ def inference(test_loader, ckpt=None, output_folder="results",
     if model is None and params is None:
         if ckpt is None:
             raise ValueError("need model, params or a ckpt path")
-        if not str(ckpt).endswith(".pth"):
-            raise NotImplementedError(
-                f"{ckpt}: the port loads reference .pth checkpoints only")
-        from cermvs_torch.utils.weights import load_reference_checkpoint
+        if str(ckpt).endswith(".pth"):
+            from cermvs_torch.utils.weights import load_reference_checkpoint
 
-        model = load_reference_checkpoint(
-            ckpt, RAFT(test_mode=True, device=device, **(model_kwargs or {})))
+            model = load_reference_checkpoint(
+                ckpt, RAFT(test_mode=True, device=device,
+                           **(model_kwargs or {})))
+        else:
+            from cermvs_torch.training.checkpoint import load_params
+
+            state = load_params(ckpt)  # FileNotFoundError before the model
+            model = RAFT(test_mode=True, device=device,
+                         **(model_kwargs or {}))
+            model.load_state_dict(state)
     runner = InferenceRunner(model=model, params=params,
                              construction=construction, device=device,
                              **({} if model is not None
@@ -180,6 +188,7 @@ def inference(test_loader, ckpt=None, output_folder="results",
     num_frames = test_loader.dataset.num_frames
     factor = runner.model.stride_factor
 
+    records = []
     for images, poses, intrinsics, image_names, scale in test_loader:
         tic = time.perf_counter()
         images, intrinsics = scale_operation(images, intrinsics, rescale)
@@ -188,10 +197,12 @@ def inference(test_loader, ckpt=None, output_folder="results",
         images, intrinsics = pad_to_multiple(images, intrinsics, factor)
         depth = runner(images, poses, intrinsics, scale)
         name = image_names[0]
+        seconds = time.perf_counter() - tic
+        records.append((name, seconds, runner.last_path))
         if do_report:
             peak = (torch.cuda.max_memory_allocated(runner.device) / 2**20
                     if runner.device.type == "cuda" else 0.0)
-            print(f"per view time: {time.perf_counter() - tic:.3f}s  "
+            print(f"per view time: {seconds:.3f}s  "
                   f"peak device memory: {peak:.0f} MB ({name}, "
                   f"{runner.last_path})")
         write_pfm(output_folder / "depths"
@@ -203,3 +214,4 @@ def inference(test_loader, ckpt=None, output_folder="results",
             min_depth = (float(np.quantile(valid, 0.1) / 2) if valid.size
                          else 0.0)
             (md_dir / f"{name}.txt").write_text(f"{min_depth}\n")
+    return records

@@ -7,38 +7,58 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``.
 Phases (any failure raises, so the exit code is non-zero):
 
   1. build the kernels from ``cermvs_torch/csrc`` (``epiband.cu``,
-     ``hatwarp.cu``), one nvcc each, all at once;
+     ``hatwarp.cu``, ``lookup.cu``), one nvcc each, all at once;
   2. hold the epiband forward kernel against its plain PyTorch version on
      the card at the DTU slice's shapes (stage 0: D=64, base == 0; stage 1:
      D=44 with bases inside and outside the band and with the main path's
      bases; narrow and wide sigma; fp32 and bf16), and time both stages on
      the main path's bases;
-  3. drive the port's depth inference (``InferenceRunner``) at full DTU width
+  3. hold the fused lookup kernels (forward, gradient, prefix-sum) against
+     their plain versions at phase 4's (1,1,288,400,D), the demo's
+     (1,1,300,400,D) and (1,1,600,800,D) and the training batch's
+     (2,1,264,360,D) volumes, D = 64 and 44, with their times, plain times
+     and bounds;
+  4. drive the port's depth inference (``InferenceRunner``) at full DTU width
      — 1152x1600 images, 11 views, cascade (64,64,8)/(44,320,8), HR encoders,
      bf16, random weights from a seed — through the rectified construction
      (epiband and hat kernels) and through the exact one (one warm-up, three
      timed forwards each), and check the result: finite (288, 400)
-     disparities, the launch counts, and rectified-vs-exact and
-     kernel-vs-plain agreement on a small lateral-motion scene, where
-     rectification is lossless;
-  4. run ``inference()`` on a two-item in-memory loader and check the PFM
+     disparities, the launch counts, and rectified-vs-exact, kernel-vs-plain
+     and fused-vs-banded lookup agreement on a small lateral-motion scene,
+     where rectification is lossless;
+  5. run ``inference()`` on a two-item in-memory loader and check the PFM
      names;
-  5. write a synthetic DTU training tree (one scan, one light, 1200x1600
+  6. the demo contract: write a synthetic DTU test scan (11 imaged views of
+     1200x1600, 49 cameras on an arc) and random weights; plan it at
+     rescale 1 and 2 as inference does and hold the epiband forward and hat
+     kernels against their plain versions at those plans (the widest band
+     and the largest grid; fp32 and bf16), timing them at rescale 2; then
+     run the port's CLIs with ``inference_DTU.gin`` and
+     ``RAFT.lookup_impl="pallas"``: inference at rescale 1 and 2, multires,
+     fusion at rescale 2 with view_batch 8; check the construction, the
+     launches per forward and every file;
+  7. fuse the scan's true depth maps (a sphere) at 1152x1600 and check that
+     every fused point lies on the sphere;
+  8. write a synthetic DTU training tree (one scan, one light, 1200x1600
      PNGs and PFM depths, 49 cameras on an arc), plan its first training
      batch, and hold the epiband backward kernels and the hat-resample
      kernels against their plain versions at that plan's shapes (fp32 and
      bf16), with their times, bounds and, for the hat kernels, the time of
      one ``grid_sample`` call (forward) and of one
      ``grid_sampler_2d_backward`` call (transpose);
-  6. train through ``train()`` with ``train_DTU.gin``'s bindings (rectified,
+  9. train through ``train()`` with ``train_DTU.gin``'s bindings (rectified,
      batch 2, nf10, crop 1056x1440) for four steps, time the last three, and
-     check the two-pass plan, finite loss and gradients, all five kernels'
-     launch counts, and that the checkpoint restores its step.
+     check the two-pass plan, finite loss and gradients, the kernels'
+     launch counts, and that the checkpoint restores its step;
+ 10. train two steps the same way with the fused lookup, check its launches
+     (16 forward and 16 backward a step), and hold one step's loss from
+     fixed weights on phase 8's batch against the banded lookup's.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Needs no network and one card.
 ``--profile`` adds a torch.profiler breakdown of one forward per
-construction (device time per RAFT.forward range, top kernels, busy share).
+construction and of one train step (device time per RAFT.forward range,
+top kernels, busy share).
 """
 
 import json
@@ -52,22 +72,46 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 H, W = 1152, 1600          # DTU images, cropped to the encoder stride
 NUM_FRAMES = 10            # neighbours; 11 views in all
 PEAK_BYTES_S = 3.35e12     # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, non-TF32 fp32
 DTU_HW = (1200, 1600)      # DTU training images and depths
 TRAIN_STEPS = 3            # train.num_steps: 4 steps, the first a warm-up
-KERNELS = ("epiband_fwd", "epiband_bwd_dfr", "epiband_bwd_dfs",
-           "hat_rows_fwd", "hat_rows_bwd")
+PALLAS_STEPS = 2           # train.num_steps of the fused-lookup run: 3 steps
+DEMO_VIEWS = 11            # imaged views of the synthetic DTU test scan
+SPHERE_R = 200.0           # its surface: a sphere about the origin (mm)
+TRUE_HW = (1152, 1600)     # true depth maps: the 1200x1600 images' crop
+TRUE_TOL_MM = 0.05         # fused true depths: largest distance to the sphere
+C_FEAT = 64                # the shipped model's feature channels
+STAGES = ((64, 0.0025 / 64), (44, 0.0025 / 320))  # (hypotheses, increment)
+LOOKUP_SHAPES = {          # (B, V, h, w, D) of the fused lookup
+    "inference_stage0": (1, 1, 288, 400, 64),     # phase 4's 1152x1600
+    "inference_stage1": (1, 1, 288, 400, 44),
+    "demo_rescale1_stage0": (1, 1, 300, 400, 64),  # the demo's 1200x1600
+    "demo_rescale1_stage1": (1, 1, 300, 400, 44),
+    "demo_rescale2_stage0": (1, 1, 600, 800, 64),  # and its 2400x3200
+    "demo_rescale2_stage1": (1, 1, 600, 800, 44),
+    "training_stage0": (2, 1, 264, 360, 64),
+    "training_stage1": (2, 1, 264, 360, 44)}
+LOOKUPS = ("lookup_fused_fwd", "lookup_fused_bwd", "lookup_fused_v2")
+TRAIN_KERNELS = ("epiband_bwd_dfr", "epiband_bwd_dfs", "hat_rows_fwd",
+                 "hat_rows_bwd")  # held against plain at the training plan
+KERNELS = ("epiband_fwd",) + TRAIN_KERNELS + LOOKUPS
 _EB, _HW = "cermvs_torch/csrc/epiband.cu", "cermvs_torch/csrc/hatwarp.cu"
+_LK = "cermvs_torch/csrc/lookup.cu"
 SOURCES = {  # kernel: (source, the TPU kernel's entry it replaces)
     "epiband_fwd": (_EB, "cermvs_tpu/ops/pallas/epiband.py:529"),
     "epiband_bwd_dfr": (_EB, "cermvs_tpu/ops/pallas/epiband.py:919"),
     "epiband_bwd_dfs": (_EB, "cermvs_tpu/ops/pallas/epiband.py:919"),
     "hat_rows_fwd": (_HW, "cermvs_tpu/ops/pallas/hatwarp.py:119"),
     "hat_rows_bwd": (_HW, "cermvs_tpu/ops/pallas/hatwarp.py:155"),
+    "lookup_fused_fwd": (_LK, "cermvs_tpu/ops/pallas/lookup.py:104"),
+    "lookup_fused_bwd": (_LK, "cermvs_tpu/ops/pallas/lookup.py:138"),
+    "lookup_fused_v2": (_LK, "cermvs_tpu/ops/pallas/lookup_v2.py:99"),
 }
+NO_LIBRARY = "none: no single PyTorch call computes the pooled 33-tap lookup"
 
 
 def dtu_ring_poses(n):
@@ -132,6 +176,32 @@ def dtu_arc_poses(n=49, step=0.04, radius=600.0):
     return np.stack(poses)
 
 
+def write_cameras(root, h, w, n, num_frames):
+    """``Cameras/``: the 49 camera files of :func:`dtu_arc_poses` with the
+    DTU focal (2892 px at 1600 wide) for h x w images, and ``pair.txt``
+    listing, for each of the first ``n`` views, its ``num_frames`` nearest
+    among them. Returns n."""
+    from cermvs_torch.data.cams import write_cam_file
+
+    (Path(root) / "Cameras").mkdir(parents=True, exist_ok=True)
+    poses = dtu_arc_poses()
+    f = 2892.0 * w / 1600
+    K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]])
+    for i, P in enumerate(poses):
+        write_cam_file(Path(root) / "Cameras" / f"{i:08d}_cam.txt", P, K,
+                       aux=[425.0, 2.5])
+    centers = np.stack([-P[:3, :3].T @ P[:3, 3] for P in poses[:n]])
+    dist = np.linalg.norm(centers[:, None] - centers[None], axis=-1)
+    lines = [f"{n}\n"]
+    for i in range(n):
+        near = [int(j) for j in np.argsort(dist[i], kind="stable")
+                if j != i][:num_frames]
+        lines += [f"{i}\n", f"{len(near)} " + " ".join(
+            f"{j} {100.0 - r:.1f}" for r, j in enumerate(near)) + "\n"]
+    (Path(root) / "Cameras" / "pair.txt").write_text("".join(lines))
+    return n
+
+
 def write_dtu_tree(root, h, w, num_frames, scan="scan113", light=0, seed=0):
     """A DTU training tree for one scan and one light: ``Rectified/`` PNGs
     and ``Depths/`` PFMs of h x w (image/depth ratio 1), 49 cameras from
@@ -142,28 +212,12 @@ def write_dtu_tree(root, h, w, num_frames, scan="scan113", light=0, seed=0):
     the work."""
     import cv2
 
-    from cermvs_torch.data.cams import write_cam_file
     from cermvs_torch.io.pfm import write_pfm
 
     root = Path(root)
-    for d in ("Cameras", f"Rectified/{scan}", f"Depths/{scan}"):
+    for d in (f"Rectified/{scan}", f"Depths/{scan}"):
         (root / d).mkdir(parents=True, exist_ok=True)
-    poses = dtu_arc_poses()
-    n = len(poses)
-    f = 2892.0 * w / 1600
-    K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]])
-    centers = np.stack([-P[:3, :3].T @ P[:3, 3] for P in poses])
-    dist = np.linalg.norm(centers[:, None] - centers[None], axis=-1)
-    lines = [f"{n}\n"]
-    for i in range(n):
-        write_cam_file(root / "Cameras" / f"{i:08d}_cam.txt", poses[i], K,
-                       aux=[425.0, 2.5])
-        near = [int(j) for j in np.argsort(dist[i], kind="stable")
-                if j != i][:num_frames]
-        lines += [f"{i}\n", f"{len(near)} " + " ".join(
-            f"{j} {100.0 - r:.1f}" for r, j in enumerate(near)) + "\n"]
-    (root / "Cameras" / "pair.txt").write_text("".join(lines))
-
+    n = write_cameras(root, h, w, 49, num_frames)
     rng = np.random.RandomState(seed)
     yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w),
                          indexing="ij")
@@ -180,6 +234,12 @@ def write_dtu_tree(root, h, w, num_frames, scan="scan113", light=0, seed=0):
                 root / "Rectified" / scan / f"rect_{i + 1:03d}_{light}_r5000.png")
         os.link(root / "depth.pfm",
                 root / "Depths" / scan / f"depth_map_{i:04d}.pfm")
+
+
+def check_launches(got, expect, what):
+    """Fail unless the kernels launched as often as ``expect`` says."""
+    if any(got.get(k, 0) != v for k, v in expect.items()):
+        raise RuntimeError(f"{what}: launches {got} != {expect}")
 
 
 def cuda_ms(fn, reps):
@@ -217,10 +277,13 @@ def epiband_case(torch, rng, h_r, w_r, ws, C, D, base_kind, sig, dtype,
     """Inputs of one epiband call. base_kind None: base == 0 (stage 0);
     "band": bases inside and outside the band, so slabs fall partly or
     wholly off either end of the source row; "main": the main path's
-    stage-1 bases (``main_path_base``, stage0 = (d0, ratio))."""
+    stage-1 bases (``main_path_base``, stage0 = (d0, ratio)). The features
+    are drawn on the card (seeded from ``rng``): the host's generator takes
+    seconds at the demo's widths."""
     dev = "cuda"
-    fr = torch.from_numpy(rng.randn(1, h_r, w_r, C).astype(np.float32))
-    fs = torch.from_numpy(rng.randn(1, h_r, ws, C).astype(np.float32))
+    gen = torch.Generator(device=dev).manual_seed(int(rng.randint(2**31)))
+    fr = torch.randn((1, h_r, w_r, C), generator=gen, device=dev)
+    fs = torch.randn((1, h_r, ws, C), generator=gen, device=dev)
     sigma = rng.uniform(sig[0], sig[1], (1, h_r, w_r)).astype(np.float32)
     base = None
     if base_kind == "band":
@@ -301,8 +364,10 @@ def hat_bounds(torch, img, pos):
 
 def hat_case(torch, rng, R, S, O, C, dtype):
     """Row resample inputs of a two-pass warp: positions sweep the source
-    row (slope S/O) with sub-pixel jitter, a few rows fully outside."""
-    img = torch.from_numpy(rng.randn(R, S, C).astype(np.float32))
+    row (slope S/O) with sub-pixel jitter, a few rows fully outside. The
+    image is drawn on the card, as in :func:`epiband_case`."""
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.randint(2**31)))
+    img = torch.randn((R, S, C), generator=gen, device="cuda")
     o = np.arange(O)[None] * (S + 8) / O - 4.0
     pos = (o + rng.uniform(-0.5, 0.5, (R, O))).astype(np.float32)
     pos[: max(1, R // 50)] = -1e4  # rows the warp maps off the image
@@ -382,7 +447,7 @@ def configure_training(tree):
     pcfg.bind_parameter("train.num_steps", TRAIN_STEPS)
 
 
-def phase5_plan(torch, tree):
+def plan_training_batch(torch, tree):
     """Write the DTU tree and plan the first batch of a training loader as
     ``train()`` plans each batch (without workers, so it is the seed's)."""
     from cermvs_torch import data
@@ -395,7 +460,7 @@ def phase5_plan(torch, tree):
     loader = data.get_train_data_loader(batch_size=2, num_workers=0)
     batch = next(iter(loader))
     plan = PlanCache().key_for(plan_batch(batch, 4))
-    print(f"phase 5: DTU tree {DTU_HW} written and first batch "
+    print(f"phase 8: DTU tree {DTU_HW} written and first batch "
           f"{batch['images'].shape} planned in "
           f"{time.perf_counter() - t0:.1f} s: h_r={plan.h_r} w_r={plan.w_r} "
           f"s_max={plan.s_max} ws_r={plan.ws_r} twopass={plan.twopass} "
@@ -405,7 +470,7 @@ def phase5_plan(torch, tree):
     return plan, batch
 
 
-def phase5_kernels(torch, plan, batch):
+def phase_training_kernels(torch, plan, batch):
     """The backward and hat kernels against their plain versions at the
     training plan's shapes (widest view; stage 0 with base == 0, stage 1 on
     the main path's bases; a feature-warp and a volume back-warp pass),
@@ -420,11 +485,10 @@ def phase5_kernels(torch, plan, batch):
     vmax = int(np.argmax(plan.view_s_max))
     s_v = plan.view_s_max[vmax]
     ws_v = plan.ws_r - (plan.s_max - s_v)
-    C, d0, d1 = 64, 64, 44
-    inc0, inc1 = 0.0025 / 64, 0.0025 / 320
-    errs = {k: 0.0 for k in KERNELS[1:]}
-    rows = {k: {"stages": {}} for k in KERNELS[1:3]}
-    rows.update({k: {"shapes": {}} for k in KERNELS[3:]})
+    C, ((d0, inc0), (d1, inc1)) = C_FEAT, STAGES
+    errs = {k: 0.0 for k in TRAIN_KERNELS}
+    rows = {k: {"stages": {}} for k in TRAIN_KERNELS[:2]}
+    rows.update({k: {"shapes": {}} for k in TRAIN_KERNELS[2:]})
     for dtype, rtol, atol in ((torch.float32, 1e-4, 1e-3),
                               (torch.bfloat16, 1e-2, 1e-2)):
         for stage, D, base_kind, sig in (
@@ -439,7 +503,7 @@ def phase5_kernels(torch, plan, batch):
             got = (eb.backward_dfr(*args), eb.backward_dfs(*args))
             torch.cuda.synchronize()
             ref = eb.epiband_backward_reference(*args)
-            for name, a, b in zip(KERNELS[1:3], got, ref):
+            for name, a, b in zip(TRAIN_KERNELS[:2], got, ref):
                 err = float((a.float() - b.float()).abs().max())
                 errs[name] = max(errs[name], err)
                 # bf16: the plain version's roundings, so few elements differ
@@ -447,7 +511,7 @@ def phase5_kernels(torch, plan, batch):
                 ok = bool(torch.allclose(a.float(), b.float(), rtol=rtol,
                                          atol=atol)) and (
                     dtype != torch.bfloat16 or differ < 0.01)
-                print(f"phase 5: {name} {stage} D={D} {str(dtype)[6:]}: "
+                print(f"phase 8: {name} {stage} D={D} {str(dtype)[6:]}: "
                       f"max|kernel-plain|={err:.3e} (|plain|max "
                       f"{float(b.abs().max()):.2f}), share differing "
                       f"{differ:.4f}, ok={ok}", flush=True)
@@ -465,7 +529,7 @@ def phase5_kernels(torch, plan, batch):
                     D=D, shape=[1, plan.h_r, plan.w_r, ws_v, C], ms=ms,
                     plain_ms=plain, bound_ms=bounds[name][0],
                     bound_by=bounds[name][1])
-                print(f"phase 5: {name} {stage} timing: kernel {ms:.4f} ms, "
+                print(f"phase 8: {name} {stage} timing: kernel {ms:.4f} ms, "
                       f"plain (both gradients) {plain:.3f} ms, bound "
                       f"{bounds[name][0]:.4f} ms ({bounds[name][1]})",
                       flush=True)
@@ -492,7 +556,7 @@ def phase5_kernels(torch, plan, batch):
                 errs[name] = max(errs[name], err)
                 ok = bool(torch.allclose(a.float(), b.float(), rtol=tol,
                                          atol=tol))
-                print(f"phase 5: {name} {shape_name} {(R, S, O, Cc)} "
+                print(f"phase 8: {name} {shape_name} {(R, S, O, Cc)} "
                       f"{str(dtype)[6:]}: max|kernel-plain|={err:.3e} ok={ok}",
                       flush=True)
                 if not ok:
@@ -524,14 +588,14 @@ def phase5_kernels(torch, plan, batch):
                     shape=[R, S, O, Cc], ms=ms, plain_ms=plain,
                     library_ms=lib_ms, bound_ms=bounds[name][0],
                     bound_by=bounds[name][1])
-                print(f"phase 5: {name} {shape_name} timing: kernel "
+                print(f"phase 8: {name} {shape_name} timing: kernel "
                       f"{ms:.4f} ms, plain {plain:.3f} ms, library "
                       f"{lib_ms:.4f} ms (grid_sample |diff| "
                       f"{lib_err[name]:.2e}), bound "
                       f"{bounds[name][0]:.4f} ms ({bounds[name][1]})",
                       flush=True)
     # the report's row: stage 0 and the feature warp, the largest launches
-    for name in KERNELS[1:]:
+    for name in TRAIN_KERNELS:
         main = (rows[name]["stages"]["stage0"] if "stages" in rows[name]
                 else rows[name]["shapes"]["feature_warp"])
         rows[name].update(max_abs_err=errs[name], ms=main["ms"],
@@ -541,7 +605,7 @@ def phase5_kernels(torch, plan, batch):
     return rows
 
 
-def phase6_train(torch, tree, plan5, batch5):
+def phase_train(torch, tree, plan5, batch5):
     """``train()`` through ``train_DTU.gin`` (rectified, batch 2, nf10,
     crop 1056x1440) for TRAIN_STEPS + 1 steps on the synthetic tree; times
     the steps after the first and checks the path, the values, the launch
@@ -559,7 +623,7 @@ def phase6_train(torch, tree, plan5, batch5):
     def on_step(state, metrics, plan):
         torch.cuda.synchronize()
         records.append((time.perf_counter(), metrics, plan))
-        print(f"phase 6: step {state.step}: loss {metrics['loss']:.5f} "
+        print(f"phase 9: step {state.step}: loss {metrics['loss']:.5f} "
               f"grad_norm {metrics['grad_norm']:.4f} plan "
               f"{None if plan is None else (plan.h_r, plan.w_r, plan.ws_r)}",
               flush=True)
@@ -583,10 +647,13 @@ def phase6_train(torch, tree, plan5, batch5):
                 # two passes per feature warp (2 per view) and per stage's
                 # volume back-warp, forward and transposed
                 "hat_rows_fwd": B * V * (2 + S) * 2,
-                "hat_rows_bwd": B * V * (2 + S) * 2}
+                "hat_rows_bwd": B * V * (2 + S) * 2,
+                # the banded lookup of the materialized pyramid
+                "lookup_fused_fwd": 0, "lookup_fused_bwd": 0,
+                "lookup_fused_v2": 0}
     expect = {k: steps * v for k, v in per_step.items()}
     s_per_step = [b[0] - a[0] for a, b in zip(records, records[1:])]
-    print(f"phase 6: {steps} steps in {wall:.1f} s, s/step after the first "
+    print(f"phase 9: {steps} steps in {wall:.1f} s, s/step after the first "
           f"{[round(t, 4) for t in s_per_step]}, peak "
           f"{peak / 2**30:.2f} GiB, launches {launches} (expected {expect})",
           flush=True)
@@ -613,7 +680,7 @@ def phase6_train(torch, tree, plan5, batch5):
     same = all(torch.equal(a, b) for a, b in zip(
         state.model.state_dict().values(),
         restored.model.state_dict().values()))
-    print(f"phase 6: checkpoints at steps {mgr.all_steps()}, restore resumes "
+    print(f"phase 9: checkpoints at steps {mgr.all_steps()}, restore resumes "
           f"step {restored.step}, weights equal {same}", flush=True)
     if not same:
         raise RuntimeError("restored weights differ")
@@ -632,6 +699,592 @@ def phase6_train(torch, tree, plan5, batch5):
             "plan": [list(p[:3]) + [list(p[3])] for p in sorted(plans)]}
 
 
+def cuda_ms_cold(torch, fn, reps):
+    """Mean time of one call with the L2 cache flushed before it, as the
+    main path finds the volume (the GRU's convolutions run between two
+    lookups): CUDA events around each call."""
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    fn()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, end in events:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / reps
+
+
+def lookup_case(torch, rng, shape):
+    """A fp32 volume, its clamped indices (zero, inside and past D, as the
+    main path's clamp max(index, 0) gives them) and a tap gradient; the
+    volume and the gradient are drawn on the card, as in
+    :func:`epiband_case`."""
+    D = shape[-1]
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.randint(2**31)))
+    corr = torch.randn(shape, generator=gen, device="cuda")
+    x0 = np.maximum(rng.rand(*shape[:-1]).astype(np.float32) * (D + 16) - 4,
+                    0)
+    g = torch.randn((*shape[:-1], 33), generator=gen, device="cuda")
+    return corr, torch.from_numpy(x0).cuda(), g
+
+
+def lookup_bounds(torch, x0, D, radius=5, levels=3):
+    """Least time of the fused lookup (forward and prefix-sum variant) and
+    of its gradient for these indices. Bytes: the level-0 cells some
+    in-range tap reaches and x0, read once; the taps written (forward) or
+    read (gradient) once; the gradient's D cells per pixel written once.
+    Operations (fp32): per (tap, in-range pooled cell) 2^l adds and a scale,
+    and a 3-operation lerp per tap (forward); 2 * 2^l per (tap, in-range
+    pooled cell) (gradient). Returns {name: (bound_ms, bound_by)}."""
+    M, K = x0.numel(), 2 * radius + 1
+    T = levels * K
+    x = x0.reshape(-1).float()
+    j = torch.arange(D, device=x.device)[None]
+    reached = torch.zeros(M, D, dtype=torch.bool, device=x.device)
+    fwd_ops, bwd_ops = 3 * M * T, 0
+    for lvl in range(levels):
+        n, Dl = 1 << lvl, D >> lvl
+        c0 = torch.floor(x / n)[:, None]
+        cells = c0 - radius + torch.arange(K + 1, device=x.device)
+        inside = (cells >= 0) & (cells < Dl)
+        pairs = int(inside[:, :-1].sum() + inside[:, 1:].sum())
+        fwd_ops += pairs * (n + 1)
+        bwd_ops += pairs * 2 * n
+        jl = j >> lvl
+        reached |= (jl >= c0 - radius) & (jl <= c0 + radius + 1) & (jl < Dl)
+    peak = PEAK_FLOPS["float32"]
+    taps = M * T * 4
+    fwd = bound_of(int(reached.sum()) * 4 + M * 4 + taps, fwd_ops, peak)
+    return {"lookup_fused_fwd": fwd, "lookup_fused_v2": fwd,
+            "lookup_fused_bwd": bound_of(taps + M * 4 + M * D * 4, bwd_ops,
+                                         peak)}
+
+
+def phase_lookup_kernels(torch):
+    """The fused lookup kernels against their plain versions on the card at
+    the main path's shapes (inference at scale 1 and the training batch,
+    stage 0 and stage 1), with their times (L2 flushed before each launch,
+    and back to back), plain times and bounds."""
+    from cermvs_torch.ops import lookup as lk
+
+    rng = np.random.RandomState(7)
+    rows = {k: {"shapes": {}} for k in LOOKUPS}
+    errs = {k: 0.0 for k in LOOKUPS}
+    for shape_name, shape in LOOKUP_SHAPES.items():
+        corr, x0, g = lookup_case(torch, rng, shape)
+        D = shape[-1]
+        got = {"lookup_fused_fwd": lk.lookup_fused(corr, x0),
+               "lookup_fused_bwd": lk.lookup_fused_backward(g, x0, D),
+               "lookup_fused_v2": lk.lookup_fused_v2(corr, x0)}
+        torch.cuda.synchronize()
+        plain = {"lookup_fused_fwd": lambda: lk.lookup_fused_reference(
+                     corr, x0),
+                 "lookup_fused_bwd": lambda: lk.lookup_fused_backward_reference(
+                     g, x0, D),
+                 "lookup_fused_v2": lambda: lk.lookup_fused_v2_reference(
+                     corr, x0)}
+        # fp32 pooling and lerps in another order; the prefix-sum kernel
+        # against its plain version (both prefix sums, another scan order)
+        # and against the pooled taps at the JAX package's 2e-3
+        checks = [(name, "plain", got[name], plain[name](), 1e-4 if name ==
+                   "lookup_fused_v2" else 1e-5) for name in LOOKUPS]
+        checks.append(("lookup_fused_v2", "pooled taps",
+                       got["lookup_fused_v2"], checks[0][3], 2e-3))
+        for name, against, a, b, tol in checks:
+            err = float((a - b).abs().max())
+            if against == "plain":
+                errs[name] = max(errs[name], err)
+            ok = bool(torch.allclose(a, b, rtol=tol, atol=tol))
+            print(f"phase 3: {name} {shape_name} {shape}: max|kernel - "
+                  f"{against}|={err:.3e} (|{against}|max "
+                  f"{float(b.abs().max()):.2f}, tol {tol:g}) ok={ok}",
+                  flush=True)
+            if not ok:
+                raise RuntimeError(f"{name} disagrees with its plain version "
+                                   f"({shape_name})")
+        bounds = lookup_bounds(torch, x0, D)
+        kernel = {"lookup_fused_fwd": lambda: lk.lookup_fused(corr, x0),
+                  "lookup_fused_bwd": lambda: lk.lookup_fused_backward(
+                      g, x0, D),
+                  "lookup_fused_v2": lambda: lk.lookup_fused_v2(corr, x0)}
+        for name in LOOKUPS:
+            ms = cuda_ms_cold(torch, kernel[name], 20)
+            warm = cuda_ms(kernel[name], 50)
+            plain_ms = cuda_ms(plain[name], 3)
+            rows[name]["shapes"][shape_name] = dict(
+                shape=list(shape), ms=ms, warm_ms=warm, plain_ms=plain_ms,
+                bound_ms=bounds[name][0], bound_by=bounds[name][1])
+            print(f"phase 3: {name} {shape_name} timing: kernel {ms:.4f} ms "
+                  f"(L2 flushed; back to back {warm:.4f}), plain "
+                  f"{plain_ms:.3f} ms, bound {bounds[name][0]:.4f} ms "
+                  f"({bounds[name][1]}), library {NO_LIBRARY}", flush=True)
+    for name in LOOKUPS:
+        main = rows[name]["shapes"]["training_stage0" if name ==
+                                    "lookup_fused_bwd" else
+                                    "inference_stage0"]
+        rows[name].update(max_abs_err=errs[name], ms=main["ms"],
+                          plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                          bound_by=main["bound_by"], library_ms=None,
+                          library=NO_LIBRARY)
+    return rows
+
+
+def sphere_depth(P, K, h, w):
+    """Depth (camera z) of the sphere of radius SPHERE_R about the origin
+    seen from world-to-camera pose P with intrinsics K, (h, w) fp32; 0
+    where a ray misses it."""
+    u, v = np.meshgrid(np.arange(w, dtype=np.float64),
+                       np.arange(h, dtype=np.float64))
+    d = np.linalg.inv(K) @ np.stack([u.ravel(), v.ravel(), np.ones(u.size)])
+    c = np.asarray(P, np.float64)[:3, 3]  # the centre in camera coordinates
+    a = (d * d).sum(0)
+    b = c @ d
+    disc = b * b - a * (c @ c - SPHERE_R ** 2)
+    s = (b - np.sqrt(np.maximum(disc, 0.0))) / a
+    return np.where(disc > 0, s, 0.0).reshape(h, w).astype(np.float32)
+
+
+def write_dtu_test_scan(root, h, w, scan="scan3", n=DEMO_VIEWS, seed=0):
+    """A DTU test scan as ``DTUTest`` reads it: ``Rectified/<scan>/
+    rect_{i:03d}_3_r5000.png`` (h x w, random texture) for the first ``n``
+    cameras of :func:`write_cameras`, each listing the other n - 1 in
+    ``pair.txt``."""
+    import cv2
+
+    root = Path(root)
+    (root / "Rectified" / scan).mkdir(parents=True, exist_ok=True)
+    write_cameras(root, h, w, n, n - 1)
+    rng = np.random.RandomState(seed)
+    for i in range(n):
+        cv2.imwrite(
+            str(root / "Rectified" / scan / f"rect_{i + 1:03d}_3_r5000.png"),
+            (rng.rand(h, w, 3) * 255).astype(np.uint8),
+            [cv2.IMWRITE_PNG_COMPRESSION, 1])
+
+
+def run_cli(main_fn, bindings):
+    """A port CLI with ``-g inference_DTU`` and ``bindings`` as ``-p``."""
+    from cermvs_torch import config as pcfg
+
+    pcfg.clear_config()
+    argv = ["-g", "inference_DTU"]
+    for b in bindings:
+        argv += ["-p", b]
+    return main_fn(argv)
+
+
+def demo_plans(runner, root):
+    """The rectification plans of the demo's inference at rescale 1 and 2,
+    formed as ``inference()`` forms them (scale, crop to the stride,
+    neighbour order, ``plan_for``) for every reference view of the test
+    scan. Per rescale: the feature size and the distinct plans of the
+    widest band and of the largest rectified grid. Fails unless every plan
+    is two-pass and phase 3 held the lookups at these feature sizes."""
+    from cermvs_torch.data import get_test_data_loader
+    from cermvs_torch.data.augment import pad_to_multiple, scale_operation
+
+    loader = get_test_data_loader("DTUTest", dataset_path=str(root / "DTU"),
+                                  scan="scan3", num_frames=NUM_FRAMES,
+                                  num_workers=0)
+    plans, hw = {1: [], 2: []}, {}
+    for images, poses, intr, _, scale in loader:
+        order = runner.neighbor_order(poses)
+        for rescale in plans:
+            im, k = scale_operation(images, intr, rescale)
+            im, k = pad_to_multiple(im, k, runner.model.stride_factor)
+            plan = runner.plan_for(poses[order], k[order], scale,
+                                   im.shape[1:3])
+            if not (plan.ok and plan.twopass):
+                raise RuntimeError(f"demo view not planned two-pass at "
+                                   f"rescale {rescale}: {plan}")
+            plans[rescale].append(plan)
+            hw[rescale] = tuple(s // runner.model.stride_factor
+                                for s in im.shape[1:3])
+    picked = {}
+    for rescale, found in plans.items():
+        for s, (D, _) in enumerate(STAGES):
+            want = LOOKUP_SHAPES[f"demo_rescale{rescale}_stage{s}"]
+            if want != (1, 1, *hw[rescale], D):
+                raise RuntimeError(f"the demo's lookup at rescale {rescale} "
+                                   f"is {hw[rescale]}, phase 3 held {want}")
+        picked[rescale] = (hw[rescale], sorted(
+            {max(found, key=lambda p: (p.ws_r, p.h_r * p.w_r)),
+             max(found, key=lambda p: (p.h_r * p.w_r, p.ws_r))},
+            key=lambda p: p.ws_r, reverse=True))
+    return picked
+
+
+def hold_rect_kernels(torch, plan, h, w, label, timed=False):
+    """epiband_fwd and hat_rows_fwd against their plain versions at one
+    inference plan's widest view, (h, w) features: epiband stage 0 (base ==
+    0) and stage 1 (the main path's bases); both passes of the reference
+    and source feature warps and of each stage's volume back-warp; fp32
+    and bf16, at phase 2's and phase 8's tolerances. Returns each kernel's
+    largest error and, with ``timed``, its bf16 times at stage 0 (epiband)
+    and the source warp's first pass (hat), with plain times and bounds."""
+    from cermvs_torch.ops import epiband as eb
+    from cermvs_torch.ops import hatwarp as hwp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(11)
+    vmax = int(np.argmax(plan.view_s_max))
+    s_v = plan.view_s_max[vmax]
+    ws = plan.ws_r - (plan.s_max - s_v)
+    rate = np.asarray(plan.view_rates)[vmax]
+    (d0, inc0), (d1, inc1) = STAGES
+    errs = {"epiband_fwd": 0.0, "hat_rows_fwd": 0.0}
+    rows = {"epiband_fwd": {}, "hat_rows_fwd": {}}
+    shape = f"h_r={plan.h_r} w_r={plan.w_r} ws={ws} s_max={s_v}"
+    for dtype, rtol, atol in ((torch.float32, 1e-4, 1e-3),
+                              (torch.bfloat16, 1e-3, 1e-2)):
+        for stage, D, base_kind, inc in (("stage0", d0, None, inc0),
+                                         ("stage1", d1, "main", inc1)):
+            fr, fs, base, sigma = epiband_case(
+                torch, rng, plan.h_r, plan.w_r, ws, C_FEAT, D, base_kind,
+                tuple(rate * inc), dtype, (d0, inc0 / inc1))
+            args = (fr, fs, base, sigma, D, s_v)
+            out = eb.epiband(*args)
+            torch.cuda.synchronize()
+            ref = eb.epiband_reference(*args)
+            err = float((out - ref).abs().max())
+            errs["epiband_fwd"] = max(errs["epiband_fwd"], err)
+            ok = bool(torch.allclose(out, ref, rtol=rtol, atol=atol))
+            print(f"phase 6: epiband_fwd {label} {shape} {stage} D={D} "
+                  f"{str(dtype)[6:]}: max|kernel-plain|={err:.3e} (|plain|max "
+                  f"{float(ref.abs().max()):.2f}) ok={ok}", flush=True)
+            if not ok:
+                raise RuntimeError(f"epiband_fwd disagrees with its plain "
+                                   f"version ({label}, {stage}, {dtype})")
+            del out, ref
+            if timed and dtype == torch.bfloat16 and stage == "stage0":
+                bound, by = epiband_bounds(torch, fr, fs, base, sigma, D,
+                                           s_v)["epiband_fwd"]
+                rows["epiband_fwd"] = dict(
+                    shape=[1, plan.h_r, plan.w_r, ws, C_FEAT], D=D,
+                    ms=cuda_ms(lambda: eb.epiband(*args), 20),
+                    plain_ms=cuda_ms(lambda: eb.epiband_reference(*args), 3),
+                    bound_ms=bound, bound_by=by)
+        # (R, S, O, C) of each hat pass: the warps of the (h, w) features to
+        # the (h_r, w_r) and (h_r, ws) rect grids, then each stage's
+        # (h_r, w_r, D) volume back to (h, w)
+        passes = {"ref_warp_pass1": (h, w, plan.w_r, C_FEAT),
+                  "ref_warp_pass2": (plan.w_r, h, plan.h_r, C_FEAT),
+                  "src_warp_pass1": (h, w, ws, C_FEAT),
+                  "src_warp_pass2": (ws, h, plan.h_r, C_FEAT)}
+        for s, (D, _) in enumerate(STAGES):
+            passes[f"back_warp_stage{s}_pass1"] = (plan.h_r, plan.w_r, w, D)
+            passes[f"back_warp_stage{s}_pass2"] = (w, plan.h_r, h, D)
+        for name, (R, S, O, C) in passes.items():
+            img, pos = hat_case(torch, rng, R, S, O, C, dtype)
+            out = hwp.hat_resample_rows(img, pos)
+            torch.cuda.synchronize()
+            ref = hwp.hat_resample_rows_reference(img, pos)
+            err = float((out - ref).abs().max())
+            errs["hat_rows_fwd"] = max(errs["hat_rows_fwd"], err)
+            ok = bool(torch.allclose(out, ref, rtol=1e-5, atol=1e-5))
+            print(f"phase 6: hat_rows_fwd {label} {name} {(R, S, O, C)} "
+                  f"{str(dtype)[6:]}: max|kernel-plain|={err:.3e} ok={ok}",
+                  flush=True)
+            if not ok:
+                raise RuntimeError(f"hat_rows_fwd disagrees with its plain "
+                                   f"version ({label}, {name}, {dtype})")
+            if timed and dtype == torch.bfloat16 and name == "src_warp_pass1":
+                bound, by = hat_bounds(torch, img, pos)["hat_rows_fwd"]
+                rows["hat_rows_fwd"] = dict(
+                    shape=[R, S, O, C],
+                    ms=cuda_ms(lambda: hwp.hat_resample_rows(img, pos), 20),
+                    plain_ms=cuda_ms(
+                        lambda: hwp.hat_resample_rows_reference(img, pos), 3),
+                    bound_ms=bound, bound_by=by)
+    for name, row in rows.items():
+        if row:
+            print(f"phase 6: {name} {label} timing: kernel {row['ms']:.4f} "
+                  f"ms, plain {row['plain_ms']:.3f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+    return errs, rows
+
+
+def phase_demo(torch, root):
+    """The demo contract through the port's CLIs with inference_DTU.gin and
+    the fused lookup (``RAFT.lookup_impl="pallas"``) on a synthetic DTU
+    test scan: first epiband_fwd and hat_rows_fwd held against their plain
+    versions at the plans the scan gets at rescale 1 and 2, then inference
+    at rescale 1 and 2 over every imaged view, the multires merge, fusion at
+    rescale 2 with view_batch 8. Per scale: s/view, construction, peak
+    device memory, launches per forward (checked); the files (checked);
+    fusion's seconds and points."""
+    from cermvs_torch import config as pcfg
+    from cermvs_torch import fusion as fusion_cli
+    from cermvs_torch import inference as inference_cli
+    from cermvs_torch import multires as multires_cli
+    from cermvs_torch.io.pfm import read_pfm
+    from cermvs_torch.io.ply import read_ply
+    from cermvs_torch.models.raft import RAFT
+    from cermvs_torch.ops import cudalib
+    from cermvs_torch.pipeline.inference import InferenceRunner
+    from cermvs_torch.training.checkpoint import save_params
+
+    os.chdir(REPO)  # the CLIs read configs/
+    t0 = time.perf_counter()
+    write_dtu_test_scan(root / "DTU", *DTU_HW)
+    common = [f'DTUTest.dataset_path = "{root / "DTU"}"',
+              'DTUTest.scan = "scan3"', 'RAFT.lookup_impl = "pallas"']
+    pcfg.clear_config()
+    pcfg.parse_config(common)
+    model = RAFT(test_mode=True, generator=torch.Generator().manual_seed(0))
+    ckpt = root / "pretrained" / "train_DTU"
+    save_params(ckpt, model)
+    n_stages = len(model.cascade)
+    n_iters = sum(s[2] for s in model.cascade)
+    print(f"phase 6: DTU test scan ({DEMO_VIEWS} views of {DTU_HW}) and "
+          f"random weights written in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    plans = demo_plans(InferenceRunner(
+        model=model, device=next(model.parameters()).device), root)
+    del model
+    errs, kernel_rows = {}, {}
+    for rescale, (hw, picked) in plans.items():
+        for i, plan in enumerate(picked):
+            e, r = hold_rect_kernels(torch, plan, *hw, f"rescale{rescale}",
+                                     timed=(rescale, i) == (2, 0))
+            for name in e:
+                errs[name] = max(errs.get(name, 0.0), e[name])
+                kernel_rows.update({name: r[name]} if r[name] else {})
+    torch.cuda.empty_cache()
+    print(f"phase 6: epiband_fwd and hat_rows_fwd held at the demo's plans "
+          f"in {time.perf_counter() - t0:.1f} s: max|kernel-plain| {errs}",
+          flush=True)
+    out = root / "results" / "scan3"
+    scales, demo_launches = {}, {k: 0 for k in KERNELS}
+    for rescale in (1, 2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cudalib.reset_launches()
+        t0 = time.perf_counter()
+        records = run_cli(inference_cli.main, common + [
+            f'inference.ckpt = "{ckpt}"', f'inference.output_folder = "{out}"',
+            f"inference.rescale = {rescale}", "inference.do_report = True"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: cudalib.launches.get(k, 0) for k in KERNELS}
+        peak = torch.cuda.max_memory_allocated()
+        n = len(records)
+        paths = sorted({r[2] for r in records})
+        s_view = [r[1] for r in records]
+        print(f"phase 6: rescale {rescale}: {n} views in {wall:.1f} s, s/view "
+              f"{[round(t, 4) for t in s_view]}, construction {paths}, peak "
+              f"{peak / 2**30:.2f} GiB, launches {launches}", flush=True)
+        per_forward = {"lookup_fused_fwd": n_iters, "lookup_fused_bwd": 0,
+                       "lookup_fused_v2": 0}
+        if paths == ["rectified"]:
+            V = NUM_FRAMES
+            per_forward.update(epiband_fwd=n_stages * V,
+                               hat_rows_fwd=(2 + n_stages) * 2 * V)
+        check_launches(launches, {k: n * v for k, v in per_forward.items()},
+                       f"demo inference at rescale {rescale}")
+        for name, _, _ in records:
+            f = out / "depths" / f"{name}_scale{rescale}_nf{NUM_FRAMES}.pfm"
+            if not f.is_file():
+                raise RuntimeError(f"missing {f}")
+        for k, v in launches.items():
+            demo_launches[k] += v
+        scales[rescale] = {"views": n, "s_per_view": s_view,
+                           "construction": paths, "peak_bytes": peak,
+                           "wall_s": wall}
+    if "--profile" in sys.argv:
+        profile_demo_forward(torch, common, ckpt, rescale=2)
+    t0 = time.perf_counter()
+    run_cli(multires_cli.main, [f'multires.output_folder = "{out}"',
+                                "multires.visualize = True"])
+    merged = sorted((out / "depths").glob("*_nf10_nf10_th0.02.pfm"))
+    maps = [read_pfm(f) for f in merged]
+    print(f"phase 6: multires wrote {len(merged)} merged maps "
+          f"{sorted({m.shape for m in maps})} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if len(merged) != DEMO_VIEWS or not all(np.isfinite(m).all()
+                                            for m in maps):
+        raise RuntimeError(f"merged maps: {[f.name for f in merged]}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ply = run_cli(fusion_cli.main, common + [f'fusion.output_folder = "{out}"'])
+    torch.cuda.synchronize()
+    fusion_s = time.perf_counter() - t0
+    xyz, _ = read_ply(ply)
+    fusion_peak = torch.cuda.max_memory_allocated()
+    # random weights: the views' depths disagree, so the cloud is expected
+    # to be empty; phase 7 times fusion with point emission
+    note = "" if len(xyz) else (" (expected of random weights: no two "
+                                "views agree; the time has no point "
+                                "emission, phase 7 has)")
+    print(f"phase 6: fusion (rescale 2, view_batch 8) in {fusion_s:.2f} s: "
+          f"{len(xyz)} points{note}, peak {fusion_peak / 2**30:.2f} GiB",
+          flush=True)
+    if not (Path(ply) == out / "result.ply" and Path(ply).is_file()
+            and np.isfinite(xyz).all()):
+        raise RuntimeError(f"bad fused cloud {ply}")
+    return {"scales": scales, "launches": demo_launches,
+            "fusion_s": fusion_s, "fusion_points": len(xyz),
+            "fusion_peak_bytes": fusion_peak, "kernel_errs": errs,
+            "kernel_rows_rescale2": kernel_rows}
+
+
+def profile_demo_forward(torch, bindings, ckpt, rescale):
+    """torch.profiler breakdown of one warm forward of the demo's first
+    view at ``rescale``, as ``inference()`` prepares it."""
+    from cermvs_torch import config as pcfg
+    from cermvs_torch.data import get_test_data_loader
+    from cermvs_torch.data.augment import pad_to_multiple, scale_operation
+    from cermvs_torch.models.raft import RAFT
+    from cermvs_torch.pipeline.inference import InferenceRunner
+    from cermvs_torch.training.checkpoint import load_params
+
+    pcfg.clear_config()
+    pcfg.parse_config(bindings)
+    model = RAFT(test_mode=True)
+    model.load_state_dict(load_params(ckpt))
+    runner = InferenceRunner(model=model,
+                             device=next(model.parameters()).device)
+    images, poses, intr, _, scale = get_test_data_loader(
+        "DTUTest", num_frames=NUM_FRAMES, num_workers=0).dataset[0]
+    images, intr = scale_operation(images, intr, rescale)
+    images, intr = pad_to_multiple(images, intr, model.stride_factor)
+    runner(images, poses, intr, scale)  # warm-up
+    prof = profile_call(torch, lambda: runner.submit(images, poses, intr,
+                                                     scale))
+    print(json.dumps({f"profile_demo_rescale{rescale}": prof}), flush=True)
+
+
+def phase_true_fusion(torch, root):
+    """Fusion on known geometry: the test scan's true depth maps (the sphere
+    at TRUE_HW, the centre row crop of its DTU_HW images) fused with
+    view_batch 8; every fused point must lie within TRUE_TOL_MM of the
+    sphere."""
+    from cermvs_torch import config as pcfg
+    from cermvs_torch.data import get_test_data_loader
+    from cermvs_torch.io.pfm import write_pfm
+    from cermvs_torch.io.ply import read_ply
+    from cermvs_torch.pipeline.fusion import fusion
+
+    poses = dtu_arc_poses()
+    h, w = TRUE_HW
+    f = 2892.0 * w / 1600
+    # align_image_to_depth crops the image rows to the depth grid
+    img_h = DTU_HW[0]
+    K = np.array([[f, 0, w / 2], [0, f, img_h / 2 - (img_h - h + 1) // 2],
+                  [0, 0, 1]])
+    out = root / "true"
+    (out / "depths").mkdir(parents=True)
+    for i in range(DEMO_VIEWS):
+        write_pfm(out / "depths" / f"{i}_true.pfm", sphere_depth(poses[i], K,
+                                                                 h, w))
+    pcfg.clear_config()
+    loader = get_test_data_loader("DTUTest", dataset_path=str(root / "DTU"),
+                                  scan="scan3", num_frames=NUM_FRAMES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ply = fusion(loader, out, suffix="_true", rescale=1, view_batch=8)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    xyz, _ = read_ply(ply)
+    err = np.abs(np.linalg.norm(xyz.astype(np.float64), axis=1) - SPHERE_R)
+    share = len(xyz) / (DEMO_VIEWS * h * w)
+    print(f"phase 7: fusion of the true depths {TRUE_HW} x {DEMO_VIEWS} views "
+          f"in {secs:.2f} s: {len(xyz)} points ({share:.3f} of the pixels), "
+          f"distance to the sphere max {err.max():.4f} mm, median "
+          f"{np.median(err):.4f} mm (limit {TRUE_TOL_MM} mm)", flush=True)
+    if share < 0.1 or err.max() > TRUE_TOL_MM:
+        raise RuntimeError("the fused cloud is not on the true surface")
+    return {"seconds": secs, "points": len(xyz), "share": share,
+            "max_err_mm": float(err.max()),
+            "median_err_mm": float(np.median(err))}
+
+
+def phase_train_pallas(torch, tree, plan5, batch5):
+    """``train()`` with train_DTU.gin and ``RAFT.lookup_impl="pallas"`` for
+    PALLAS_STEPS + 1 steps (16 forward and 16 backward lookup launches a
+    step, the other kernels as the banded run), then one train step on
+    phase 8's batch from one set of weights, banded against fused."""
+    from cermvs_torch import config as pcfg
+    from cermvs_torch.models.raft import RAFT
+    from cermvs_torch.ops import cudalib
+    from cermvs_torch.ops.corr_rectified import RectifiedVolume
+    from cermvs_torch.training.step import (batch_to_device, init_state,
+                                            train_step)
+    from cermvs_torch.training.train import train
+
+    configure_training(tree)
+    pcfg.bind_parameter("RAFT.lookup_impl", "pallas")
+    pcfg.bind_parameter("train.num_steps", PALLAS_STEPS)
+    records = []
+
+    def on_step(state, metrics, plan):
+        torch.cuda.synchronize()
+        records.append((time.perf_counter(), metrics))
+        print(f"phase 10: step {state.step}: loss {metrics['loss']:.5f} "
+              f"grad_norm {metrics['grad_norm']:.4f}", flush=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cudalib.reset_launches()
+    t0 = time.perf_counter()
+    state = train(name="chip_smoke_pallas",
+                  checkpoint_dir=str(Path(tree) / "checkpoints"),
+                  run_dir=str(Path(tree) / "runs"), resume=False,
+                  log_every=1, on_step=on_step, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: cudalib.launches.get(k, 0) for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(records)
+    s_per_step = [b[0] - a[0] for a, b in zip(records, records[1:])]
+    records = [m for _, m in records]
+    B, V, S = 2, NUM_FRAMES, len(state.model.cascade)
+    n_iters = sum(s[2] for s in state.model.cascade)
+    per_step = {"epiband_fwd": B * V * S, "epiband_bwd_dfr": B * V * S,
+                "epiband_bwd_dfs": B * V * S,
+                "hat_rows_fwd": B * V * (2 + S) * 2,
+                "hat_rows_bwd": B * V * (2 + S) * 2,
+                "lookup_fused_fwd": n_iters, "lookup_fused_bwd": n_iters,
+                "lookup_fused_v2": 0}
+    print(f"phase 10: {steps} fused-lookup steps in {wall:.1f} s, s/step "
+          f"after the first {[round(t, 4) for t in s_per_step]}, peak "
+          f"{peak / 2**30:.2f} GiB, launches {launches}", flush=True)
+    if steps != PALLAS_STEPS + 1 or not all(
+            np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+            and m["grad_norm"] > 0 for m in records):
+        raise RuntimeError(f"bad fused-lookup steps {records}")
+    check_launches(launches, {k: steps * v for k, v in per_step.items()},
+                   "fused-lookup training")
+    del state
+    batch = batch_to_device(batch5, "cuda")
+    first = {}
+    for impl in ("banded", "pallas"):
+        model = RAFT(generator=torch.Generator().manual_seed(1234),
+                     lookup_impl=impl, device="cuda")
+        first[impl] = train_step(init_state(model, 1000), batch, 0.0,
+                                 volume_fn=RectifiedVolume(plan5))
+        del model
+    rel = {k: abs(first["pallas"][k] - first["banded"][k])
+           / abs(first["banded"][k]) for k in ("loss", "grad_norm")}
+    print(f"phase 10: first step on one batch and weights: banded loss "
+          f"{first['banded']['loss']:.6f} grad_norm "
+          f"{first['banded']['grad_norm']:.5f}, fused loss "
+          f"{first['pallas']['loss']:.6f} grad_norm "
+          f"{first['pallas']['grad_norm']:.5f}, relative differences {rel} "
+          f"(limit 1e-3: bf16 GRU inputs round the fp32 taps' last bits "
+          f"differently)", flush=True)
+    if max(rel.values()) > 1e-3:
+        raise RuntimeError("fused and banded first steps disagree")
+    return {"launches": launches, "steps": steps, "s_per_step": s_per_step,
+            "peak_bytes": peak, "wall_s": wall, "first_step": first,
+            "first_step_rel": rel}
+
+
 def main():
     import torch
 
@@ -645,6 +1298,7 @@ def main():
     from cermvs_torch.ops import cudalib
     from cermvs_torch.ops import epiband as eb
     from cermvs_torch.ops import hatwarp as hw
+    from cermvs_torch.ops import lookup as lk
     from cermvs_torch.ops.corr_rectified import RectifiedVolume
     from cermvs_torch.pipeline.inference import InferenceRunner, inference
 
@@ -657,10 +1311,10 @@ def main():
 
     # ---- phase 1: build ------------------------------------------------
     t0 = time.perf_counter()
-    cudalib.build_all([eb.LIB, hw.LIB], verbose=True)  # one nvcc each
+    cudalib.build_all([eb.LIB, hw.LIB, lk.LIB], verbose=True)  # one nvcc each
     build_s = time.perf_counter() - t0
-    print(f"phase 1: epiband.cu and hatwarp.cu built in {build_s:.1f} s",
-          flush=True)
+    print(f"phase 1: epiband.cu, hatwarp.cu and lookup.cu built in "
+          f"{build_s:.1f} s", flush=True)
 
     # the slice's shapes come from the host plan of the full-size scene
     images, poses, intr = dtu_scene(H, W, NUM_FRAMES + 1)
@@ -733,7 +1387,10 @@ def main():
         print(f"phase 2: {name} timing: kernel {ms:.4f} ms, plain "
               f"{plain:.3f} ms, bound {bound:.4f} ms ({by})", flush=True)
 
-    # ---- phase 3: the slice at full width ---------------------------------
+    # ---- phase 3: the lookup kernels vs plain on the card ------------------
+    lookup_rows = phase_lookup_kernels(torch)
+
+    # ---- phase 4: the slice at full width ---------------------------------
     torch.backends.cudnn.allow_tf32 = True  # the bf16 model's own setting
     runner(images, poses, intr, 1.0)  # warm-up (cuDNN autotune, allocator)
     torch.cuda.synchronize()
@@ -754,7 +1411,7 @@ def main():
     expect.update(epiband_fwd=3 * len(model.cascade) * V,
                   hat_rows_fwd=3 * (2 + len(model.cascade)) * 2 * V)
     d = disp[0].float().cpu().numpy()
-    print(f"phase 3: rectified {[round(t, 4) for t in times]} s/view, "
+    print(f"phase 4: rectified {[round(t, 4) for t in times]} s/view, "
           f"path={runner.last_path}, launches={infer_launches} "
           f"(expected {expect}), peak {peak / 2**30:.2f} GiB, disparity "
           f"{d.shape} range [{d.min():.3e}, {d.max():.3e}]", flush=True)
@@ -783,7 +1440,7 @@ def main():
         t_exact.append(time.perf_counter() - t0)
     peak_exact = torch.cuda.max_memory_allocated()
     de = de[0].float().cpu().numpy()
-    print(f"phase 3: exact {[round(t, 4) for t in t_exact]} s/view, path="
+    print(f"phase 4: exact {[round(t, 4) for t in t_exact]} s/view, path="
           f"{exact.last_path}, peak {peak_exact / 2**30:.2f} GiB, "
           f"finite={np.isfinite(de).all()}", flush=True)
     if de.shape != d.shape or not np.isfinite(de).all():
@@ -825,15 +1482,29 @@ def main():
     c = r_exact.submit(im_s, po_s, k_s, 1.0)[0].cpu().numpy()
     e_kp = float(np.abs(a - b).max())
     e_re = float(np.abs(a - c).max())
-    print(f"phase 3: small lateral scene: |kernel-plain| {e_kp:.3e}, "
+    print(f"phase 4: small lateral scene: |kernel-plain| {e_kp:.3e}, "
           f"|rectified-exact| {e_re:.3e}, |disp| max {np.abs(c).max():.3e}, "
           f"path={r_rect.last_path}, launches={small_launches}", flush=True)
     if r_rect.last_path != "rectified" or small_launches == 0:
         raise RuntimeError("small scene did not take the rectified path")
     np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-8)
     np.testing.assert_allclose(a, c, rtol=1e-3, atol=1e-7)
+    # the whole forward with the fused lookup kernel against the banded
+    # lookup of the materialized pyramid: the taps differ in rounding only
+    small.lookup_impl = "pallas"
+    cudalib.reset_launches()
+    d_fused = r_rect.submit(im_s, po_s, k_s, 1.0)[0].cpu().numpy()
+    fused_launches = cudalib.launches.get("lookup_fused_fwd", 0)
+    small.lookup_impl = "banded"
+    e_fb = float(np.abs(d_fused - a).max())
+    print(f"phase 4: small lateral scene, fused lookup: |fused-banded| "
+          f"{e_fb:.3e}, lookup launches {fused_launches}", flush=True)
+    check_launches({"lookup_fused_fwd": fused_launches},
+                   {"lookup_fused_fwd": sum(s[2] for s in small.cascade)},
+                   "fused-lookup forward")
+    np.testing.assert_allclose(d_fused, a, rtol=1e-4, atol=1e-8)
 
-    # ---- phase 4: inference() writes the PFM contract ----------------------
+    # ---- phase 5: inference() writes the PFM contract ----------------------
     class _Loader:
         class dataset:
             num_frames = NUM_FRAMES
@@ -849,29 +1520,53 @@ def main():
         inference(_Loader(), model=RAFT(test_mode=True, generator=gen),
                   output_folder=out_dir, device="cuda")
         names = sorted(p.name for p in (Path(out_dir) / "depths").iterdir())
-    print(f"phase 4: wrote {names}", flush=True)
+    print(f"phase 5: wrote {names}", flush=True)
     if names != [f"{r:08d}_scale1_nf{NUM_FRAMES}.pfm" for r in range(2)]:
         raise RuntimeError(f"unexpected PFM names {names}")
 
+    del model, small, r_rect, r_exact
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=build) as root:
+        demo = phase_demo(torch, Path(root))
+        true_fusion = phase_true_fusion(torch, Path(root))
+
     with tempfile.TemporaryDirectory(dir=build) as tree:
-        train_plan, train_batch = phase5_plan(torch, tree)
-        rows = phase5_kernels(torch, train_plan, train_batch)
-        training = phase6_train(torch, tree, train_plan, train_batch)
+        train_plan, train_batch = plan_training_batch(torch, tree)
+        rows = phase_training_kernels(torch, train_plan, train_batch)
+        training = phase_train(torch, tree, train_plan, train_batch)
+        fused_training = phase_train_pallas(torch, tree, train_plan,
+                                            train_batch)
+    rows.update(lookup_rows)
 
     s0 = stages["stage0"]
     rows["epiband_fwd"] = {
         "max_abs_err": max_err, "ms": s0["ms"], "plain_ms": s0["plain_ms"],
         "bound_ms": s0["bound_ms"], "bound_by": s0["bound_by"],
         "library_ms": None, "stages": stages}
+    # the demo's plans: errors into each row, rescale 2's times beside
+    for name, err in demo.pop("kernel_errs").items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+    for name, row in demo.pop("kernel_rows_rescale2").items():
+        rows[name]["demo_rescale2"] = row
+    by_path = {"inference": infer_launches, "demo": demo["launches"],
+               "training": training["launches"],
+               "training_fused_lookup": fused_training["launches"]}
+    # launches: the main path's count of each kernel: the demo's for the
+    # fused lookup forward, the fused-lookup training run's for its
+    # gradient (the prefix-sum variant is on no path), training's for the
+    # rest
+    main_path = {name: "training" for name in KERNELS}
+    main_path.update(lookup_fused_fwd="demo", lookup_fused_v2="demo",
+                     lookup_fused_bwd="training_fused_lookup")
     kernels = []
     for name in KERNELS:
         src, replaces = SOURCES[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
-                        "launches": training["launches"][name],
+                        "launches": by_path[main_path[name]][name],
                         "launches_by_path": {
-                            "inference": infer_launches[name],
-                            "training": training["launches"][name]},
+                            path: counts[name]
+                            for path, counts in by_path.items()},
                         **rows[name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"slice": {
@@ -880,7 +1575,11 @@ def main():
         "train_s_per_step": training["s_per_step"],
         "train_peak_bytes": training["peak_bytes"],
         "train_steps": training["steps"], "train_plan": training["plan"],
-        "build_s": build_s, "card": smi}}), flush=True)
+        "demo": demo, "true_fusion": true_fusion,
+        "fused_lookup_training": {k: v for k, v in fused_training.items()
+                                  if k != "launches"},
+        "build_s": build_s, "card": smi,
+        "total_s": time.perf_counter() - T_START}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,5 +1,6 @@
-"""CUDA-only tests of the port: the epiband forward and backward kernels and
-the hat-resample kernels against their plain PyTorch versions on the card,
+"""CUDA-only tests of the port: the epiband forward and backward kernels, the
+hat-resample kernels and the fused lookup kernels (forward, gradient,
+prefix-sum) against their plain PyTorch versions on the card,
 wrong inputs raising and leaving the card usable, and the small end-to-end
 agreement of the rectified (kernel) and exact constructions. They skip where
 ``torch.cuda.is_available()`` is false. This file imports nothing of JAX, so
@@ -257,3 +258,65 @@ def test_rectified_kernel_route_matches_exact_on_lateral_scene(cuda_device):
     assert cudalib.launches["hat_rows_fwd"] == 8 * (n - 1)
     b = exact.submit(images, poses, intr, 1.0)[0].cpu().numpy()
     np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-7)
+
+
+def lookup_inputs(rng, D, shape=(2, 1, 24, 36)):
+    """A volume and clamped indices inside, at 0 and past D."""
+    corr = rng.randn(*shape, D).astype(np.float32)
+    x0 = np.maximum(rng.rand(*shape).astype(np.float32) * (D + 16) - 4, 0)
+    x0.reshape(-1)[:3] = [0.0, D - 1.0, D + 40.0]
+    return corr, x0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,radius,levels", [(64, 5, 3), (44, 5, 3),
+                                             (16, 2, 2)])
+def test_lookup_kernels_match_plain(cuda_device, D, radius, levels):
+    """Forward, gradient and prefix-sum kernels against their plain versions:
+    rtol / atol 1e-5 (fp32 pooling and lerps in another order), the
+    prefix-sum kernel 1e-4 against its plain version (both prefix sums; the
+    scan order differs) and 2e-3 against the pooled taps."""
+    from cermvs_torch.ops import lookup as lk
+
+    rng = np.random.RandomState(4)
+    corr, x0 = lookup_inputs(rng, D)
+    T = levels * (2 * radius + 1)
+    corr = torch.from_numpy(corr).to(cuda_device).requires_grad_(True)
+    x0 = torch.from_numpy(x0).to(cuda_device)
+    g = torch.from_numpy(rng.randn(*x0.shape, T).astype(np.float32)).to(
+        cuda_device)
+    cudalib.reset_launches()
+    out = lk.lookup_fused(corr, x0, radius, levels)
+    (out * g).sum().backward()
+    v2 = lk.lookup_fused_v2(corr.detach(), x0, radius, levels)
+    torch.cuda.synchronize()
+    assert {k: cudalib.launches.get(k, 0) for k in lk.KERNELS} == {
+        "lookup_fused_fwd": 1, "lookup_fused_bwd": 1, "lookup_fused_v2": 1}
+    ref = lk.lookup_fused_reference(corr.detach(), x0, radius, levels)
+    torch.testing.assert_close(out.detach(), ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(
+        corr.grad, lk.lookup_fused_backward_reference(g, x0, D, radius,
+                                                      levels),
+        rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(
+        v2, lk.lookup_fused_v2_reference(corr.detach(), x0, radius, levels),
+        rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(v2, ref, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_lookup_kernel_takes_strided_volumes(cuda_device):
+    """A permuted (non-contiguous) volume is copied once and gives the
+    taps of its contiguous copy; mixed devices raise."""
+    from cermvs_torch.ops import lookup as lk
+
+    rng = np.random.RandomState(5)
+    corr, x0 = lookup_inputs(rng, 44)
+    base = torch.from_numpy(corr).to(cuda_device)
+    strided = base.permute(0, 1, 4, 2, 3).contiguous().permute(0, 1, 3, 4, 2)
+    assert not strided.is_contiguous()
+    x0 = torch.from_numpy(x0).to(cuda_device)
+    torch.testing.assert_close(lk.lookup_fused(strided, x0),
+                               lk.lookup_fused(base, x0), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="one device"):
+        lk.lookup_fused(base, x0.cpu())

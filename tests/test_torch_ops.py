@@ -218,7 +218,7 @@ def test_lookup_rejects_unknown_impl(rng):
     pyr = pcorr.CorrPyramid(pcorr.build_pyramid(vol), torch.zeros(1, 1, 2, 2),
                             0.001, 8)
     with pytest.raises(ValueError):
-        pcorr.lookup(pyr, torch.zeros(1, 1, 2, 2), 5, "pallas")
+        pcorr.lookup(pyr, torch.zeros(1, 1, 2, 2), 5, "no_such_impl")
 
 
 @pytest.mark.parametrize("shape", [(5, 7), (4, 6, 3)])

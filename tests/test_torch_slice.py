@@ -167,10 +167,9 @@ def test_port_sources_do_not_reference_jax():
 @pytest.mark.parametrize("gin", ["inference_DTU", "inference_TNT"])
 def test_shipped_gin_files_bind_to_the_port(gin):
     """Every binding the shipped inference configs make to a configurable the
-    port registers is accepted; the stages not ported yet raise
-    NotImplementedError, not a config error."""
-    import cermvs_torch.pipeline  # noqa: F401  registers the configurables
-    import cermvs_torch.pipeline.stubs as stubs
+    port registers is accepted, and the gin names ``fusion``/``multires``
+    resolve to the port's real stages."""
+    import cermvs_torch.pipeline as pipeline
 
     pconfig.clear_config()
     try:
@@ -183,12 +182,17 @@ def test_shipped_gin_files_bind_to_the_port(gin):
         bound = pconfig.operative_config()
         ported = [n for n in bound if n in pconfig._REGISTRY]
         assert {"inference", "fusion", "multires"} <= set(ported)
-        with pytest.raises(NotImplementedError):
-            stubs.fusion(None, "out")
-        with pytest.raises(NotImplementedError):
-            stubs.multires("out")
-        # inference.ckpt binds; a non-.pth checkpoint is refused explicitly
-        with pytest.raises(NotImplementedError, match=".pth"):
+        assert pconfig._REGISTRY["fusion"] is pipeline.fusion
+        assert pconfig._REGISTRY["multires"] is pipeline.multires
+        assert pipeline.fusion.__module__ == "cermvs_torch.pipeline.fusion"
+        assert (pipeline.multires.__module__
+                == "cermvs_torch.pipeline.multires")
+        # inference.ckpt binds the port's own weights file, which the
+        # repository does not hold
+        assert pconfig.query_parameter("inference.ckpt") == {
+            "inference_DTU": "pretrained/train_DTU",
+            "inference_TNT": "pretrained/train_BlendedMVS"}[gin]
+        with pytest.raises(FileNotFoundError):
             inference(_Loader(), device="cpu")
         pconfig.bind_parameter("RAFT.dim_fmap", 32)
         assert RAFT(cascade=CASCADE, device="cpu").dim_fmap == 32
