@@ -13,6 +13,7 @@ nowhere else.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -63,6 +64,7 @@ class KernelLibrary:
         self.src = CSRC / f"{name}.cu"
         self.functions = functions
         self._lib = None
+        self._fns: Dict[str, object] = {}
         self._lock = threading.Lock()
 
     def build(self, verbose: bool = False) -> Path:
@@ -102,11 +104,13 @@ class KernelLibrary:
 
     def call(self, fn: str, *args) -> None:
         """Launch through ``fn`` and raise if the launch was refused."""
-        lib = self.load()
-        err = getattr(lib, fn)(*args)
+        f = self._fns.get(fn)
+        if f is None:
+            f = self._fns.setdefault(fn, getattr(self.load(), fn))
+        err = f(*args)
         if err != 0:
-            msg = getattr(lib, f"{self.name}_error_string")(err).decode()
-            raise RuntimeError(f"{fn} launch failed: {msg}")
+            msg = getattr(self.load(), f"{self.name}_error_string")(err)
+            raise RuntimeError(f"{fn} launch failed: {msg.decode()}")
 
 
 def build_all(libraries: List[KernelLibrary], verbose: bool = False):
@@ -115,6 +119,23 @@ def build_all(libraries: List[KernelLibrary], verbose: bool = False):
         return list(pool.map(lambda lib: lib.build(verbose), libraries))
 
 
+def pointer_alignment(t) -> int:
+    """The largest power of two, up to 16 bytes, that divides ``t``'s
+    address: the widest vector load its rows allow."""
+    ptr = t.data_ptr()
+    return 16 if ptr % 16 == 0 else ptr & -ptr
+
+
 def stream_of(t) -> int:
     """The address of ``t``'s device's current stream, for a launch."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def on_device(t):
+    """A context in which ``t``'s device is the current one: nothing to do
+    when it already is (a device switch costs the host more than the
+    launch)."""
+    index = t.device.index
+    if index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(index)

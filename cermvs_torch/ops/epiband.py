@@ -20,12 +20,15 @@ On CUDA tensors the wrappers launch the hand-written kernels
 (``cermvs_torch/csrc/epiband.cu``: ``epiband_forward``,
 ``epiband_backward_dfr``, ``epiband_backward_dfs``), built with ``nvcc`` at
 first use (``ops/cudalib.py``); on CPU tensors they run the plain versions.
-There is no fallback from one to the other.
+There is no fallback from one to the other. :func:`launch_geometry` sets the
+forward kernel's tile, chunk, copy width, shared memory and grid.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -33,11 +36,64 @@ from cermvs_torch.ops import cudalib
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 LIB = cudalib.KernelLibrary("epiband", {
-    "epiband_forward": [_p, _p, _p, _p, _p] + [_i] * 8 + [_p],
+    "epiband_forward": [_p, _p, _p, _p, _p] + [_i] * 11 + [_p],
     "epiband_backward_dfr": [_p, _p, _p, _p, _p] + [_i] * 8 + [_p],
     "epiband_backward_dfs": [_p, _p, _p, _p, _p] + [_i] * 8 + [_p],
 })
 KERNELS = ("epiband_fwd", "epiband_bwd_dfr", "epiband_bwd_dfs")
+THREADS = 256        # the forward kernels' block size
+FP32_PIXELS = 8      # the fp32 forward: a warp per rect pixel
+MAX_OUT = 16         # bf16 forward: outputs a thread keeps in registers
+CHUNK = 128          # bf16 forward: source columns per staged chunk
+REACH_WORDS = 64     # bf16 forward: 32-chunk words of its reached-chunk bitmap
+MAX_GRID_YZ = 65535
+
+
+@dataclass(frozen=True)
+class Geometry:
+    """The forward kernel's launch: ``tile`` rect pixels per block of
+    ``THREADS``, ``chunk`` source columns per staged chunk (the kernel's
+    compile-time ``kChunk``) and ``vec`` channels per copy (bf16),
+    ``smem_bytes`` of dynamic shared memory and ``grid = (tiles, h_r,
+    V)``. The launcher takes tile, vec and smem_bytes."""
+    tile: int
+    chunk: int
+    vec: int
+    smem_bytes: int
+    grid: tuple
+
+
+@functools.lru_cache(maxsize=256)
+def launch_geometry(V: int, h_r: int, w_r: int, ws: int, C: int, D: int,
+                    dtype, align: int = 16) -> Geometry:
+    """Launch parameters of ``epiband_forward`` for fr (V, h_r, w_r, C) and
+    fs (V, h_r, ws, C) of ``dtype`` whose addresses are multiples of
+    ``align`` bytes, and D hypotheses. fp32: a warp per pixel, no shared
+    memory. bf16: the widest tile of 64, 32 or 16 pixels whose outputs fit
+    the threads' registers (tile * D <= THREADS * MAX_OUT), chunks of CHUNK
+    columns, the widest copy (16 bytes at most) that divides C and the
+    alignment, and the bytes of the kernel's shared-memory layout (``Smem``
+    in ``csrc/epiband.cu``, whose launcher refuses any other count)."""
+    if max(h_r, V) > MAX_GRID_YZ:
+        raise ValueError(f"epiband takes h_r and V up to {MAX_GRID_YZ}, got "
+                         f"{h_r} and {V}")
+    if dtype != torch.bfloat16:
+        return Geometry(tile=FP32_PIXELS, chunk=0, vec=2, smem_bytes=0,
+                        grid=(-(-w_r // FP32_PIXELS), h_r, V))
+    fits = [t for t in (64, 32, 16) if t * D <= THREADS * MAX_OUT]
+    if not fits or ws > 32 * REACH_WORDS * CHUNK:
+        raise ValueError(f"the bf16 epiband kernel takes D <= "
+                         f"{THREADS * MAX_OUT // 16} and ws <= "
+                         f"{32 * REACH_WORDS * CHUNK}, got D={D} ws={ws}")
+    tile = fits[0]
+    vec = next(v for v in (8, 4, 2) if C % v == 0 and align % (2 * v) == 0)
+    lds = -(-C // 16) * 16 + 8              # bf16 per staged row
+    smem = ((tile + 2 * CHUNK) * lds * 2    # fr tile, two source chunks
+            # the fp32 G tile, then the output tile (rows of D | 1)
+            + tile * max(CHUNK + 8, D | 1) * 4
+            + 2 * tile * 4 + REACH_WORDS * 4)  # base, sigma, bitmap
+    return Geometry(tile=tile, chunk=CHUNK, vec=vec, smem_bytes=smem,
+                    grid=(-(-w_r // tile), h_r, V))
 
 
 def epiband_reference(fr, fs, base, sigma, n_hyp: int, s_max: int):
@@ -115,16 +171,24 @@ def _dtype_code(t) -> int:
     return 1 if t.dtype == torch.bfloat16 else 0
 
 
-def _launch(fr, fs, base, sigma, n_hyp, s_max):
+def _launch(fr, fs, base, sigma, n_hyp, s_max, out=None):
+    """Launch ``epiband_forward`` into ``out`` (V, h_r, w_r, n_hyp) fp32, a
+    new tensor unless given."""
     V, h_r, w_r, C = fr.shape
+    ws = fs.shape[2]
     _check_kernel_args(fr, fs, base, sigma)
-    out = torch.empty((V, h_r, w_r, n_hyp), dtype=torch.float32,
-                      device=fr.device)
-    with torch.cuda.device(fr.device):
+    geo = launch_geometry(V, h_r, w_r, ws, C, n_hyp, fr.dtype,
+                          min(cudalib.pointer_alignment(fr),
+                              cudalib.pointer_alignment(fs)))
+    if out is None:
+        out = torch.empty((V, h_r, w_r, n_hyp), dtype=torch.float32,
+                          device=fr.device)
+    with cudalib.on_device(fr):
         LIB.call("epiband_forward", fr.data_ptr(), fs.data_ptr(),
                  None if base is None else base.data_ptr(), sigma.data_ptr(),
-                 out.data_ptr(), V, h_r, w_r, fs.shape[2], C, n_hyp,
-                 int(s_max), _dtype_code(fr), cudalib.stream_of(fr))
+                 out.data_ptr(), V, h_r, w_r, ws, C, n_hyp, int(s_max),
+                 _dtype_code(fr), geo.tile, geo.vec, geo.smem_bytes,
+                 cudalib.stream_of(fr))
     cudalib.count_launch("epiband_fwd")
     return out
 
@@ -174,7 +238,7 @@ def backward_dfr(fr, fs, base, sigma, dout, s_max: int):
     V, h_r, w_r, C = fr.shape
     _check_kernel_args(fr, fs, base, sigma)
     dfr = torch.empty_like(fr)
-    with torch.cuda.device(fr.device):
+    with cudalib.on_device(fr):
         LIB.call("epiband_backward_dfr", fs.data_ptr(),
                  None if base is None else base.data_ptr(), sigma.data_ptr(),
                  dout.data_ptr(), dfr.data_ptr(), V, h_r, w_r, fs.shape[2],
@@ -192,7 +256,7 @@ def backward_dfs(fr, fs, base, sigma, dout, s_max: int):
     _check_kernel_args(fr, fs, base, sigma)
     dfs32 = torch.zeros((V, h_r, ws, C), dtype=torch.float32,
                         device=fr.device)
-    with torch.cuda.device(fr.device):
+    with cudalib.on_device(fr):
         LIB.call("epiband_backward_dfs", fr.data_ptr(),
                  None if base is None else base.data_ptr(), sigma.data_ptr(),
                  dout.data_ptr(), dfs32.data_ptr(), V, h_r, w_r, ws, C,
@@ -221,16 +285,20 @@ def epiband_backward(fr, fs, base, sigma, dout, s_max: int):
     return epiband_backward_reference(fr, fs, base, sigma, dout, s_max)
 
 
+def _forward(fr, fs, base, sigma, n_hyp, s_max):
+    if fr.is_cuda:
+        return _launch(fr, fs, base, sigma, n_hyp, s_max)
+    if fr.device.type != "cpu":
+        raise ValueError(f"unsupported device {fr.device}")
+    return epiband_reference(fr, fs, base, sigma, n_hyp, s_max)
+
+
 class _Epiband(torch.autograd.Function):
     @staticmethod
     def forward(ctx, fr, fs, base, sigma, n_hyp, s_max):
         ctx.save_for_backward(fr, fs, base, sigma)
         ctx.s_max = s_max
-        if fr.is_cuda:
-            return _launch(fr, fs, base, sigma, n_hyp, s_max)
-        if fr.device.type != "cpu":
-            raise ValueError(f"unsupported device {fr.device}")
-        return epiband_reference(fr, fs, base, sigma, n_hyp, s_max)
+        return _forward(fr, fs, base, sigma, n_hyp, s_max)
 
     @staticmethod
     def backward(ctx, dout):
@@ -246,4 +314,8 @@ def epiband(fr, fs, base, sigma, n_hyp: int, s_max: int) -> torch.Tensor:
     docstring. CUDA tensors launch the kernel, CPU tensors run
     :func:`epiband_reference`."""
     _check(fr, fs, base, sigma, n_hyp, s_max)
+    if not (torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (fr, fs, base, sigma))):
+        # no graph to record: skip autograd's cost
+        return _forward(fr, fs, base, sigma, int(n_hyp), int(s_max))
     return _Epiband.apply(fr, fs, base, sigma, int(n_hyp), int(s_max))

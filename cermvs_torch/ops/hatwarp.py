@@ -17,14 +17,17 @@ sum is fp32.
 On CUDA tensors the wrappers launch the hand-written kernels
 (``cermvs_torch/csrc/hatwarp.cu``: ``hat_rows_forward``,
 ``hat_rows_backward``), which read each output's two non-zero taps; autograd
-saves only ``pos``. On CPU tensors they run the plain versions, the
-hat-matrix products built in row chunks of at most ``HAT_BUDGET`` bytes.
-There is no fallback from one to the other.
+saves only ``pos``. :func:`launch_geometry` sets the forward kernel's
+channel vector, block and grid. On CPU tensors they run the plain
+versions, the hat-matrix products built in row chunks of at most
+``HAT_BUDGET`` bytes. There is no fallback from one to the other.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -32,11 +35,44 @@ from cermvs_torch.ops import cudalib
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 LIB = cudalib.KernelLibrary("hatwarp", {
-    "hat_rows_forward": [_p, _p, _p] + [_i] * 5 + [_p],
+    "hat_rows_forward": [_p, _p, _p] + [_i] * 9 + [_p],
     "hat_rows_backward": [_p, _p, _p] + [_i] * 5 + [_p],
 })
 KERNELS = ("hat_rows_fwd", "hat_rows_bwd")
 HAT_BUDGET = 384 * 1024 * 1024  # bytes of one hat-matrix chunk (plain)
+THREADS = 256  # the forward kernel's block size
+MAX_GRID_Y = 65535
+
+
+@dataclass(frozen=True)
+class Geometry:
+    """The forward kernel's launch: ``vec`` channels per thread, a block of
+    ``block = (groups, positions)`` threads and a ``grid = (R, tiles)``."""
+    vec: int
+    block: tuple
+    grid: tuple
+
+
+@functools.lru_cache(maxsize=256)
+def launch_geometry(R: int, S: int, O: int, C: int, dtype,
+                    align: int = 16) -> Geometry:
+    """Launch parameters of ``hat_rows_forward`` for img (R, S, C) of
+    ``dtype`` whose address is a multiple of ``align`` bytes, pos (R, O):
+    the widest channel vector (16 bytes at most) that divides C and the
+    alignment; the threads of one position across its vectors (at most a
+    block); as many positions per block as fit in ``THREADS``; one grid row
+    per image row."""
+    esize = 2 if dtype == torch.bfloat16 else 4
+    vec = next(v for v in (8, 4, 2, 1) if v == 1 or (
+        v * esize <= 16 and C % v == 0 and align % (v * esize) == 0))
+    groups = min(C // vec, THREADS)
+    positions = max(1, THREADS // groups)
+    tiles = -(-O // positions)
+    if tiles > MAX_GRID_Y or S * C >= 2 ** 31 or O * C >= 2 ** 31:
+        raise ValueError(f"hat_rows_forward takes S*C and O*C below 2^31 and "
+                         f"O <= {MAX_GRID_Y * positions}, got S={S} O={O} "
+                         f"C={C}")
+    return Geometry(vec=vec, block=(groups, positions), grid=(R, tiles))
 
 
 def _hats(pos, S: int, dtype):
@@ -101,14 +137,19 @@ def _dtype_code(dtype) -> int:
     return 1 if dtype == torch.bfloat16 else 0
 
 
-def _launch_forward(img, pos):
+def _launch_forward(img, pos, out=None):
+    """Launch ``hat_rows_forward`` into ``out`` (R, O, C) fp32, a new
+    tensor unless given."""
     R, S, C = img.shape
     O = pos.shape[1]
-    out = torch.empty((R, O, C), dtype=torch.float32, device=img.device)
-    with torch.cuda.device(img.device):
+    geo = launch_geometry(R, S, O, C, img.dtype,
+                          cudalib.pointer_alignment(img))
+    if out is None:
+        out = torch.empty((R, O, C), dtype=torch.float32, device=img.device)
+    with cudalib.on_device(img):
         LIB.call("hat_rows_forward", img.data_ptr(), pos.data_ptr(),
-                 out.data_ptr(), R, S, O, C, _dtype_code(img.dtype),
-                 cudalib.stream_of(img))
+                 out.data_ptr(), R, S, O, C, _dtype_code(img.dtype), geo.vec,
+                 *geo.block, geo.grid[1], cudalib.stream_of(img))
     cudalib.count_launch("hat_rows_fwd")
     return out
 
@@ -116,7 +157,7 @@ def _launch_forward(img, pos):
 def _launch_backward(dout, pos, S, img_dtype):
     R, O, C = dout.shape
     dimg = torch.zeros((R, S, C), dtype=torch.float32, device=dout.device)
-    with torch.cuda.device(dout.device):
+    with cudalib.on_device(dout):
         LIB.call("hat_rows_backward", dout.data_ptr(), pos.data_ptr(),
                  dimg.data_ptr(), R, S, O, C, _dtype_code(img_dtype),
                  cudalib.stream_of(dout))
@@ -142,16 +183,20 @@ def hat_rows_backward(dout, pos, S: int, img_dtype):
     return hat_resample_rows_backward_reference(dout, pos, S, img_dtype)
 
 
+def _forward(img, pos):
+    if img.is_cuda:
+        return _launch_forward(img, pos)
+    if img.device.type != "cpu":
+        raise ValueError(f"unsupported device {img.device}")
+    return hat_resample_rows_reference(img, pos)
+
+
 class _HatRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, img, pos):
         ctx.save_for_backward(pos)
         ctx.S, ctx.img_dtype = img.shape[1], img.dtype
-        if img.is_cuda:
-            return _launch_forward(img, pos)
-        if img.device.type != "cpu":
-            raise ValueError(f"unsupported device {img.device}")
-        return hat_resample_rows_reference(img, pos)
+        return _forward(img, pos)
 
     @staticmethod
     def backward(ctx, dout):
@@ -164,4 +209,6 @@ def hat_resample_rows(img: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """(R, S, C) x (R, O) -> (R, O, C) fp32 row resample; see the module
     docstring."""
     _check(img, pos)
+    if not (img.requires_grad and torch.is_grad_enabled()):
+        return _forward(img, pos)  # no graph to record: skip autograd's cost
     return _HatRows.apply(img, pos.detach())

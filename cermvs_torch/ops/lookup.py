@@ -153,7 +153,7 @@ def _launch(fn, name, src, x0, width_out, D, radius, num_levels):
     """One kernel launch over the flattened pixels; returns (M, width_out)."""
     M = x0.numel()
     out = torch.empty((M, width_out), dtype=torch.float32, device=src.device)
-    with torch.cuda.device(src.device):
+    with cudalib.on_device(src):
         LIB.call(fn, src.data_ptr(), x0.data_ptr(), out.data_ptr(), M, D,
                  radius, num_levels, cudalib.stream_of(src))
     cudalib.count_launch(name)

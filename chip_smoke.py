@@ -11,8 +11,12 @@ Phases (any failure raises, so the exit code is non-zero):
   2. hold the epiband forward kernel against its plain PyTorch version on
      the card at the DTU slice's shapes (stage 0: D=64, base == 0; stage 1:
      D=44 with bases inside and outside the band and with the main path's
-     bases; narrow and wide sigma; fp32 and bf16), and time both stages on
-     the main path's bases;
+     bases; narrow and wide sigma; fp32 and bf16), and at the bf16
+     kernel's edges (a stage-1 tile band wider than one chunk, tap pairs
+     straddling a chunk edge, bases of +-1e5 and NaN, a ragged w_r, C = 44
+     and 16); time both stages on the main path's bases, back to back
+     (``ms``) and in device time (``device_ms``, a CUDA graph of launches),
+     beside the earlier design's back-to-back time;
   3. hold the fused lookup kernels (forward, gradient, prefix-sum) against
      their plain versions at phase 4's (1,1,288,400,D), the demo's
      (1,1,300,400,D) and (1,1,600,800,D) and the training batch's
@@ -32,7 +36,9 @@ Phases (any failure raises, so the exit code is non-zero):
      1200x1600, 49 cameras on an arc) and random weights; plan it at
      rescale 1 and 2 as inference does and hold the epiband forward and hat
      kernels against their plain versions at those plans (the widest band
-     and the largest grid; fp32 and bf16), timing them at rescale 2; then
+     and the largest grid; every hat pass, C = 64, 44 and 3; fp32 and
+     bf16), timing them at rescale 2, both ways, with ``grid_sample``
+     timed both ways beside the hat kernel; then
      run the port's CLIs with ``inference_DTU.gin`` and
      ``RAFT.lookup_impl="pallas"``: inference at rescale 1 and 2, multires,
      fusion at rescale 2 with view_batch 8; check the construction, the
@@ -43,8 +49,9 @@ Phases (any failure raises, so the exit code is non-zero):
      PNGs and PFM depths, 49 cameras on an arc), plan its first training
      batch, and hold the epiband backward kernels and the hat-resample
      kernels against their plain versions at that plan's shapes (fp32 and
-     bf16), with their times, bounds and, for the hat kernels, the time of
-     one ``grid_sample`` call (forward) and of one
+     bf16; the hat also at C = 44 and 3), with their times, bounds and, for
+     the hat kernels, the time of one ``grid_sample`` call (forward; it
+     and the kernel also in device time) and of one
      ``grid_sampler_2d_backward`` call (transpose);
   9. train through ``train()`` with ``train_DTU.gin``'s bindings (rectified,
      batch 2, nf10, crop 1056x1440) for four steps, time the last three, and
@@ -112,6 +119,17 @@ SOURCES = {  # kernel: (source, the TPU kernel's entry it replaces)
     "lookup_fused_v2": (_LK, "cermvs_tpu/ops/pallas/lookup_v2.py:99"),
 }
 NO_LIBRARY = "none: no single PyTorch call computes the pooled 33-tap lookup"
+# The earlier designs' times of the two forward kernels redesigned since (ms
+# per launch, bf16, back-to-back CUDA events; PERF.md's kernel table, NVIDIA
+# H100 80GB HBM3 at 700 W): the warp-per-pixel epiband forward and the
+# thread-per-element hat forward. Printed in the phases' text beside this
+# run's times; never part of the kernels line, which holds only this run's.
+EARLIER_MS = {"epiband_fwd": {"stage0": 1.537, "stage1": 1.079,
+                              "demo_rescale2": 5.125},
+              "hat_rows_fwd": {"feature_warp": 0.115,
+                               "volume_back_warp": 0.082,
+                               "demo_rescale2": 0.480}}
+HAT_TIMED = ("feature_warp", "volume_back_warp")  # phase 8's timed hat shapes
 
 
 def dtu_ring_poses(n):
@@ -257,6 +275,55 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def cuda_ms_graph(torch, fn, reps=10, replays=5):
+    """Device time of one call: ``reps`` calls captured in a CUDA graph,
+    replayed ``replays`` times between CUDA events. Unlike
+    :func:`cuda_ms` it leaves out the host's work per call (the wrappers'
+    checks and ctypes launch), which back to back bounds a kernel shorter
+    than that. The kernels line's ``ms`` is :func:`cuda_ms`, as for every
+    kernel; this is its ``device_ms``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * replays)
+    del graph
+    return ms
+
+
+def cuda_ms_both(torch, fn, reps=50):
+    """(back-to-back ms, device ms) of one call: :func:`cuda_ms` and
+    :func:`cuda_ms_graph`."""
+    return cuda_ms(fn, reps), cuda_ms_graph(torch, fn)
+
+
+def earlier(name, shape):
+    """``, earlier design X ms`` for the kernel's recorded time at shape."""
+    ms = EARLIER_MS.get(name, {}).get(shape)
+    return "" if ms is None else f", earlier design {ms:.3f} ms back to back"
+
+
+def ratio_text(kernel, library):
+    """The kernel's speed-up over the library call in each measure."""
+    return (f"library/kernel {library[0] / kernel[0]:.2f}x back to back, "
+            f"{library[1] / kernel[1]:.2f}x device")
+
+
 def main_path_base(rng, sigma, d0, d1, ratio):
     """Stage-1 bases as the main path forms them (``corr_rectified``:
     base = rate * (origin - (d1 // 2) * incre1), so base = sigma1 *
@@ -273,23 +340,34 @@ def main_path_base(rng, sigma, d0, d1, ratio):
 
 
 def epiband_case(torch, rng, h_r, w_r, ws, C, D, base_kind, sig, dtype,
-                 stage0=None):
+                 stage0=None, s_max=None):
     """Inputs of one epiband call. base_kind None: base == 0 (stage 0);
     "band": bases inside and outside the band, so slabs fall partly or
     wholly off either end of the source row; "main": the main path's
-    stage-1 bases (``main_path_base``, stage0 = (d0, ratio)). The features
-    are drawn on the card (seeded from ``rng``): the host's generator takes
-    seconds at the demo's widths."""
+    stage-1 bases (``main_path_base``, stage0 = (d0, ratio)); "straddle":
+    hypothesis 3 of every pixel at column 128 m - 0.75 (m >= 1, ``s_max``
+    given), so its tap pair straddles two of the bf16 kernel's 128-column
+    chunks; "far": "band" bases with a third of two rows at +1e5 and -1e5
+    and every fifth pixel of a third row NaN. The features are drawn on the
+    card (seeded from ``rng``): the host's generator takes seconds at the
+    demo's widths."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(int(rng.randint(2**31)))
     fr = torch.randn((1, h_r, w_r, C), generator=gen, device=dev)
     fs = torch.randn((1, h_r, ws, C), generator=gen, device=dev)
     sigma = rng.uniform(sig[0], sig[1], (1, h_r, w_r)).astype(np.float32)
     base = None
-    if base_kind == "band":
+    if base_kind in ("band", "far"):
         base = rng.uniform(-(ws - w_r) / 2, ws, (1, h_r, w_r))
     elif base_kind == "main":
         base = main_path_base(rng, sigma, stage0[0], D, stage0[1])
+    elif base_kind == "straddle":
+        edge = 128.0 * rng.randint(1, ws // 128, (1, h_r, w_r)) - 0.75
+        base = np.arange(w_r) + s_max - 3 * sigma - edge
+    if base_kind == "far":
+        base[0, 0, ::3] = 1e5
+        base[0, 1, ::3] = -1e5
+        base[0, 2, ::5] = np.nan
     if base is not None:
         base = torch.from_numpy(base.astype(np.float32)).to(dev)
     return (fr.to(dev, dtype).contiguous(), fs.to(dev, dtype).contiguous(),
@@ -406,8 +484,9 @@ def grid_sample_rows_backward(torch, img, pos, dout):
 
 def profile_call(torch, fn, prefix="raft."):
     """One call of ``fn`` under torch.profiler: device time per named range
-    (``prefix``), the top kernels by self device time, and the
-    device-busy share of the wall time."""
+    (``prefix``), the top kernels by self device time, the port's own
+    kernels (by their names in ``csrc/``), and the device-busy share of the
+    wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     def dev(e, own=False):
@@ -430,10 +509,14 @@ def profile_call(torch, fn, prefix="raft."):
                and not e.key.startswith(prefix)]
     busy = sum(dev(e, own=True) for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: dev(e, own=True), reverse=True)[:15]
+    ours = [e for e in kernels if any(
+        k in e.key for k in ("epiband", "hat_rows", "lookup_"))]
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
             "busy_share": busy / (wall * 1e3), "spans_ms": spans,
             "top_self_device_ms": [[e.key[:90], e.count,
-                                    dev(e, own=True) / 1e3] for e in top]}
+                                    dev(e, own=True) / 1e3] for e in top],
+            "port_kernels_ms": [[e.key[:90], e.count,
+                                 dev(e, own=True) / 1e3] for e in ours]}
 
 
 def configure_training(tree):
@@ -536,7 +619,10 @@ def phase_training_kernels(torch, plan, batch):
 
     h, w = (s // 4 for s in batch["images"].shape[2:4])
     shapes = {"feature_warp": (h, w, ws_v, C),      # src warp, pass 1
-              "volume_back_warp": (plan.h_r, plan.w_r, w, d0)}  # pass 1
+              "volume_back_warp": (plan.h_r, plan.w_r, w, d0),  # pass 1
+              # stage 1's volume (44 channels) and an image's three
+              "feature_warp_c44": (h, w, ws_v, d1),
+              "feature_warp_c3": (h, w, ws_v, 3)}
     for dtype in (torch.float32, torch.bfloat16):
         for shape_name, (R, S, O, Cc) in shapes.items():
             img, pos = hat_case(torch, rng, R, S, O, Cc, dtype)
@@ -562,7 +648,7 @@ def phase_training_kernels(torch, plan, batch):
                 if not ok:
                     raise RuntimeError(f"{name} disagrees with its plain "
                                        f"version ({shape_name}, {dtype})")
-            if dtype != torch.bfloat16:
+            if dtype != torch.bfloat16 or shape_name not in HAT_TIMED:
                 continue
             bounds = hat_bounds(torch, img, pos)
             lib = grid_sample_rows(torch, img, pos)
@@ -571,12 +657,17 @@ def phase_training_kernels(torch, plan, batch):
                 "hat_rows_fwd": float((lib()[:, :, 0].permute(0, 2, 1) - out)
                                       .abs().max()),
                 "hat_rows_bwd": float((lib_bwd() - dimg.float()).abs().max())}
+            # the forward and grid_sample back to back and in device time
+            # (a CUDA graph): back to back, the host's work per call may
+            # bound a launch this short
+            fwd = cuda_ms_both(torch, lambda: hw.hat_resample_rows(img, pos))
+            lib_both = cuda_ms_both(torch, lib)
             timing = {
                 "hat_rows_fwd": (
-                    cuda_ms(lambda: hw.hat_resample_rows(img, pos), 20),
+                    fwd[0],
                     cuda_ms(lambda: hw.hat_resample_rows_reference(img, pos),
                             3),
-                    cuda_ms(lib, 20)),
+                    lib_both[0]),
                 "hat_rows_bwd": (
                     cuda_ms(lambda: hw.hat_rows_backward(dout, pos, S, dtype),
                             20),
@@ -588,9 +679,17 @@ def phase_training_kernels(torch, plan, batch):
                     shape=[R, S, O, Cc], ms=ms, plain_ms=plain,
                     library_ms=lib_ms, bound_ms=bounds[name][0],
                     bound_by=bounds[name][1])
+                extra = lib_extra = ""
+                if name == "hat_rows_fwd":
+                    rows[name]["shapes"][shape_name].update(
+                        device_ms=fwd[1], library_device_ms=lib_both[1])
+                    extra = (f" (device {fwd[1]:.4f})"
+                             f"{earlier(name, shape_name)}")
+                    lib_extra = (f" (device {lib_both[1]:.4f}; "
+                                 f"{ratio_text(fwd, lib_both)})")
                 print(f"phase 8: {name} {shape_name} timing: kernel "
-                      f"{ms:.4f} ms, plain {plain:.3f} ms, library "
-                      f"{lib_ms:.4f} ms (grid_sample |diff| "
+                      f"{ms:.4f} ms{extra}, plain {plain:.3f} ms, library "
+                      f"{lib_ms:.4f} ms{lib_extra} (grid_sample |diff| "
                       f"{lib_err[name]:.2e}), bound "
                       f"{bounds[name][0]:.4f} ms ({bounds[name][1]})",
                       flush=True)
@@ -602,6 +701,9 @@ def phase_training_kernels(torch, plan, batch):
                           plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
                           bound_by=main["bound_by"],
                           library_ms=main.get("library_ms"))
+        for key in ("device_ms", "library_device_ms"):
+            if key in main:
+                rows[name][key] = main[key]
     return rows
 
 
@@ -962,9 +1064,11 @@ def hold_rect_kernels(torch, plan, h, w, label, timed=False):
             if timed and dtype == torch.bfloat16 and stage == "stage0":
                 bound, by = epiband_bounds(torch, fr, fs, base, sigma, D,
                                            s_v)["epiband_fwd"]
+                ms, device_ms = cuda_ms_both(torch,
+                                             lambda: eb.epiband(*args), 20)
                 rows["epiband_fwd"] = dict(
-                    shape=[1, plan.h_r, plan.w_r, ws, C_FEAT], D=D,
-                    ms=cuda_ms(lambda: eb.epiband(*args), 20),
+                    shape=[1, plan.h_r, plan.w_r, ws, C_FEAT], D=D, ms=ms,
+                    device_ms=device_ms,
                     plain_ms=cuda_ms(lambda: eb.epiband_reference(*args), 3),
                     bound_ms=bound, bound_by=by)
         # (R, S, O, C) of each hat pass: the warps of the (h, w) features to
@@ -977,6 +1081,8 @@ def hold_rect_kernels(torch, plan, h, w, label, timed=False):
         for s, (D, _) in enumerate(STAGES):
             passes[f"back_warp_stage{s}_pass1"] = (plan.h_r, plan.w_r, w, D)
             passes[f"back_warp_stage{s}_pass2"] = (w, plan.h_r, h, D)
+        # three channels (an image's) at the source warp's first pass
+        passes["src_warp_pass1_c3"] = (h, w, ws, 3)
         for name, (R, S, O, C) in passes.items():
             img, pos = hat_case(torch, rng, R, S, O, C, dtype)
             out = hwp.hat_resample_rows(img, pos)
@@ -993,16 +1099,31 @@ def hold_rect_kernels(torch, plan, h, w, label, timed=False):
                                    f"version ({label}, {name}, {dtype})")
             if timed and dtype == torch.bfloat16 and name == "src_warp_pass1":
                 bound, by = hat_bounds(torch, img, pos)["hat_rows_fwd"]
+                lib = grid_sample_rows(torch, img, pos)
+                ms, device_ms = cuda_ms_both(
+                    torch, lambda: hwp.hat_resample_rows(img, pos))
+                lib_ms, lib_device_ms = cuda_ms_both(torch, lib)
                 rows["hat_rows_fwd"] = dict(
-                    shape=[R, S, O, C],
-                    ms=cuda_ms(lambda: hwp.hat_resample_rows(img, pos), 20),
+                    shape=[R, S, O, C], ms=ms, device_ms=device_ms,
                     plain_ms=cuda_ms(
                         lambda: hwp.hat_resample_rows_reference(img, pos), 3),
+                    library_ms=lib_ms, library_device_ms=lib_device_ms,
+                    library_diff=float((lib()[:, :, 0].permute(0, 2, 1) - out)
+                                       .abs().max()),
                     bound_ms=bound, bound_by=by)
+                del lib
     for name, row in rows.items():
         if row:
+            lib = ("" if "library_ms" not in row else
+                   f", library {row['library_ms']:.4f} ms (device "
+                   f"{row['library_device_ms']:.4f}; " + ratio_text(
+                       (row["ms"], row["device_ms"]),
+                       (row["library_ms"], row["library_device_ms"]))
+                   + f"; grid_sample |diff| {row['library_diff']:.2e})")
             print(f"phase 6: {name} {label} timing: kernel {row['ms']:.4f} "
-                  f"ms, plain {row['plain_ms']:.3f} ms, bound "
+                  f"ms (device {row['device_ms']:.4f})"
+                  f"{earlier(name, 'demo_rescale2')}, plain "
+                  f"{row['plain_ms']:.3f} ms{lib}, bound "
                   f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
     return errs, rows
 
@@ -1285,6 +1406,90 @@ def phase_train_pallas(torch, tree, plan5, batch5):
             "first_step_rel": rel}
 
 
+def phase_epiband_kernel(torch, plan, model):
+    """Phase 2: the epiband forward against its plain version at the
+    plan's widest view (the main path's stages and the bf16 kernel's
+    edges, fp32 and bf16), and both stages' bf16 times. Returns the
+    largest error and the stages' timing rows."""
+    from cermvs_torch.ops import epiband as eb
+
+    rates = np.asarray(plan.view_rates)
+    vmax = int(np.argmax(plan.view_s_max))
+    s_v = plan.view_s_max[vmax]
+    ws_v = plan.ws_r - (plan.s_max - s_v)
+    C = model.dim_fmap
+    d0 = model.auto_hyps(model.cascade[0][0])
+    d1 = model.auto_hyps(model.cascade[1][0])
+    inc0 = 0.0025 / model.cascade[0][1]
+    inc1 = 0.0025 / model.cascade[1][1]
+    wide = tuple(rates[vmax] * inc0)
+    narrow = tuple(rates[vmax] * inc1)
+    stage0 = (d0, inc0 / inc1)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(0)
+    max_err = 0.0
+    # (name, D, base, sigma, C, pixels cut off w_r and ws): the main path's
+    # stages, then the bf16 kernel's edges: a stage-1 tile band wider than
+    # one 128-column chunk, tap pairs straddling a chunk edge, far and NaN
+    # bases, a w_r that is no multiple of the 64-pixel tile, C = 44 and 16
+    cases = [("stage0", d0, None, wide, C, 0),
+             ("stage0", d0, None, narrow, C, 0),
+             ("stage1", d1, "band", narrow, C, 0),
+             ("stage1", d1, "band", wide, C, 0),
+             ("stage1", d1, "main", narrow, C, 0),
+             ("stage1_wide_band", d1, "main", wide, C, 0),
+             ("straddling_taps", d1, "straddle", narrow, C, 0),
+             ("far_and_nan_bases", d1, "far", narrow, C, 0),
+             ("ragged_w_r", d0, None, wide, C, 24),
+             ("c44", d1, "main", narrow, 44, 0),
+             ("c16", d0, None, wide, 16, 0)]
+    for dtype, rtol, atol in ((torch.float32, 1e-4, 1e-3),
+                              (torch.bfloat16, 1e-3, 1e-2)):
+        for name, D, base_kind, sig, Cc, cut in cases:
+            fr, fs, base, sigma = epiband_case(
+                torch, rng, plan.h_r, plan.w_r - cut, ws_v - cut, Cc, D,
+                base_kind, sig, dtype, stage0, s_v)
+            out = eb.epiband(fr, fs, base, sigma, D, s_v)
+            torch.cuda.synchronize()
+            ref = eb.epiband_reference(fr, fs, base, sigma, D, s_v)
+            # NaN where the position is NaN, in both
+            err = float((out - ref).nan_to_num().abs().max())
+            ok = bool(torch.allclose(out, ref, rtol=rtol, atol=atol,
+                                     equal_nan=True))
+            max_err = max(max_err, err)
+            print(f"phase 2: {name} D={D} C={Cc} w_r={plan.w_r - cut} "
+                  f"base={base_kind} sigma=[{sig[0]:.3f},{sig[1]:.3f}] "
+                  f"{str(dtype)[6:]}: max|kernel-plain|={err:.3e} (|plain|max "
+                  f"{float(ref.nan_to_num().abs().max()):.2f}, NaN "
+                  f"{int(ref.isnan().sum())}) ok={ok}", flush=True)
+            if not ok:
+                raise RuntimeError(f"epiband kernel disagrees with its plain "
+                                   f"version ({name}, {dtype})")
+
+    # timings at the main path's dtype and bases, stage by stage
+    stages = {}
+    for name, D, base_kind, sig, Cc, _ in (cases[0], cases[4]):
+        fr, fs, base, sigma = epiband_case(
+            torch, rng, plan.h_r, plan.w_r, ws_v, Cc, D, base_kind, sig,
+            torch.bfloat16, stage0)
+        ms, device_ms = cuda_ms_both(
+            torch, lambda: eb.epiband(fr, fs, base, sigma, D, s_v))
+        plain = cuda_ms(
+            lambda: eb.epiband_reference(fr, fs, base, sigma, D, s_v), 3)
+        bound, by = epiband_bounds(torch, fr, fs, base, sigma, D,
+                                   s_v)["epiband_fwd"]
+        stages[name] = dict(D=D, base=base_kind,
+                            shape=[1, plan.h_r, plan.w_r, ws_v, Cc], ms=ms,
+                            device_ms=device_ms, plain_ms=plain,
+                            bound_ms=bound, bound_by=by)
+        print(f"phase 2: {name} timing: kernel {ms:.4f} ms (device "
+              f"{device_ms:.4f}){earlier('epiband_fwd', name)}, plain "
+              f"{plain:.3f} ms, bound {bound:.4f} ms ({by})", flush=True)
+    return max_err, stages
+
+
 def main():
     import torch
 
@@ -1329,63 +1534,8 @@ def main():
     print(f"plan: h_r={plan.h_r} w_r={plan.w_r} s_max={plan.s_max} "
           f"ws_r={plan.ws_r} twopass={plan.twopass} "
           f"view_s_max={plan.view_s_max}", flush=True)
-    rates = np.asarray(plan.view_rates)
-    vmax = int(np.argmax(plan.view_s_max))
-    s_v = plan.view_s_max[vmax]
-    ws_v = plan.ws_r - (plan.s_max - s_v)
-    C = model.dim_fmap
-    d0 = model.auto_hyps(model.cascade[0][0])
-    d1 = model.auto_hyps(model.cascade[1][0])
-    inc0 = 0.0025 / model.cascade[0][1]
-    inc1 = 0.0025 / model.cascade[1][1]
-    wide = tuple(rates[vmax] * inc0)
-    narrow = tuple(rates[vmax] * inc1)
-    stage0 = (d0, inc0 / inc1)
-
     # ---- phase 2: kernel vs plain on the card -----------------------------
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    rng = np.random.RandomState(0)
-    max_err = 0.0
-    cases = [("stage0", d0, None, wide), ("stage0", d0, None, narrow),
-             ("stage1", d1, "band", narrow), ("stage1", d1, "band", wide),
-             ("stage1", d1, "main", narrow)]
-    for dtype, rtol, atol in ((torch.float32, 1e-4, 1e-3),
-                              (torch.bfloat16, 1e-3, 1e-2)):
-        for name, D, base_kind, sig in cases:
-            fr, fs, base, sigma = epiband_case(
-                torch, rng, plan.h_r, plan.w_r, ws_v, C, D, base_kind, sig,
-                dtype, stage0)
-            out = eb.epiband(fr, fs, base, sigma, D, s_v)
-            torch.cuda.synchronize()
-            ref = eb.epiband_reference(fr, fs, base, sigma, D, s_v)
-            err = float((out - ref).abs().max())
-            ok = bool(torch.allclose(out, ref, rtol=rtol, atol=atol))
-            max_err = max(max_err, err)
-            print(f"phase 2: {name} D={D} base={base_kind} "
-                  f"sigma=[{sig[0]:.3f},{sig[1]:.3f}] {str(dtype)[6:]}: max|kernel-plain|={err:.3e} "
-                  f"(|plain|max {float(ref.abs().max()):.2f}) ok={ok}",
-                  flush=True)
-            if not ok:
-                raise RuntimeError(f"epiband kernel disagrees with its plain "
-                                   f"version ({name}, {dtype})")
-
-    # timings at the main path's dtype and bases, stage by stage
-    stages = {}
-    for name, D, base_kind, sig in (cases[0], cases[4]):
-        fr, fs, base, sigma = epiband_case(
-            torch, rng, plan.h_r, plan.w_r, ws_v, C, D, base_kind, sig,
-            torch.bfloat16, stage0)
-        ms = cuda_ms(lambda: eb.epiband(fr, fs, base, sigma, D, s_v), 50)
-        plain = cuda_ms(
-            lambda: eb.epiband_reference(fr, fs, base, sigma, D, s_v), 3)
-        bound, by = epiband_bounds(torch, fr, fs, base, sigma, D,
-                                   s_v)["epiband_fwd"]
-        stages[name] = dict(D=D, base=base_kind,
-                            shape=[1, plan.h_r, plan.w_r, ws_v, C], ms=ms, plain_ms=plain, bound_ms=bound,
-                            bound_by=by)
-        print(f"phase 2: {name} timing: kernel {ms:.4f} ms, plain "
-              f"{plain:.3f} ms, bound {bound:.4f} ms ({by})", flush=True)
+    max_err, stages = phase_epiband_kernel(torch, plan, model)
 
     # ---- phase 3: the lookup kernels vs plain on the card ------------------
     lookup_rows = phase_lookup_kernels(torch)
@@ -1542,7 +1692,7 @@ def main():
     rows["epiband_fwd"] = {
         "max_abs_err": max_err, "ms": s0["ms"], "plain_ms": s0["plain_ms"],
         "bound_ms": s0["bound_ms"], "bound_by": s0["bound_by"],
-        "library_ms": None, "stages": stages}
+        "device_ms": s0["device_ms"], "library_ms": None, "stages": stages}
     # the demo's plans: errors into each row, rescale 2's times beside
     for name, err in demo.pop("kernel_errs").items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)

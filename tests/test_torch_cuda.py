@@ -81,6 +81,140 @@ def test_kernel_matches_plain(cuda_device, dtype, rtol, atol, name, sig,
     torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
 
 
+# (id, w_r, ws, C, D, base kind, sigma range): the bf16 kernel's edges
+EDGE_CASES = [
+    # stage-0 slabs of ~6 x 63 columns: a tile's band spans several chunks
+    ("band_wider_than_chunk", 128, 700, 64, 64, None, (5.0, 7.0)),
+    # taps at 127|128, 255|256, ...: the pair straddles two chunks
+    ("straddling_taps", 128, 600, 64, 44, "straddle", (0.5, 1.5)),
+    ("far_and_nan_bases", 128, 400, 64, 44, "far", (0.5, 1.5)),
+    ("ragged_w_r", 100, 300, 64, 64, "band", (1.0, 3.0)),
+    ("c44", 128, 300, 44, 44, "band", (0.5, 1.5)),
+    ("c16", 128, 300, 16, 64, "band", (1.0, 3.0)),
+]
+
+
+def edge_inputs(rng, w_r, ws, C, D, base_kind, sig):
+    fr = rng.randn(1, 4, w_r, C).astype(np.float32)
+    fs = rng.randn(1, 4, ws, C).astype(np.float32)
+    sigma = rng.uniform(*sig, (1, 4, w_r)).astype(np.float32)
+    s_max = ws - w_r - 8
+    x = np.arange(w_r, dtype=np.float32)
+    base = None
+    if base_kind == "band":
+        base = rng.uniform(-20.0, s_max + 20.0, (1, 4, w_r))
+    elif base_kind == "straddle":
+        # hypothesis 3 of every pixel at column 128 m - 1 + 0.25 (m >= 1)
+        edge = 128.0 * rng.randint(1, ws // 128, (1, 4, w_r)) - 0.75
+        base = x + s_max - 3 * sigma - edge
+    elif base_kind == "far":
+        base = rng.uniform(-20.0, s_max + 20.0, (1, 4, w_r))
+        base[0, 0, ::3] = 1e5
+        base[0, 1, ::3] = -1e5
+        base[0, 2, ::5] = np.nan
+    if base is not None:
+        base = base.astype(np.float32)
+    return fr, fs, base, sigma, s_max
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 1e-4, 1e-3),
+                                             (torch.bfloat16, 1e-3, 1e-2)])
+@pytest.mark.parametrize("name,w_r,ws,C,D,base_kind,sig", EDGE_CASES,
+                         ids=[c[0] for c in EDGE_CASES])
+def test_kernel_edges_match_plain(cuda_device, dtype, rtol, atol, name, w_r,
+                                  ws, C, D, base_kind, sig):
+    """The forward kernel against its plain version where the bf16 kernel's
+    chunks, tiles and padded channels have edges; a NaN base gives NaN
+    outputs in both."""
+    rng = np.random.RandomState(6)
+    fr, fs, base, sigma, s_max = edge_inputs(rng, w_r, ws, C, D, base_kind,
+                                             sig)
+    fr, fs = (torch.from_numpy(a).to(cuda_device, dtype) for a in (fr, fs))
+    base = None if base is None else torch.from_numpy(base).to(cuda_device)
+    sigma = torch.from_numpy(sigma).to(cuda_device)
+    out = eb.epiband(fr, fs, base, sigma, D, s_max)
+    torch.cuda.synchronize()
+    ref = eb.epiband_reference(fr, fs, base, sigma, D, s_max)
+    assert float(ref.nan_to_num().abs().max()) > 1.0
+    assert (base_kind == "far") == bool(ref.isnan().any())
+    torch.testing.assert_close(out, ref, rtol=rtol, atol=atol,
+                               equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,offset", [(64, 0), (44, 0), (3, 0), (64, 1)])
+def test_hat_kernel_non_monotonic_positions(cuda_device, dtype, C, offset):
+    """Positions in random order (no column reuse between neighbours), and
+    an image one element into its storage (narrower vector loads)."""
+    rng = np.random.RandomState(8)
+    R, S, O = 12, 90, 150
+    img = torch.from_numpy(rng.randn(R, S, C).astype(np.float32)).to(
+        cuda_device, dtype)
+    if offset:
+        flat = torch.zeros(img.numel() + offset, device=cuda_device,
+                           dtype=dtype)
+        flat[offset:] = img.reshape(-1)
+        img = flat[offset:].view(R, S, C)
+    pos = rng.uniform(-3.0, S + 2.0, (R, O)).astype(np.float32)
+    pos[0, :3] = [-1e4, 1e4, S - 1.0]
+    pos = torch.from_numpy(pos).to(cuda_device)
+    out = hw.hat_resample_rows(img, pos)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, hw.hat_resample_rows_reference(img, pos),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 1e-4, 1e-3),
+                                             (torch.bfloat16, 1e-3, 1e-2)])
+@pytest.mark.parametrize("w_r,C,D", [(100, 64, 64), (37, 44, 44),
+                                     (70, 16, 100), (17, 64, 256)])
+def test_epiband_kernel_writes_every_output(cuda_device, dtype, rtol, atol,
+                                            w_r, C, D):
+    """A ragged launch at each bf16 tile (64, 32, 16 pixels) writes every
+    output: ``out`` starts as NaN, and in-band and out-of-band bases give
+    finite values only."""
+    rng = np.random.RandomState(9)
+    ws = w_r + 300
+    s_max = ws - w_r - 8
+    fr, fs = (torch.from_numpy(rng.randn(2, 3, n, C).astype(np.float32)).to(
+        cuda_device, dtype) for n in (w_r, ws))
+    base, sigma = (torch.from_numpy(rng.uniform(lo, hi, (2, 3, w_r)).astype(
+        np.float32)).to(cuda_device) for lo, hi in ((-20.0, s_max + 20.0),
+                                                    (0.5, 1.5)))
+    out = torch.full((2, 3, w_r, D), float("nan"), device=cuda_device)
+    eb._launch(fr, fs, base, sigma, D, s_max, out=out)
+    torch.cuda.synchronize()
+    assert not bool(out.isnan().any())
+    torch.testing.assert_close(
+        out, eb.epiband_reference(fr, fs, base, sigma, D, s_max), rtol=rtol,
+        atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,O,C", [(90, 151, 64), (33, 7, 44), (50, 300, 3),
+                                   (20, 1000, 2)])
+def test_hat_kernel_writes_every_output(cuda_device, dtype, S, O, C):
+    """Ragged rows, channel counts that take each vector width, and more
+    positions than one block holds: ``out`` starts as NaN and none is
+    left."""
+    rng = np.random.RandomState(10)
+    R = 5
+    img = torch.from_numpy(rng.randn(R, S, C).astype(np.float32)).to(
+        cuda_device, dtype)
+    pos = torch.from_numpy(rng.uniform(-3.0, S + 2.0, (R, O)).astype(
+        np.float32)).to(cuda_device)
+    out = torch.full((R, O, C), float("nan"), device=cuda_device)
+    hw._launch_forward(img, pos, out=out)
+    torch.cuda.synchronize()
+    assert not bool(out.isnan().any())
+    torch.testing.assert_close(out, hw.hat_resample_rows_reference(img, pos),
+                               rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 1e-4, 1e-3),
                                              (torch.bfloat16, 1e-2, 1e-2)])
