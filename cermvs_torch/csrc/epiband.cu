@@ -85,27 +85,65 @@
 //   dfs[v,y,s,:] = sum_{x,k} dout[x,k] * hat-weight(x,k,s) * fr[v,y,x,:]
 //
 // with the forward's positions, recomputed in its rounding order. base and
-// sigma get no gradient. The TPU kernels formed dG with segment matmuls over
-// static windows and accumulated dfs in a VMEM block revisited by the grid;
-// here both walk a pixel's taps directly and form dG one column at a time
-// in registers (for_each_column), rounding to bf16 where the TPU kernels do
-// for bf16 features: dout, each tap's weight * dout, and dG. epiband_bwd_dfr
-// is the fp32 forward's warp-per-pixel loop without the shuffle reduction (each
-// lane accumulates dG[c] * fs[c] for its channel pair and stores it once, in
-// the features' type); where no column has two taps it skips the column
-// walk, whose bookkeeping about doubles its time. epiband_bwd_dfs scatters
-// dG[c] * fr into a zeroed fp32 (V,h_r,ws,C) buffer with global atomics,
-// one per column, pixel and channel. A source row (ws x C x 4 B = 282 KB at
-// ws = 1104, C = 64) does not fit in shared memory, so the sums meet in L2.
-// Both move the same bytes
-// as the forward plus dout (V,h_r,w_r,D) fp32 read once and the gradient
-// written once: bound by bytes, like the forward; the atomics' L2 round
-// trips, not the bytes, limit epiband_bwd_dfs. Its sums meet in an order
-// that changes from run to run.
+// sigma get no gradient. Both kernels form dG[c], a pixel's weight on source
+// column c, as the sum over its in-band taps on c, rounding to bf16 where the
+// TPU kernels do for bf16 features: dout, each tap's weight * dout, and dG.
+// Both move the same bytes as the forward plus dout (V,h_r,w_r,D) fp32 read
+// once and the gradient written once: bound by bytes, like the forward.
+//
+// epiband_bwd_dfr is the fp32 forward's warp-per-pixel loop without the
+// shuffle reduction: it walks a pixel's taps and forms dG one column at a
+// time in registers (for_each_column); each lane accumulates dG[c] * fs[c]
+// for its channel pair and stores it once, in the features' type. Where no
+// column has two taps it skips the column walk, whose bookkeeping about
+// doubles its time.
+//
+// epiband_bwd_dfs sums over the pixels of a rect row, into the source row:
+// the TPU kernels accumulated it in a VMEM block revisited by the grid.
+// Scattering dG[c] * fr into memory costs a read-modify-write per pixel,
+// column and channel, and on this card an fp32 atomicAdd to shared memory
+// is itself a compare-and-swap loop (ATOMS.CAST.SPIN), so no sum goes
+// through memory here: each output column is owned by one lane, which
+// keeps its C sums in registers and gathers the pixels that reach it.
+//
+// A block (kDfsWarps warps) takes one view v, rect row y and window of up
+// to 32 * kDfsWarps source columns, 32 a warp, one a lane. It finds the
+// row's pixels whose taps can reach the window (the columns between their
+// first and last hypotheses' taps meet it; a NaN or far position meets
+// none), packs them into a candidate list, and walks the list in chunks of
+// kDfsChunk pixels, each in two phases:
+//   A. each warp stages kDfsSlots pixels of the chunk: their fr rows, and
+//      their dG rows over the window in shared memory (fp32, zeros where
+//      no tap lands), marking in each column group's mask which pixels
+//      reach it. For a pixel, the lanes (across hypotheses) form each
+//      hypothesis's taps: the floor of its position (clamped to [-2,
+//      ws + 1]) and the rounded weights of its left and right taps. The
+//      positions fall as k grows (sigma >= 0), so the taps on column c are
+//      one run of k whose floor is c (left taps) and the next, whose floor
+//      is c - 1 (right taps): the first lane of each run sums them in
+//      ascending k, left taps first (the plain version's and the column
+//      walk's order, so dG rounds as theirs does) and writes dG[c] (and
+//      dG[c + 1] where no run has floor c + 1). A negative sigma has one
+//      lane sum the row in the plain version's order.
+//   B. each warp adds, for its 32 columns, dG * fr of the pixels in its
+//      mask, in pixel order, into its lanes' registers (fr read from
+//      shared memory as 16-byte vectors, the same for every lane).
+// Two buffers of dG rows, fr rows and masks take chunks in turn, so one
+// barrier a chunk separates the phases and a warp's phase B overlaps
+// other warps' next phase A. At the end each lane writes its column's C
+// values once, in the features' type: no atomics, no zeroed buffer, no cast
+// pass, and the sums meet in the same order on every run. What bounds it
+// is the gather: C multiply-adds per pixel and column in the pixel's span
+// (the columns between its first and last taps, reached or not) and phase
+// A's latency, not the bytes. The window (a multiple of 32 columns) and the
+// shared-memory bytes come from the wrapper's dfs_launch_geometry; the
+// launcher refuses bytes that differ from DfsSmem's.
 //
 // Exported with a plain C interface (loaded with ctypes). Each launch runs on
 // the caller's stream and allocates nothing; the return value is
 // cudaGetLastError() after the launch.
+
+#include <climits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -680,34 +718,389 @@ epiband_bwd_dfr_kernel(const T* __restrict__ fs, const float* __restrict__ base,
   if (has) store_pair(dfr + pix * C, lane, acc);
 }
 
-// dfs: one warp per rect pixel scatters dG[c] * fr[pixel] into each of its
-// columns, lane j channel pair j
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
+// ---- dfs: column groups that gather their pixels ----------------------------
+
+constexpr int kDfsWarps = 8;      // a block's warps: a 32-column group each
+constexpr int kDfsThreads = kDfsWarps * 32;
+constexpr int kDfsChunk = 32;     // pixels whose dG rows are staged at once
+constexpr int kDfsSlots = kDfsChunk / kDfsWarps;  // a warp's pixels of a chunk
+constexpr int kDfsAhead = 2;      // dout values per lane loaded before use
+constexpr int kDfsPass = 2 * kDfsThreads;  // pixels a candidate pass checks
+constexpr int kDfsLook = 4;       // tap records a run walk reads at once
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may use
+
+
+// Staged fr rows hold the channels padded to 16 bytes, so that a row is read
+// as 16-byte vectors.
+__host__ __device__ constexpr int fr_stride(int C, int esize) {
+  return (C * esize + 15) / 16 * (16 / esize);
+}
+
+// Shared-memory layout (bytes) of epiband_bwd_dfs: the tap records of each
+// warp's slots (D each: an int4 of the floor of the hypothesis's position,
+// clamped to [-2, ws + 1], and the bits of its left and right taps' rounded
+// weights); two buffers, for chunks in turn, of the chunk's dG rows over the
+// window (fp32), its fr rows (the features' type) and each column group's
+// mask of the chunk's pixels that reach it; the pass's candidate pixels (x,
+// first and last column in the window, base and sigma) and a count per
+// warp.
+struct DfsSmem {
+  int rows, frs, masks, cand, total;
+  __host__ __device__ DfsSmem(int window, int C, int D, int esize)
+      : rows(kDfsChunk * D * 16),
+        frs(rows + 2 * kDfsChunk * window * 4),
+        masks(frs + 2 * kDfsChunk * fr_stride(C, esize) * esize),
+        cand(masks + 2 * kDfsWarps * 4),
+        total(cand + kDfsPass * 5 * 4 + 2 * kDfsWarps * 4) {}
+};
+
+__device__ __forceinline__ float tap_position(float xs, float b, float sg,
+                                              int k) {
+  return __fsub_rn(xs, __fadd_rn(b, __fmul_rn(sg, static_cast<float>(k))));
+}
+
+__device__ __forceinline__ void store_two(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_two(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// the 16-byte vector q of a staged fr row as floats (8 bf16 or 4 fp32)
+__device__ __forceinline__ void unpack16(const __nv_bfloat16* row, int q,
+                                         float* f) {
+  const uint4 u = reinterpret_cast<const uint4*>(row)[q];
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 p = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    f[2 * i] = p.x;
+    f[2 * i + 1] = p.y;
+  }
+}
+__device__ __forceinline__ void unpack16(const float* row, int q, float* f) {
+  const float4 v = reinterpret_cast<const float4*>(row)[q];
+  f[0] = v.x;
+  f[1] = v.y;
+  f[2] = v.z;
+  f[3] = v.w;
+}
+
+// block (column window) x rect row y x view v; see the notes at the top.
+// kChan >= C channels of a column's sums in each lane's registers.
+template <typename T, int kChan>
+__global__ void __launch_bounds__(kDfsThreads, 2)
 epiband_bwd_dfs_kernel(const T* __restrict__ fr, const float* __restrict__ base,
                        const float* __restrict__ sigma,
-                       const float* __restrict__ dout, float* __restrict__ dfs,
-                       int h_r, int w_r, int ws, int C, int D, float s_max) {
-  const int lane = threadIdx.x & 31;
-  const int x = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int y = blockIdx.y;
-  const int v = blockIdx.z;
-  if (x >= w_r) return;
-  const bool has = lane < (C >> 1);
-  const size_t row = static_cast<size_t>(v) * h_r + y;
-  const size_t pix = row * w_r + x;
-  const float2 a = has ? load_pair(fr + pix * C, lane) : make_float2(0.f, 0.f);
-  const float b = base != nullptr ? base[pix] : 0.f;
-  const float xs = __fadd_rn(static_cast<float>(x), s_max);
-  float* dst = dfs + row * static_cast<size_t>(ws) * C + 2 * lane;
+                       const float* __restrict__ dout, T* __restrict__ dfs,
+                       int h_r, int w_r, int ws, int C, int D, float s_max,
+                       int window) {
+  constexpr int kEsize = static_cast<int>(sizeof(T));
+  constexpr int kVec = 16 / kEsize;  // channels per 16-byte vector
+  extern __shared__ __align__(16) unsigned char smem[];
+  const DfsSmem L(window, C, D, kEsize);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int4* recs = reinterpret_cast<int4*>(smem) + warp * kDfsSlots * D;
+  const int cs = fr_stride(C, kEsize);
+  int* cand_x = reinterpret_cast<int*>(smem + L.cand);
+  int* cand_lo = cand_x + kDfsPass;
+  int* cand_hi = cand_lo + kDfsPass;
+  float* cand_b = reinterpret_cast<float*>(cand_hi + kDfsPass);
+  float* cand_sg = cand_b + kDfsPass;
+  int* warp_count = reinterpret_cast<int*>(cand_sg + kDfsPass);
 
-  for_each_column<T>(dout + pix * D, D, xs, b, sigma[pix],
-                     static_cast<float>(ws - 1), lane, [&](int c, float w) {
-    if (has) {
-      atomicAdd(dst + static_cast<size_t>(c) * C, w * a.x);
-      atomicAdd(dst + static_cast<size_t>(c) * C + 1, w * a.y);
+  const int c0 = blockIdx.x * window;  // the window's first column
+  const int ncols = min(window, ws - c0);
+  const size_t row = static_cast<size_t>(blockIdx.z) * h_r + blockIdx.y;
+  const float last = static_cast<float>(ws - 1);
+  const float win_lo = static_cast<float>(c0);
+  const float win_hi = static_cast<float>(c0 + ncols - 1);
+
+  for (int i = tid; i < L.cand / 4; i += kDfsThreads)
+    reinterpret_cast<unsigned*>(smem)[i] = 0u;  // rows, fr padding, masks
+  // the columns this warp last wrote in each buffer's rows of its slots
+  int zero_lo[2][kDfsSlots], zero_hi[2][kDfsSlots];
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int s = 0; s < kDfsSlots; ++s) {
+      zero_lo[u][s] = 0;
+      zero_hi[u][s] = -1;
     }
-  });
+  float acc[kChan];
+#pragma unroll
+  for (int ch = 0; ch < kChan; ++ch) acc[ch] = 0.f;
+  const int col = 32 * warp + lane;  // this lane's column in the window
+  const bool group = 32 * warp < ncols;
+  int chunk = 0;  // chunks staged so far: buffer chunk & 1
+
+  for (int p0 = 0; p0 < w_r; p0 += kDfsPass) {
+    // the pass's pixels that reach the window: the columns between their
+    // first and last hypotheses' taps meet it (a NaN position meets none);
+    // two a thread, listed in pixel order
+    int lo[2], hi[2];
+    float b[2], sg[2];
+    unsigned m[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int x = p0 + h * kDfsThreads + tid;
+      lo[h] = 1;
+      hi[h] = 0;
+      b[h] = sg[h] = 0.f;
+      if (x < w_r) {
+        const size_t pix = row * w_r + x;
+        b[h] = base != nullptr ? base[pix] : 0.f;
+        sg[h] = sigma[pix];
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int x = p0 + h * kDfsThreads + tid;
+      if (x < w_r) {
+        const float xs = __fadd_rn(static_cast<float>(x), s_max);
+        const float q0 = tap_position(xs, b[h], sg[h], 0);
+        const float q1 = tap_position(xs, b[h], sg[h], D - 1);
+        const float l = fmaxf(floorf(fminf(q0, q1)), win_lo);
+        const float e = fminf(floorf(fmaxf(q0, q1)) + 1.f, win_hi);
+        if (q0 == q0 && q1 == q1 && l <= e) {
+          lo[h] = static_cast<int>(l);
+          hi[h] = static_cast<int>(e);
+        }
+      }
+      m[h] = __ballot_sync(0xffffffffu, lo[h] <= hi[h]);
+    }
+    __syncthreads();  // the previous pass's candidates are consumed
+    if (lane == 0) {
+      warp_count[warp] = __popc(m[0]);
+      warp_count[kDfsWarps + warp] = __popc(m[1]);
+    }
+    __syncthreads();
+    int n_cand = 0;
+    int before[2] = {0, 0};
+    for (int w = 0; w < 2 * kDfsWarps; ++w) {
+      before[0] += w < warp ? warp_count[w] : 0;
+      before[1] += w < kDfsWarps + warp ? warp_count[w] : 0;
+      n_cand += warp_count[w];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (lo[h] <= hi[h]) {
+        const int q = before[h] + __popc(m[h] & ((1u << lane) - 1u));
+        cand_x[q] = p0 + h * kDfsThreads + tid;
+        cand_lo[q] = lo[h];
+        cand_hi[q] = hi[h];
+        cand_b[q] = b[h];
+        cand_sg[q] = sg[h];
+      }
+    }
+    __syncthreads();
+
+    for (int q0 = 0; q0 < n_cand; q0 += kDfsChunk, ++chunk) {
+      const int u = chunk & 1;
+      float* rows = reinterpret_cast<float*>(smem + L.rows) + u * kDfsChunk * window;
+      T* frs = reinterpret_cast<T*>(smem + L.frs) + u * kDfsChunk * cs;
+      unsigned* masks = reinterpret_cast<unsigned*>(smem + L.masks) + u * kDfsWarps;
+
+      // A. each warp stages the dG rows and fr rows of its chunk slots
+      // (warp + kDfsWarps * s) in buffer u: first every slot's taps, then
+      // every slot's dG row, so that the slots' latencies overlap. Every
+      // warp has left the chunk that last used buffer u (it came before
+      // the previous chunk's barrier).
+      float g[kDfsSlots][kDfsAhead];
+      float2 fv[kDfsSlots];
+      int px[kDfsSlots];
+#pragma unroll
+      for (int s = 0; s < kDfsSlots; ++s) {
+        const int q = q0 + warp + kDfsWarps * s;
+        px[s] = q < n_cand ? cand_x[q] : -1;
+        const size_t pix = row * w_r + max(px[s], 0);
+#pragma unroll
+        for (int j = 0; j < kDfsAhead; ++j)
+          g[s][j] = px[s] >= 0 && lane + 32 * j < D ? dout[pix * D + lane + 32 * j] : 0.f;
+        fv[s] = px[s] >= 0 && 2 * lane < C ? load_pair(fr + pix * C, lane)
+                                           : make_float2(0.f, 0.f);
+      }
+      // A1. the taps of each slot, lanes across hypotheses
+#pragma unroll
+      for (int s = 0; s < kDfsSlots; ++s) {
+        const int slot = warp + kDfsWarps * s;
+        float* drow = rows + slot * window - c0;  // indexed by column
+        for (int c = zero_lo[u][s] + lane; c <= zero_hi[u][s]; c += 32) drow[c] = 0.f;
+        zero_hi[u][s] = -1;
+        if (px[s] < 0) continue;  // uniform across the warp
+        const float bi = cand_b[q0 + slot], sgi = cand_sg[q0 + slot];
+        const int plo = cand_lo[q0 + slot], phi = cand_hi[q0 + slot];
+        zero_lo[u][s] = plo;
+        zero_hi[u][s] = phi;
+        // the column groups this pixel reaches
+        if (lane <= (phi - c0) / 32 - (plo - c0) / 32)
+          atomicOr(masks + (plo - c0) / 32 + lane, 1u << slot);
+        if (2 * lane < C) store_two(frs + slot * cs + 2 * lane, fv[s].x, fv[s].y);
+        const size_t pix = row * w_r + px[s];
+        const float xs = __fadd_rn(static_cast<float>(px[s]), s_max);
+        int4* rec = recs + s * D;
+        auto tap = [&](int k, float gk) {
+          const float pos = tap_position(xs, bi, sgi, k);
+          const float fl = floorf(pos);
+          const float f = __fsub_rn(pos, fl);
+          gk = round_as<T>(gk);
+          rec[k] = make_int4(
+              static_cast<int>(fminf(fmaxf(fl, -2.f), last + 2.f)),
+              __float_as_int(round_as<T>(__fmul_rn(__fsub_rn(1.f, f), gk))),
+              __float_as_int(round_as<T>(__fmul_rn(f, gk))), 0);
+        };
+#pragma unroll
+        for (int j = 0; j < kDfsAhead; ++j)
+          if (lane + 32 * j < D) tap(lane + 32 * j, g[s][j]);
+        for (int k = lane + 32 * kDfsAhead; k < D; k += 32)
+          tap(k, dout[pix * D + k]);
+      }
+      __syncwarp();
+
+      // A2. the dG row of each slot, lanes across hypotheses. The
+      // positions fall as k grows (sigma >= 0), so the taps on column c are
+      // the run of k whose floor is c (left taps), then the run whose
+      // floor is c - 1 (right taps). The first lane of a run of floor c
+      // sums column c in ascending k, left taps first (the plain version's
+      // and the column walk's order, so dG rounds as theirs does), and
+      // column c + 1 too where no run has floor c + 1: each column of the
+      // pixel has one owner, which writes its dG into the pixel's row.
+#pragma unroll
+      for (int s = 0; s < kDfsSlots; ++s) {
+        if (px[s] < 0) continue;  // uniform across the warp
+        const int slot = warp + kDfsWarps * s;
+        float* drow = rows + slot * window - c0;
+        const int4* rec = recs + s * D;
+        if (cand_sg[q0 + slot] >= 0.f) {
+          for (int k0 = 0; k0 < D; k0 += 32) {
+            const int k = k0 + lane;
+            const int4 r = k < D ? rec[k] : make_int4(INT_MIN, 0, 0, 0);
+            const int prev_lane = __shfl_up_sync(0xffffffffu, r.x, 1);
+            if (k >= D) continue;
+            const int c = r.x;
+            const int prev = lane > 0 ? prev_lane : k > 0 ? rec[k - 1].x : INT_MAX;
+            if (prev == c) continue;
+            // the records after k, kDfsLook at a time: the rest of the run
+            // of floor c, then the run of floor c - 1
+            float sl = __int_as_float(r.y), sr = __int_as_float(r.z);
+            bool done = false;
+            for (int e = k + 1; !done; e += kDfsLook) {
+              int4 t[kDfsLook];
+#pragma unroll
+              for (int v = 0; v < kDfsLook; ++v)
+                t[v] = e + v < D ? rec[e + v] : make_int4(INT_MIN, 0, 0, 0);
+#pragma unroll
+              for (int v = 0; v < kDfsLook; ++v) {
+                if (done) continue;
+                if (t[v].x == c) {
+                  sl += __int_as_float(t[v].y);
+                  sr += __int_as_float(t[v].z);
+                } else if (t[v].x == c - 1) {
+                  sl += __int_as_float(t[v].z);
+                } else {
+                  done = true;
+                }
+              }
+            }
+            if (c >= c0 && c < c0 + ncols) drow[c] = round_as<T>(sl);
+            if (prev != c + 1 && c + 1 >= c0 && c + 1 < c0 + ncols)
+              drow[c + 1] = round_as<T>(sr);
+          }
+        } else if (lane == 0) {
+          // a negative sigma reverses the runs: one lane sums the row in
+          // the plain version's order (left taps, then right taps)
+          for (int k = 0; k < D; ++k) {
+            const int c = rec[k].x;
+            if (c >= c0 && c < c0 + ncols) drow[c] += __int_as_float(rec[k].y);
+          }
+          for (int k = 0; k < D; ++k) {
+            const int c = rec[k].x + 1;
+            if (c >= c0 && c < c0 + ncols) drow[c] += __int_as_float(rec[k].z);
+          }
+          for (int c = zero_lo[u][s]; c <= zero_hi[u][s]; ++c)
+            drow[c] = round_as<T>(drow[c]);
+        }
+      }
+      // one barrier a chunk: after it, buffer u is staged, and every warp
+      // has left the previous chunk, whose buffer the next chunk reuses
+      __syncthreads();
+
+      // B. each warp adds, for its 32 columns, dG * fr of the chunk's
+      // pixels that reach them (its mask), in pixel order, into its lanes'
+      // registers, two pixels at a time
+      if (group) {
+        unsigned bits = masks[warp];
+        __syncwarp();
+        if (lane == 0) masks[warp] = 0u;
+        while (bits) {
+          const int s0 = __ffs(bits) - 1;
+          bits &= bits - 1u;
+          const int s1 = bits ? __ffs(bits) - 1 : s0;
+          const float w1 = bits ? 1.f : 0.f;
+          bits &= bits - 1u;
+          const float d0 = col < ncols ? rows[s0 * window + col] : 0.f;
+          const float d1 = col < ncols ? w1 * rows[s1 * window + col] : 0.f;
+          const T* f0 = frs + s0 * cs;
+          const T* f1 = frs + s1 * cs;
+#pragma unroll
+          for (int q = 0; q < kChan / kVec; ++q) {
+            if (q * kVec < C) {
+              float a[kVec], b2[kVec];
+              unpack16(f0, q, a);
+              unpack16(f1, q, b2);
+#pragma unroll
+              for (int i = 0; i < kVec; ++i)
+                acc[q * kVec + i] =
+                    fmaf(d1, b2[i], fmaf(d0, a[i], acc[q * kVec + i]));
+            }
+          }
+        }
+      }
+    }
+  }
+
+  // this lane's column, every channel, once
+  if (group && col < ncols) {
+    T* dst = dfs + (row * ws + c0 + col) * C;
+#pragma unroll
+    for (int ch = 0; ch < kChan; ch += 2)
+      if (ch < C) store_two(dst + ch, acc[ch], acc[ch + 1]);
+  }
+}
+
+template <typename T, int kChan>
+cudaError_t launch_dfs(const void* fr, const float* base, const float* sigma,
+                       const float* dout, void* dfs, int V, int h_r, int w_r,
+                       int ws, int C, int D, float s_max, int window,
+                       int smem_bytes, cudaStream_t st) {
+  const auto kernel = epiband_bwd_dfs_kernel<T, kChan>;
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((ws + window - 1) / window, h_r, V);
+  kernel<<<grid, kDfsThreads, smem_bytes, st>>>(
+      static_cast<const T*>(fr), base, sigma, dout, static_cast<T*>(dfs), h_r,
+      w_r, ws, C, D, s_max, window);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dfs_chan(const void* fr, const float* base,
+                            const float* sigma, const float* dout, void* dfs,
+                            int V, int h_r, int w_r, int ws, int C, int D,
+                            float s_max, int window, int smem_bytes,
+                            cudaStream_t st) {
+  if (C <= 16)
+    return launch_dfs<T, 16>(fr, base, sigma, dout, dfs, V, h_r, w_r, ws, C,
+                             D, s_max, window, smem_bytes, st);
+  if (C <= 32)
+    return launch_dfs<T, 32>(fr, base, sigma, dout, dfs, V, h_r, w_r, ws, C,
+                             D, s_max, window, smem_bytes, st);
+  return launch_dfs<T, 64>(fr, base, sigma, dout, dfs, V, h_r, w_r, ws, C, D,
+                           s_max, window, smem_bytes, st);
 }
 
 template <int kTile, int kVec>
@@ -814,24 +1207,31 @@ int epiband_backward_dfr(const void* fs, const float* base, const float* sigma,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dfs (V,h_r,ws,C) fp32, accumulated into: the caller zeroes it.
+// dfs (V,h_r,ws,C) in the features' type; every element is written. window
+// (source columns per block, a multiple of 32 up to 32 * kDfsWarps) and
+// smem_bytes come from the wrapper's dfs_launch_geometry: smem_bytes must
+// equal DfsSmem's total and fit a block. C must be even and at most 64.
 int epiband_backward_dfs(const void* fr, const float* base, const float* sigma,
-                         const float* dout, float* dfs, int V, int h_r,
+                         const float* dout, void* dfs, int V, int h_r,
                          int w_r, int ws, int C, int D, int s_max, int dtype,
-                         void* stream) {
+                         int window, int smem_bytes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((w_r + kWarps - 1) / kWarps, h_r, V);
-  const dim3 block(kWarps * 32);
+  const int esize = dtype == 1 ? 2 : 4;
+  const bool ok = window > 0 && window % 32 == 0 && window <= 32 * kDfsWarps &&
+                  ws > 0 && w_r > 0 && D > 0 && C > 0 && C % 2 == 0 &&
+                  C <= 64 && h_r > 0 && h_r <= 65535 && V > 0 && V <= 65535 &&
+                  static_cast<long long>(D) * kDfsChunk * 16 < kMaxSmem &&
+                  smem_bytes <= kMaxSmem &&
+                  smem_bytes == DfsSmem(window, C, D, esize).total;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const float sm = static_cast<float>(s_max);
   if (dtype == 1)
-    epiband_bwd_dfs_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(fr), base, sigma, dout, dfs, h_r,
-        w_r, ws, C, D, sm);
-  else
-    epiband_bwd_dfs_kernel<float><<<grid, block, 0, st>>>(
-        static_cast<const float*>(fr), base, sigma, dout, dfs, h_r, w_r, ws,
-        C, D, sm);
-  return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(launch_dfs_chan<__nv_bfloat16>(
+        fr, base, sigma, dout, dfs, V, h_r, w_r, ws, C, D, sm, window,
+        smem_bytes, st));
+  return static_cast<int>(launch_dfs_chan<float>(
+      fr, base, sigma, dout, dfs, V, h_r, w_r, ws, C, D, sm, window,
+      smem_bytes, st));
 }
 
 const char* epiband_error_string(int code) {

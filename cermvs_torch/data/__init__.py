@@ -1,7 +1,7 @@
 """Dataset registry and loader factories: ``get_test_data_loader``
 (un-batched, ordered, optional (start, end, step) subset) and
 ``get_train_data_loader`` (shuffled, drop_last) over the registered
-datasets. DTU and DTUTest are ported; the others are ROADMAP Queue 1 item 1.
+datasets. DTU and DTUTest are ported; the others are ROADMAP Queue 1 item 2.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ NOT_PORTED = ("Blended", "TNT", "Custom")
 
 def _dataset(name):
     if name not in dataset_dict:
-        why = ("not ported yet (ROADMAP Queue 1 item 1)" if name in NOT_PORTED
+        why = ("not ported yet (ROADMAP Queue 1 item 2)" if name in NOT_PORTED
                else "unknown")
         raise KeyError(f"dataset {name!r}: {why}")
     return dataset_dict[name]

@@ -23,10 +23,22 @@ def random_scale_and_crop(images: np.ndarray, depths: np.ndarray,
                           intrinsics: np.ndarray,
                           crop_size: Sequence[int] = (1056, 1440),
                           smin: float = -0.15, smax: float = 0.5,
-                          rng: Optional[np.random.RandomState] = None
+                          rng: Optional[np.random.RandomState] = None,
+                          use_native: bool = False
                           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Scale by 2^U(smin, smax) (images bilinear, depths nearest), crop a
-    random ``crop_size`` window, and fix the intrinsics to match."""
+    random ``crop_size`` window, and fix the intrinsics to match.
+
+    The resize is cv2's, the JAX package's with ``use_native=False``. Its
+    ``use_native=True`` resizes with its C++ data runtime
+    (``native/dataio.cpp``), whose images and depths differ from cv2's
+    (tests/test_torch_data.py), so the port refuses it until it binds that
+    runtime (ROADMAP Queue 1 item 4)."""
+    if use_native:
+        raise NotImplementedError(
+            "random_scale_and_crop(use_native=True): the native resize is "
+            "not ported yet (ROADMAP Queue 1 item 4); bind use_native=False "
+            "for cv2's resize")
     rng = rng or np.random
     s = 2.0 ** rng.uniform(smin, smax)
     ht1, wd1 = images.shape[1:3]

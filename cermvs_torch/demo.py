@@ -5,7 +5,7 @@ rescale 2 into ``results/<scan>/result.ply``:
     python -m cermvs_torch.demo [--dtu_ckpt pretrained/train_DTU]
 
 The Tanks and Temples part of the JAX package's demo waits for the port's
-TNT loader (ROADMAP Queue 1 item 1).
+TNT loader (ROADMAP Queue 1 item 2).
 """
 
 import argparse

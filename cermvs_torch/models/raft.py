@@ -39,6 +39,8 @@ class RAFT(nn.Module):
                  dim_net: int = 64, dim_inp: int = 64,
                  test_mode: bool = False, num_levels: int = 3,
                  radius: int = 5, hyp_chunk: int = 16,
+                 remat: bool = True, unroll_iters: bool = False,
+                 encoder_chunk: Optional[int] = None,
                  lookup_impl: str = "banded",
                  aggregation: Sequence[str] = ("mean",),
                  force_per_view_volumes: bool = False,
@@ -46,8 +48,20 @@ class RAFT(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  device="cuda"):
         """``generator``: the CPU generator the weights are drawn from (seed 0
-        when None); ``device``: where the module lives after init."""
+        when None); ``device``: where the module lives after init.
+
+        ``remat``, ``unroll_iters`` and ``encoder_chunk`` are the JAX
+        package's bindings of the same names, accepted so that its gin
+        files and flags drive this class, and they change nothing here:
+        they only choose how JAX traces the update loop (a scan or unrolled
+        steps) and what it keeps for the backward pass (recomputing the
+        encoders and iterations, scanning the feature encoder over chunks
+        of frames), that is memory and compile time, not the values. The
+        port runs the loop eagerly and keeps autograd's activations; a
+        counterpart that trades memory for recomputation is ROADMAP Queue 1
+        item 5."""
         super().__init__()
+        del remat, unroll_iters, encoder_chunk
         self.cascade = tuple(tuple(s) for s in cascade)
         self.encoder_type = encoder_type
         self.dim_fmap = dim_fmap

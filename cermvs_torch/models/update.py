@@ -5,8 +5,11 @@ Module names follow the reference ``state_dict`` (``update_block.gru.convz``,
 
   * ``cor_planes = len(aggregation) * num_levels * (2*radius+1)`` = 33 by
     default.
-  * The corr encoder and the GRU are shared across cascade stages; each stage
-    has its own delta head.
+  * By default the corr encoder and the GRU are shared across cascade stages
+    and each stage has its own delta head. ``share_corr``, ``share_gru`` and
+    ``share_delta`` choose, for each, one module (``corr_encoder``, ``gru``,
+    ``delta``) or one per stage (``corr_encoder0``, ``gru1``, ``delta0``,
+    ...), under the names of the reference's checkpoints of each form.
   * Disparity context: 7x7 neighbourhood minus centre, scaled x100; the delta
     output is scaled x0.01.
   * Multi-view aggregation over the view axis: mean (default), max, std.
@@ -118,6 +121,8 @@ class UpdateBlock(nn.Module):
                  dim0_delta: int = 256, kernel0_delta: int = 3,
                  kernel1_delta: int = 3, num_levels: int = 3,
                  radius: int = 5, size_disp_enc: int = 7,
+                 share_corr: bool = True, share_gru: bool = True,
+                 share_delta: bool = False,
                  aggregation: Sequence[str] = ("mean",),
                  dtype=torch.bfloat16):
         super().__init__()
@@ -125,20 +130,28 @@ class UpdateBlock(nn.Module):
         self.aggregation = tuple(aggregation)
         self.size_disp_enc = size_disp_enc
         self.cor_planes = len(self.aggregation) * num_levels * (2 * radius + 1)
-        self.corr_encoder = _two_conv(self.cor_planes, dim0_corr, dim1_corr,
-                                      1, kernel_corr, True)
+        self.shared = {"corr_encoder": share_corr, "gru": share_gru,
+                       "delta": share_delta}
         dyn = size_disp_enc ** 2 + dim1_corr
-        self.gru = ConvGRU(dim_net, dim_inp, dyn, dtype=dtype)
-        for i in range(len(cascade)):
-            setattr(self, f"delta{i}",
-                    _two_conv(dim_net, dim0_delta, 1, kernel0_delta,
-                              kernel1_delta, False))
+        make = {
+            "corr_encoder": lambda: _two_conv(self.cor_planes, dim0_corr,
+                                              dim1_corr, 1, kernel_corr, True),
+            "gru": lambda: ConvGRU(dim_net, dim_inp, dyn, dtype=dtype),
+            "delta": lambda: _two_conv(dim_net, dim0_delta, 1, kernel0_delta,
+                                       kernel1_delta, False)}
+        for name, shared in self.shared.items():
+            for i in [""] if shared else range(len(cascade)):
+                setattr(self, f"{name}{i}", make[name]())
+
+    def stage_module(self, name: str, stage: int) -> nn.Module:
+        """The ``corr_encoder``, ``gru`` or ``delta`` of cascade stage
+        ``stage``: the shared module, or the stage's own."""
+        return getattr(self, name if self.shared[name] else f"{name}{stage}")
 
     def gru_ctx(self, inp: torch.Tensor, stage: int) -> torch.Tensor:
         """Loop-invariant GRU gate contributions of the context features —
-        computed once per cascade stage (the GRU is shared across stages)."""
-        del stage
-        return self.gru.ctx(inp)
+        computed once per cascade stage, by the stage's GRU."""
+        return self.stage_module("gru", stage).ctx(inp)
 
     def aggregate(self, corr_frames: torch.Tensor) -> torch.Tensor:
         parts = []
@@ -156,10 +169,11 @@ class UpdateBlock(nn.Module):
         dt = self.dtype
         dctx = (100.0 * disp_context(disp, self.size_disp_enc)).to(dt)
         corr = self.aggregate(corr_frames).to(dt)
-        corr = _apply_two_conv(self.corr_encoder, corr, dt)
+        corr = _apply_two_conv(self.stage_module("corr_encoder", stage), corr,
+                               dt)
         if gru_ctx is None:
             gru_ctx = self.gru_ctx(inp, stage)
         dyn = torch.cat([dctx, corr], dim=-1)
-        net = self.gru(net.to(dt), dyn, gru_ctx)
-        d = _apply_two_conv(getattr(self, f"delta{stage}"), net, dt)
+        net = self.stage_module("gru", stage)(net.to(dt), dyn, gru_ctx)
+        d = _apply_two_conv(self.stage_module("delta", stage), net, dt)
         return net, 0.01 * d.float()

@@ -21,7 +21,9 @@ On CUDA tensors the wrappers launch the hand-written kernels
 ``epiband_backward_dfr``, ``epiband_backward_dfs``), built with ``nvcc`` at
 first use (``ops/cudalib.py``); on CPU tensors they run the plain versions.
 There is no fallback from one to the other. :func:`launch_geometry` sets the
-forward kernel's tile, chunk, copy width, shared memory and grid.
+forward kernel's tile, chunk, copy width, shared memory and grid,
+:func:`dfs_launch_geometry` the dfs kernel's column window, shared memory and
+grid.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ _p, _i = ctypes.c_void_p, ctypes.c_int
 LIB = cudalib.KernelLibrary("epiband", {
     "epiband_forward": [_p, _p, _p, _p, _p] + [_i] * 11 + [_p],
     "epiband_backward_dfr": [_p, _p, _p, _p, _p] + [_i] * 8 + [_p],
-    "epiband_backward_dfs": [_p, _p, _p, _p, _p] + [_i] * 8 + [_p],
+    "epiband_backward_dfs": [_p, _p, _p, _p, _p] + [_i] * 10 + [_p],
 })
 KERNELS = ("epiband_fwd", "epiband_bwd_dfr", "epiband_bwd_dfs")
 THREADS = 256        # the forward kernels' block size
@@ -47,6 +49,9 @@ MAX_OUT = 16         # bf16 forward: outputs a thread keeps in registers
 CHUNK = 128          # bf16 forward: source columns per staged chunk
 REACH_WORDS = 64     # bf16 forward: 32-chunk words of its reached-chunk bitmap
 MAX_GRID_YZ = 65535
+DFS_WARPS = 8        # dfs: warps per block, 32 source columns each
+DFS_CHUNK = 32       # dfs: pixels whose dG rows a block stages at once
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may use (bytes)
 
 
 @dataclass(frozen=True)
@@ -94,6 +99,46 @@ def launch_geometry(V: int, h_r: int, w_r: int, ws: int, C: int, D: int,
             + 2 * tile * 4 + REACH_WORDS * 4)  # base, sigma, bitmap
     return Geometry(tile=tile, chunk=CHUNK, vec=vec, smem_bytes=smem,
                     grid=(-(-w_r // tile), h_r, V))
+
+
+@dataclass(frozen=True)
+class DfsGeometry:
+    """The dfs kernel's launch: a block of ``DFS_WARPS`` warps per window of
+    ``window`` source columns (32 a warp), rect row and view, ``grid =
+    (windows, h_r, V)``, and ``smem_bytes`` of dynamic shared memory. The
+    launcher takes window and smem_bytes."""
+    window: int
+    smem_bytes: int
+    grid: tuple
+
+
+@functools.lru_cache(maxsize=256)
+def dfs_launch_geometry(V: int, h_r: int, ws: int, C: int, D: int,
+                        dtype) -> DfsGeometry:
+    """Launch parameters of ``epiband_backward_dfs`` for a gradient (V, h_r,
+    ws, C) of ``dtype`` from D hypotheses: the fewest windows of at most
+    ``32 * DFS_WARPS`` columns that cover the row, made even (a multiple of
+    32 columns each), and the bytes of the kernel's shared-memory layout
+    (``DfsSmem`` in ``csrc/epiband.cu``, whose launcher refuses any other
+    count): a chunk's D tap records a pixel, its dG rows (fp32,
+    over the window) and fr rows (padded to 16 bytes), the column groups'
+    masks of them, the candidate pixels."""
+    if max(h_r, V) > MAX_GRID_YZ:
+        raise ValueError(f"epiband takes h_r and V up to {MAX_GRID_YZ}, got "
+                         f"{h_r} and {V}")
+    n = -(-ws // (32 * DFS_WARPS))
+    window = -(-ws // (32 * n)) * 32
+    esize = 2 if dtype == torch.bfloat16 else 4
+    fr_row = -(-C * esize // 16) * 16
+    # tap records; two buffers of dG rows, fr rows, masks; candidates
+    smem = (DFS_CHUNK * D * 16
+            + 2 * (DFS_CHUNK * window * 4 + DFS_CHUNK * fr_row + DFS_WARPS * 4)
+            + 2 * DFS_WARPS * 32 * 5 * 4 + 2 * DFS_WARPS * 4)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"the dfs kernel's tap records for D={D} leave no "
+                         f"room in a block's shared memory")
+    return DfsGeometry(window=window, smem_bytes=smem,
+                       grid=(-(-ws // window), h_r, V))
 
 
 def epiband_reference(fr, fs, base, sigma, n_hyp: int, s_max: int):
@@ -218,11 +263,12 @@ def epiband_backward_reference(fr, fs, base, sigma, dout, s_max: int):
             b[..., None] + sigma[v][..., None] * k)
         x0 = torch.floor(idx)
         f = idx - x0
-        i0 = x0.clamp(-2, ws + 1).to(torch.int64)
+        # a NaN position (base or sigma) has no in-band tap
+        i0 = x0.nan_to_num(-2.0).clamp(-2, ws + 1).to(torch.int64)
         i1 = i0 + 1
         g = rd(dout[v].float())
-        w0 = rd((1.0 - f) * g) * ((i0 >= 0) & (i0 <= ws - 1)).float()
-        w1 = rd(f * g) * ((i1 >= 0) & (i1 <= ws - 1)).float()
+        w0 = torch.where((i0 >= 0) & (i0 <= ws - 1), rd((1.0 - f) * g), 0.0)
+        w1 = torch.where((i1 >= 0) & (i1 <= ws - 1), rd(f * g), 0.0)
         dG = torch.zeros((h_r, w_r, ws), dtype=torch.float32, device=dev)
         dG.scatter_add_(-1, i0.clamp(0, ws - 1), w0)
         dG.scatter_add_(-1, i1.clamp(0, ws - 1), w1)
@@ -248,22 +294,24 @@ def backward_dfr(fr, fs, base, sigma, dout, s_max: int):
     return dfr
 
 
-def backward_dfs(fr, fs, base, sigma, dout, s_max: int):
-    """Launch ``epiband_backward_dfs`` on checked CUDA tensors: the scatter
-    into a zeroed fp32 buffer, cast to the features' dtype."""
+def backward_dfs(fr, fs, base, sigma, dout, s_max: int, out=None):
+    """Launch ``epiband_backward_dfs`` on checked CUDA tensors into ``out``
+    (V, h_r, ws, C) in the features' dtype, a new tensor unless given: the
+    kernel writes every element."""
     V, h_r, w_r, C = fr.shape
-    ws = fs.shape[2]
+    ws, D = fs.shape[2], dout.shape[-1]
     _check_kernel_args(fr, fs, base, sigma)
-    dfs32 = torch.zeros((V, h_r, ws, C), dtype=torch.float32,
-                        device=fr.device)
+    geo = dfs_launch_geometry(V, h_r, ws, C, D, fr.dtype)
+    if out is None:
+        out = torch.empty((V, h_r, ws, C), dtype=fs.dtype, device=fr.device)
     with cudalib.on_device(fr):
         LIB.call("epiband_backward_dfs", fr.data_ptr(),
                  None if base is None else base.data_ptr(), sigma.data_ptr(),
-                 dout.data_ptr(), dfs32.data_ptr(), V, h_r, w_r, ws, C,
-                 dout.shape[-1], int(s_max), _dtype_code(fr),
+                 dout.data_ptr(), out.data_ptr(), V, h_r, w_r, ws, C, D,
+                 int(s_max), _dtype_code(fr), geo.window, geo.smem_bytes,
                  cudalib.stream_of(fr))
     cudalib.count_launch("epiband_bwd_dfs")
-    return dfs32.to(fs.dtype)
+    return out
 
 
 def epiband_backward(fr, fs, base, sigma, dout, s_max: int):

@@ -28,7 +28,7 @@ The host side (reading and resizing the depth maps, aligning the images,
 emitting points) is the JAX package's numpy and cv2 code, so both write the
 same files from the same maps; the device side is torch ops in fp32 in the
 same order. Sharding over a mesh and several processes is ROADMAP Queue 1
-item 7.
+item 6.
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ from cermvs_torch.io.pfm import read_pfm
 from cermvs_torch.io.ply import write_ply
 from cermvs_torch.ops.sampling import bilinear_sample
 
-NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 7)"
+NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 6)"
 
 
 def _hom(xyz):

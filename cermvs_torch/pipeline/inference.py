@@ -148,8 +148,8 @@ def inference(test_loader, ckpt=None, output_folder="results",
               rescale: float = 1, crop=None, do_report: bool = False,
               write_min_depth: Optional[str] = None, params=None,
               model=None, model_kwargs: Optional[dict] = None,
-              view_batch: int = 1, construction: str = "auto",
-              device="cuda"):
+              mesh=None, view_batch: int = 1, construction: str = "auto",
+              device_prefetch: bool = True, device="cuda"):
     """Run depth inference for every reference view of ``test_loader``.
 
     ``test_loader`` yields ``(images, poses, intrinsics, image_names,
@@ -158,7 +158,18 @@ def inference(test_loader, ckpt=None, output_folder="results",
     a reference ``.pth`` (with or without a ``module.`` prefix), or else a
     weights file of the port's own (``training.checkpoint.save_params``).
     Returns one ``(name, seconds, construction)`` record per view.
+
+    ``mesh`` (views sharded over several devices) is not ported: anything
+    but None raises. ``device_prefetch`` is accepted and changes nothing:
+    in the JAX package it moves each view's upload into the thread that
+    prepares the next views, which changes when the upload happens, not
+    what the forward computes; the port uploads each view just before its
+    forward (that prefetch thread is ROADMAP Queue 1 item 1).
     """
+    del device_prefetch
+    if mesh is not None:
+        raise NotImplementedError("inference over a device mesh is not "
+                                  "ported yet (ROADMAP Queue 1 item 6)")
     if view_batch != 1:
         raise NotImplementedError("the port runs one reference view per "
                                   "forward (view_batch=1)")

@@ -2,9 +2,9 @@
 
 AdamW (lr 2.5e-4, weight decay 5e-5, eps 1e-8) under a OneCycle *linear*
 schedule over ``num_steps + 100`` steps with ``pct_start=0.001``, and
-global-norm clipping at 1.0. The schedule is torch's OneCycleLR: initial
-lr ``max_lr / 25``, final ``initial / 1e4``, phase ends at the fractional
-steps ``pct_start * total - 1`` and ``total - 1``.
+global-norm clipping at ``clip_norm`` (1.0). The schedule is torch's
+OneCycleLR: initial lr ``max_lr / 25``, final ``initial / 1e4``, phase ends
+at the fractional steps ``pct_start * total - 1`` and ``total - 1``.
 
 The model computes in bf16, whose exponent range is fp32's, so there is no
 loss scaler.
@@ -63,14 +63,18 @@ def clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
 @configurable("optimizer")
 def fetch_optimizer(params, num_steps: int, lr: float = 0.00025,
                     wdecay: float = 0.00005, epsilon: float = 1e-8,
-                    pct_start: float = 0.001
-                    ) -> Tuple[torch.optim.AdamW, torch.optim.lr_scheduler.LambdaLR]:
-    """AdamW over ``params`` and a LambdaLR stepping it along
-    :func:`one_cycle_linear`: the k-th ``optimizer.step()`` (0-based) runs
-    at ``schedule(k)`` when the scheduler steps once after each."""
+                    pct_start: float = 0.001, clip_norm: float = 1.0
+                    ) -> Tuple[torch.optim.AdamW,
+                               torch.optim.lr_scheduler.LambdaLR, float]:
+    """AdamW over ``params``, a LambdaLR stepping it along
+    :func:`one_cycle_linear` (the k-th ``optimizer.step()``, 0-based, runs
+    at ``schedule(k)`` when the scheduler steps once after each), and the
+    global norm the gradients are clipped to before each step
+    (:func:`clip_by_global_norm`, as the JAX package chains optax's
+    ``clip_by_global_norm(clip_norm)`` ahead of AdamW)."""
     schedule = one_cycle_linear(lr, num_steps + 100, pct_start)
     opt = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=epsilon,
                             weight_decay=wdecay)
     sched = torch.optim.lr_scheduler.LambdaLR(
         opt, lambda count: schedule(count) / lr)
-    return opt, sched
+    return opt, sched, float(clip_norm)

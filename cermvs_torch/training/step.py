@@ -20,16 +20,19 @@ BATCH_KEYS = ("images", "depths", "poses", "intrinsics")
 
 @dataclass
 class TrainState:
+    """``clip_norm``: the global norm each step clips the gradients to, as
+    the optimizer's configuration (``optimizer.clip_norm``) sets it."""
     step: int
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     scheduler: Any
+    clip_norm: float = 1.0
 
 
 def init_state(model: torch.nn.Module, num_steps: int) -> TrainState:
-    optimizer, scheduler = fetch_optimizer(model.parameters(),
-                                           num_steps=num_steps)
-    return TrainState(0, model, optimizer, scheduler)
+    optimizer, scheduler, clip_norm = fetch_optimizer(model.parameters(),
+                                                      num_steps=num_steps)
+    return TrainState(0, model, optimizer, scheduler, clip_norm)
 
 
 def disp_ground_truth(depths: torch.Tensor) -> torch.Tensor:
@@ -47,12 +50,11 @@ def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
 
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
-               gradual_weight: float, volume_fn=None,
-               clip_norm: float = 1.0) -> Dict[str, float]:
+               gradual_weight: float, volume_fn=None) -> Dict[str, float]:
     """One step in place; returns the metrics of the final iterate with
-    ``loss`` and ``grad_norm`` (the gradients' global norm before
-    clipping). ``volume_fn``: the construction for this batch (default: the
-    model's own)."""
+    ``loss`` and ``grad_norm`` (the gradients' global norm before clipping
+    to ``state.clip_norm``). ``volume_fn``: the construction for this batch
+    (default: the model's own)."""
     model = state.model
     model.train()
     model.test_mode = False
@@ -63,7 +65,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
     grad_norm = clip_by_global_norm(
-        [p.grad for p in model.parameters()], clip_norm)
+        [p.grad for p in model.parameters()], state.clip_norm)
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1

@@ -51,7 +51,7 @@ def train(name: str = "test", batch_size: int = 2, SAVE_FREQ: int = 5000,
     :class:`TrainState`. Runs ``num_steps + 1`` steps from step 0.
 
     ``data_parallel`` does nothing on one device; training over several
-    cards is ROADMAP Queue 1 item 7. ``on_step(state, metrics, plan)`` is
+    cards is ROADMAP Queue 1 item 6. ``on_step(state, metrics, plan)`` is
     called after every step, ``plan`` being the batch's cached RectPlan or
     None for the exact construction.
     """

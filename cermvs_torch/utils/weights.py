@@ -53,9 +53,9 @@ def jax_params_to_state_dict(params: Dict, enc_type: str = "HR") -> Dict:
             else:
                 conv(f"{enc}.{torch_name}", sub)
     for name, sub in tree["update_block"].items():
-        if name == "gru":
+        if name.startswith("gru"):  # gru, or gru0, gru1, ... per stage
             for g in ("convz", "convr", "convq"):
-                conv(f"update_block.gru.{g}", sub[g])
+                conv(f"update_block.{name}.{g}", sub[g])
         else:
             for cname, idx in _TWO_CONV.items():
                 conv(f"update_block.{name}.{idx}", sub[cname])

@@ -1,0 +1,136 @@
+"""The port's configuration surface against the JAX package's: the same gin
+names and ``-p`` bindings drive both. Every configurable of the port takes
+every parameter its JAX counterpart takes; the bindings that change only
+how JAX traces or what it keeps in memory are accepted and change nothing
+(the same outputs, bit for bit, on the CPU); the bindings the port cannot
+honour raise, naming their ROADMAP Queue 1 item. Held against the JAX
+package elsewhere: ``optimizer.clip_norm`` (test_torch_training.py,
+test_torch_train_step.py), ``UpdateBlock.share_*`` (test_torch_models.py),
+``random_scale_and_crop.use_native`` (test_torch_data.py).
+"""
+
+import argparse
+import importlib
+import inspect
+import pkgutil
+
+import numpy as np
+import pytest
+import torch
+
+import cermvs_torch
+import cermvs_tpu
+from cermvs_tpu import config as jcfg
+from cermvs_torch import config as pcfg
+from cermvs_torch.models.raft import RAFT
+from cermvs_torch.pipeline.inference import inference
+from cermvs_torch.training.step import init_state
+from test_torch_slice import _Loader, _scene
+
+CASCADE = ((8, 64, 1), (-1, 320, 1))
+FLAX_FIELDS = {"name", "parent"}  # every flax module has them
+NOT_PORTED = {"Blended", "Custom", "TNT"}  # datasets: ROADMAP Queue 1 item 2
+
+
+@pytest.fixture
+def bindings():
+    """Parse ``-p`` flags as the CLIs do; clear them afterwards."""
+    pcfg.clear_config()
+
+    def parse(*flags):
+        parser = pcfg.add_cli_flags(argparse.ArgumentParser())
+        args = parser.parse_args(["-p", *flags])
+        pcfg.parse_cli(args)
+
+    yield parse
+    pcfg.clear_config()
+
+
+def _import_all(pkg):
+    for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+        importlib.import_module(info.name)
+
+
+def _parameters(fn):
+    f = fn.__init__ if inspect.isclass(fn) else fn
+    fields = getattr(fn, "__dataclass_fields__", None)
+    if fields is not None:  # a flax module
+        return set(fields) - FLAX_FIELDS
+    return set(inspect.signature(inspect.unwrap(f)).parameters) - {"self"}
+
+
+def _configurables(config, pkg):
+    """The configurables ``pkg``'s own modules register (tests and scripts
+    register others under the same registry)."""
+    _import_all(pkg)
+    return {name: fn for name, fn in config._REGISTRY.items()
+            if fn.__module__.startswith(pkg.__name__ + ".")}
+
+
+def test_port_configurables_take_every_jax_binding():
+    jax_side = _configurables(jcfg, cermvs_tpu)
+    port = _configurables(pcfg, cermvs_torch)
+    assert set(jax_side) - set(port) == NOT_PORTED
+    missing = {name: sorted(_parameters(fn) - _parameters(port[name]))
+               for name, fn in jax_side.items() if name in port}
+    assert {k: v for k, v in missing.items() if v} == {}
+
+
+def _forward(seed=0):
+    images, poses, intr = _scene(H=32, W=96)
+    model = RAFT(cascade=CASCADE, dtype=torch.float32, device="cpu",
+                 test_mode=True, generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        return model(torch.from_numpy(images)[None],
+                     torch.from_numpy(poses)[None],
+                     torch.from_numpy(intr)[None]).numpy()
+
+
+@pytest.mark.parametrize("flag", ["RAFT.remat = False",
+                                  "RAFT.unroll_iters = True",
+                                  "RAFT.encoder_chunk = 2"])
+def test_raft_bindings_that_shape_jax_tracing_change_nothing(bindings, flag):
+    want = _forward()
+    bindings(flag)
+    got = _forward()
+    assert np.abs(want).max() > 0
+    np.testing.assert_array_equal(got, want)
+
+
+def test_inference_device_prefetch_changes_nothing(bindings, tmp_path):
+    model = RAFT(cascade=CASCADE, dtype=torch.float32, device="cpu",
+                 test_mode=True)
+    out = {}
+    for prefetch in (True, False):
+        bindings(f"inference.device_prefetch = {prefetch}")
+        inference(_Loader(), model=model,
+                  output_folder=tmp_path / str(prefetch), device="cpu")
+        out[prefetch] = sorted((tmp_path / str(prefetch) / "depths").iterdir())
+    assert [p.name for p in out[True]] == [p.name for p in out[False]]
+    for a, b in zip(out[True], out[False]):
+        assert a.read_bytes() == b.read_bytes()
+
+
+def test_inference_mesh_names_its_queue_item(bindings):
+    bindings('inference.mesh = "views"')
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        inference(_Loader(), device="cpu")
+
+
+def test_clip_norm_binding_reaches_the_train_state(bindings):
+    bindings("optimizer.clip_norm = 0.5")
+    state = init_state(RAFT(cascade=CASCADE, device="cpu"), num_steps=10)
+    assert state.clip_norm == 0.5
+
+
+@pytest.mark.parametrize("flag,modules", [
+    ("UpdateBlock.share_corr = False",
+     ["corr_encoder0", "corr_encoder1", "delta0", "delta1", "gru"]),
+    ("UpdateBlock.share_gru = False",
+     ["corr_encoder", "delta0", "delta1", "gru0", "gru1"]),
+    ("UpdateBlock.share_delta = True", ["corr_encoder", "delta", "gru"])])
+def test_share_bindings_build_their_modules(bindings, flag, modules):
+    bindings(flag)
+    sd = RAFT(cascade=CASCADE, device="cpu").state_dict()
+    assert sorted({k.split(".")[1] for k in sd
+                   if k.startswith("update_block.")}) == modules

@@ -11,11 +11,10 @@ it also runs on a machine without it:
 Tolerances: kernel against plain on the same tensors rtol 1e-4 / atol 1e-3
 with fp32 features and rtol 1e-3 / atol 1e-2 with bf16 features (both
 accumulate in fp32; only the summation order differs). The backward kernels
-scatter with atomics, whose order changes from run to run; they are held
-at the same tolerances, on the fp32 values before the cast for bf16
-(returned in bf16 they may differ by one bf16 rounding: rtol 1e-2); with
-bf16 features they round where the plain version rounds, so under 1% of
-the elements may differ at all.
+are held at the same tolerances in fp32 and at 1e-2 in bf16 (their results
+are returned in bf16, where another summation order may move a value by
+one bf16 rounding); with bf16 features they round where the plain version
+rounds, so under 1% of the elements may differ at all.
 """
 
 import numpy as np
@@ -248,6 +247,84 @@ def test_backward_kernels_match_plain(cuda_device, dtype, rtol, atol, name,
         # elements equal
         for a, b in ((dfr, rfr), (dfs, rfs)):
             assert float((a != b).float().mean()) < 0.01
+
+
+# (id, w_r, ws, C, D, base kind, sigma range): the dfs kernel at C = 64, 44
+# and 16 (its registers hold 64, 64 and 16 channels), the training plan's
+# ws (three windows of 352 columns), a ragged ws, eight windows, one tap
+# per column, a negative sigma, and NaN and +-1e5 bases
+DFS_CASES = [
+    ("c64_stage0", 128, 1040, 64, 64, None, (0.8, 1.2)),
+    ("c44_stage1", 128, 1040, 44, 44, "band", (0.02, 0.1)),
+    ("c16", 128, 300, 16, 64, "band", (1.0, 3.0)),
+    ("ragged_ws", 100, 1037, 64, 44, "band", (0.4, 0.7)),
+    ("windows_c64", 128, 4000, 64, 64, "band", (2.0, 4.0)),
+    ("windows_c16", 100, 4001, 16, 44, "band", (0.5, 1.5)),
+    ("one_tap_per_column", 128, 700, 64, 64, None, (5.0, 7.0)),
+    ("far_and_nan_bases", 128, 400, 64, 44, "far", (0.5, 1.5)),
+    ("negative_sigma", 128, 600, 64, 44, "band", (-1.5, -0.5)),
+]
+
+
+def dfs_inputs(rng, dev, dtype, w_r, ws, C, D, base_kind, sig):
+    fr, fs, base, sigma, s_max = edge_inputs(rng, w_r, ws, C, D, base_kind,
+                                             sig)
+    fr, fs = (torch.from_numpy(a).to(dev, dtype) for a in (fr, fs))
+    base = None if base is None else torch.from_numpy(base).to(dev)
+    dout = torch.from_numpy(rng.randn(1, 4, w_r, D).astype(np.float32)).to(
+        dev)
+    return fr, fs, base, torch.from_numpy(sigma).to(dev), dout, s_max
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 1e-4, 1e-3),
+                                             (torch.bfloat16, 1e-2, 1e-2)])
+@pytest.mark.parametrize("name,w_r,ws,C,D,base_kind,sig", DFS_CASES,
+                         ids=[c[0] for c in DFS_CASES])
+def test_dfs_kernel_matches_plain(cuda_device, dtype, rtol, atol, name, w_r,
+                                  ws, C, D, base_kind, sig):
+    """The shared-memory dfs kernel against the plain version's dfs; with
+    bf16 features it rounds where the plain version rounds, so under 1% of
+    the elements differ at all. NaN and far bases add nothing in both."""
+    rng = np.random.RandomState(11)
+    args = dfs_inputs(rng, cuda_device, dtype, w_r, ws, C, D, base_kind, sig)
+    if name.startswith("windows"):  # what the case is for
+        assert eb.dfs_launch_geometry(1, 4, ws, C, D, dtype).grid[0] >= 8
+    before = cudalib.launches.get("epiband_bwd_dfs", 0)
+    dfs = eb.backward_dfs(*args)
+    torch.cuda.synchronize()
+    assert cudalib.launches["epiband_bwd_dfs"] == before + 1
+    ref = eb.epiband_backward_reference(*args)[1]
+    assert dfs.dtype == dtype and dfs.shape == ref.shape
+    assert bool(ref.isfinite().all()) and float(ref.abs().max()) > 1.0
+    torch.testing.assert_close(dfs.float(), ref.float(), rtol=rtol, atol=atol)
+    if dtype == torch.bfloat16:
+        assert float((dfs != ref).float().mean()) < 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,w_r,ws,C,D,base_kind,sig",
+                         [c for c in DFS_CASES if c[0] in (
+                             "c44_stage1", "ragged_ws", "windows_c16",
+                             "far_and_nan_bases")],
+                         ids=["c44_stage1", "ragged_ws", "windows_c16",
+                              "far_and_nan_bases"])
+def test_dfs_writes_every_output(cuda_device, dtype, name, w_r, ws, C, D,
+                                 base_kind, sig):
+    """``out`` filled with NaN: the kernel writes every element of every
+    slice and window (a ragged slice, a ragged ws, windows, rows of far and
+    NaN bases), columns no tap reaches included."""
+    rng = np.random.RandomState(12)
+    args = dfs_inputs(rng, cuda_device, dtype, w_r, ws, C, D, base_kind, sig)
+    out = torch.full((1, 4, ws, C), float("nan"), device=cuda_device,
+                     dtype=dtype)
+    eb.backward_dfs(*args, out=out)
+    torch.cuda.synchronize()
+    assert not bool(out.isnan().any())
+    ref = eb.epiband_backward_reference(*args)[1]
+    tol = 1e-3 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda

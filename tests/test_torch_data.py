@@ -100,6 +100,30 @@ def test_random_scale_and_crop_matches_jax(rng, seed):
     assert a[0].shape == (3, 48, 64, 3) and a[1].shape == (3, 48, 64)
 
 
+def test_native_resize_is_refused(rng):
+    """The JAX package's ``use_native=True`` resizes with its C++ runtime,
+    whose arrays are not cv2's (compared where that runtime builds), so the
+    port refuses the binding, naming its ROADMAP item, rather than give
+    cv2's arrays under it."""
+    from cermvs_tpu.io import native
+
+    images = (rng.rand(3, 60, 90, 3) * 255).astype(np.float32)
+    depths = (rng.rand(3, 60, 90) * 5 + 1).astype(np.float32)
+    K = np.tile(np.eye(3, dtype=np.float32), (3, 1, 1))
+    if native.available():
+        a, b = (j_crop(images, depths, K, crop_size=(48, 64),
+                       rng=np.random.RandomState(0), use_native=flag)
+                for flag in (True, False))
+        assert not all(np.array_equal(x, y) for x, y in zip(a, b))
+    pcfg.clear_config()
+    pcfg.parse_config(["random_scale_and_crop.use_native = True"])
+    try:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+            random_scale_and_crop(images, depths, K, crop_size=(48, 64))
+    finally:
+        pcfg.clear_config()
+
+
 def test_dtu_samples_match_jax(dtu_fixture):  # noqa: F811
     for cfg in (jcfg, pcfg):
         cfg.clear_config()
@@ -139,7 +163,7 @@ def kw_no_frames(kw):
 
 
 def test_registry_names_what_is_not_ported():
-    with pytest.raises(KeyError, match="Queue 1 item 1"):
+    with pytest.raises(KeyError, match="Queue 1 item 2"):
         pdata.get_train_data_loader(datasetname="TNT")
     with pytest.raises(KeyError, match="unknown"):
         pdata.get_train_data_loader(datasetname="NoSuchSet")

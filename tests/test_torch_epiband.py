@@ -236,3 +236,26 @@ def test_backward_bf16_returns_feature_dtype(rng):
     with pytest.raises(ValueError, match="dout"):
         eb.epiband_backward(_t(fr), _t(fs), _t(base), _t(sigma),
                             cot.double(), S_MAX)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_far_and_nan_bases_add_nothing(rng, dtype):
+    """Pixels whose base is NaN or +-1e5 have no in-band tap: the plain
+    backward gives them a zero dfr and takes nothing from them into dfs,
+    exactly as if their dout were zero (the CUDA kernels skip them alike,
+    test_torch_cuda.py)."""
+    fr, fs, base, sigma = inputs(rng, (-4.0, 40.0), (0.5, 1.5))
+    cot = rng.randn(V, H_R, W_R, 8).astype(np.float32)
+    far = np.zeros(base.shape, bool)
+    far[0, 0, ::3] = far[0, 1, ::5] = far[1, 2, ::4] = True
+    base[0, 0, ::3], base[0, 1, ::5], base[1, 2, ::4] = 1e5, -1e5, np.nan
+    quiet = cot.copy()
+    quiet[far] = 0.0
+    fr, fs = _t(fr).to(dtype), _t(fs).to(dtype)
+    got = eb.epiband_backward(fr, fs, _t(base), _t(sigma), _t(cot), S_MAX)
+    base[far] = 0.0
+    want = eb.epiband_backward(fr, fs, _t(base), _t(sigma), _t(quiet), S_MAX)
+    assert bool(got[0][torch.from_numpy(far)].eq(0).all())
+    for a, b in zip(got, want):
+        assert bool(a.isfinite().all())
+        assert torch.equal(a, b)

@@ -142,5 +142,5 @@ def test_fusion_matches_jax(tmp_path, capsys, view_batch, stream):
 
 def test_fusion_refuses_what_is_not_ported(tmp_path):
     scene = PlaneScene(n=3, H=8, W=8, num_frames=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         fusion([scene[0]], tmp_path, mesh=object(), device="cpu")

@@ -1,5 +1,6 @@
-"""Launch geometry of the epiband and hat-resample forward kernels, on the
-CPU: the pure-Python helpers (``epiband.launch_geometry``,
+"""Launch geometry of the epiband forward, epiband dfs and hat-resample
+forward kernels, on the CPU: the pure-Python helpers
+(``epiband.launch_geometry``, ``epiband.dfs_launch_geometry``,
 ``hatwarp.launch_geometry``) whose values the wrappers pass to the C
 launchers, at the shapes the main path gives the kernels (inference,
 training and the demo at rescale 1 and 2; ws up to 2448; C of 64, 44, 16
@@ -83,6 +84,69 @@ def test_epiband_geometry_rejects_what_the_kernel_does_not_take(kw):
     args.update(kw)
     with pytest.raises(ValueError):
         eb.launch_geometry(**args, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("C", [64, 44, 16])
+@pytest.mark.parametrize("shape", list(EPIBAND_SHAPES.values()),
+                         ids=list(EPIBAND_SHAPES))
+def test_dfs_geometry(shape, C, dtype):
+    """The dfs kernel's blocks fit a block's shared memory, and their
+    windows (32 columns a warp) cover every column of the gradient once,
+    with as few windows as a block's warps allow."""
+    V, h_r, _, ws, D = shape
+    geo = eb.dfs_launch_geometry(V, h_r, ws, C, D, dtype)
+    assert geo.smem_bytes <= SMEM_LIMIT
+    assert geo.window % 32 == 0 and geo.window <= 32 * eb.DFS_WARPS
+    windows = -(-ws // geo.window)
+    assert geo.grid == (windows, h_r, V)
+    assert windows * geo.window >= ws > (windows - 1) * geo.window
+    assert windows == -(-ws // (32 * eb.DFS_WARPS))
+
+
+# ws -> (window, windows): the training plan's rows, the demo's at rescale 2,
+# a row one window holds, and wider ones (a window holds 32 * DFS_WARPS =
+# 256 columns at most)
+DFS_WINDOWS = {
+    "training": (1040, (224, 5)),
+    "rescale2": (2448, (256, 10)),
+    "narrow": (300, (160, 2)),
+    "one_full_window": (256, (256, 1)),
+    "two_windows": (257, (160, 2)),
+    "wide": (4001, (256, 16)),
+}
+
+
+@pytest.mark.parametrize("ws,want", list(DFS_WINDOWS.values()),
+                         ids=list(DFS_WINDOWS))
+def test_dfs_window_choice(ws, want):
+    geo = eb.dfs_launch_geometry(1, 448, ws, 64, 64, torch.bfloat16)
+    assert (geo.window, geo.grid[0]) == want
+
+
+def test_dfs_shared_memory_at_the_main_shapes():
+    """At the training plan (bf16, D = 64 and 44) two blocks fit an SM's
+    228 KB (1 KB of it reserved per block); fp32 features and the demo's
+    rescale-2 rows (which no backward runs at) fit one block's limit, the
+    two buffers of staged fr rows being twice as wide in fp32."""
+    for D in (64, 44):
+        geo = eb.dfs_launch_geometry(1, 448, 1040, 64, D, torch.bfloat16)
+        assert geo.smem_bytes <= 113 * 1024
+    for dtype in DTYPES:
+        geo = eb.dfs_launch_geometry(1, 864, 2448, 64, 64, dtype)
+        assert geo.smem_bytes <= SMEM_LIMIT
+    bf = eb.dfs_launch_geometry(1, 448, 1040, 64, 64, torch.bfloat16)
+    f32 = eb.dfs_launch_geometry(1, 448, 1040, 64, 64, torch.float32)
+    assert f32.smem_bytes - bf.smem_bytes == 2 * eb.DFS_CHUNK * 64 * 2
+
+
+@pytest.mark.parametrize("kw", [dict(h_r=65536), dict(V=65536),
+                                dict(D=5000)])
+def test_dfs_geometry_rejects_what_the_kernel_does_not_take(kw):
+    args = dict(V=1, h_r=8, ws=300, C=64, D=64, dtype=torch.bfloat16)
+    args.update(kw)
+    with pytest.raises(ValueError):
+        eb.dfs_launch_geometry(**args)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])

@@ -5,7 +5,10 @@ plain versions): the same batch, the same weights, the same AdamW.
 
 Batches: ``tests/test_training.py``'s ``_tiny_batch`` (exact) and
 ``tests/test_train_rectified.py``'s ``_batches`` (rectified), B = 2, 3
-views. Weights: the port's seeded init with the delta heads damped 1e-3x,
+views. The clip at a configured bound: ``optimizer.clip_norm`` bound in the
+port and passed to the JAX package's ``fetch_optimizer``, at 0.05, under
+the exact batch's gradient norm (~0.14, which the default 1.0 leaves
+alone); test_torch_training.py clips at 0.5 against optax. Weights: the port's seeded init with the delta heads damped 1e-3x,
 as in ``test_torch_slice.py``, carried to JAX with ``convert_raft``; fp32
 on both sides.
 
@@ -39,6 +42,7 @@ from cermvs_tpu.training.step import TrainState as JState
 from cermvs_tpu.training.step import disp_ground_truth as j_disp_gt
 from cermvs_tpu.training.step import make_train_step
 from cermvs_tpu.utils.torch_import import convert_raft
+from cermvs_torch import config as pcfg
 from cermvs_torch.models.raft import RAFT
 from cermvs_torch.ops import rectify as prect
 from cermvs_torch.ops.corr_rectified import RectifiedVolume
@@ -92,8 +96,22 @@ def _plan(plan_fn, union, batch):
                          H // 4, W // 4) for b in range(B))
 
 
-@pytest.mark.parametrize("construction", ["exact", "rectified"])
-def test_train_step_matches_jax(construction):
+@pytest.fixture
+def bound_clip(request):
+    """``optimizer.clip_norm`` bound in the port's configuration (None: the
+    default, 1.0)."""
+    pcfg.clear_config()
+    if request.param is not None:
+        pcfg.parse_config([f"optimizer.clip_norm = {request.param}"])
+    yield 1.0 if request.param is None else request.param
+    pcfg.clear_config()
+
+
+@pytest.mark.parametrize("construction,bound_clip",
+                         [("exact", None), ("rectified", None), ("exact", 0.05)],
+                         indirect=["bound_clip"],
+                         ids=["exact", "rectified", "exact_clip_0.05"])
+def test_train_step_matches_jax(construction, bound_clip):
     rng = np.random.RandomState(0)
     batch = (_tiny_batch(rng) if construction == "exact"
              else _batches(1)[0])
@@ -114,7 +132,7 @@ def test_train_step_matches_jax(construction):
         assert plan_p.ok and plan_p.twopass
         kw["volume_fn"] = j_rect_fn(plan_j)
         volume_fn = RectifiedVolume(plan_p)
-    tx, _ = j_fetch(num_steps=50)
+    tx, _ = j_fetch(num_steps=50, clip_norm=bound_clip)
     jmodel = JRAFT(cascade=TINY, dtype=jnp.float32, **kw)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     gj = _jax_grads(jmodel, params, jbatch, 0.5)
@@ -123,6 +141,7 @@ def test_train_step_matches_jax(construction):
                    jbatch, 0.5)
 
     state = init_state(port, num_steps=50)
+    assert state.clip_norm == bound_clip
     mp = train_step(state, batch_to_device(batch, "cpu"), 0.5,
                     volume_fn=volume_fn)
     assert state.step == int(js.step) == 1
@@ -133,7 +152,9 @@ def test_train_step_matches_jax(construction):
                                    err_msg=k)
     # each leaf's gradient: the port's after its clip, JAX's clipped alike
     gnorm = float(mj["grad_norm"])
-    clip = min(1.0, 1.0 / gnorm)
+    if bound_clip < 1.0:
+        assert gnorm > bound_clip  # the bound clips this step
+    clip = min(1.0, bound_clip / gnorm)
     errs = {}
     for (path, a), (path_p, b) in zip(_leaves(gj), _leaves(_port_grads(port))):
         assert path == path_p

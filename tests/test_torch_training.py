@@ -23,6 +23,7 @@ from cermvs_tpu.training.loss import sequence_loss as j_loss
 from cermvs_tpu.training.optim import fetch_optimizer as j_fetch
 from cermvs_tpu.training.optim import one_cycle_linear as j_cycle
 from cermvs_tpu.training.step import disp_ground_truth as j_disp_gt
+from cermvs_torch import config as pcfg
 from cermvs_torch.training.loss import sequence_loss
 from cermvs_torch.training.optim import (clip_by_global_norm, fetch_optimizer,
                                          global_norm, one_cycle_linear)
@@ -93,27 +94,39 @@ def test_clip_scales_only_above_the_limit():
     assert float(a[0]) == 1.0
 
 
-def test_adamw_with_clip_matches_optax(rng):
+@pytest.mark.parametrize("clip_norm", [None, 0.5])
+def test_adamw_with_clip_matches_optax(rng, clip_norm):
     """Three steps of the port's AdamW, LambdaLR and clip against optax's
     clip_by_global_norm + adamw chain on the same gradients (one step's
-    gradients above the clip limit, the others below)."""
+    gradients above the clip limit, the others below), at the default
+    bound and at ``optimizer.clip_norm = 0.5`` bound in the port's
+    configuration (the second step's gradients, of norm ~0.2-0.7, then
+    clip too or not at all, as in optax)."""
     shapes = {"a": (5, 3), "b": (7,)}
     p0 = {k: rng.randn(*s).astype(np.float32) for k, s in shapes.items()}
     grads = [{k: (rng.randn(*s) * scale).astype(np.float32)
               for k, s in shapes.items()} for scale in (2.0, 0.05, 0.3)]
-    tx, _ = j_fetch(num_steps=40)
+    tx, _ = j_fetch(num_steps=40, clip_norm=clip_norm or 1.0)
     pj = {k: jnp.asarray(v) for k, v in p0.items()}
     opt_state = tx.init(pj)
     params = {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
               for k, v in p0.items()}
-    opt, sched = fetch_optimizer(list(params.values()), num_steps=40)
+    pcfg.clear_config()
+    if clip_norm is not None:
+        pcfg.parse_config([f"optimizer.clip_norm = {clip_norm}"])
+    try:
+        opt, sched, clip = fetch_optimizer(list(params.values()),
+                                           num_steps=40)
+    finally:
+        pcfg.clear_config()
+    assert clip == (clip_norm or 1.0)
     for g in grads:
         upd, opt_state = tx.update({k: jnp.asarray(v) for k, v in g.items()},
                                    opt_state, pj)
         pj = optax.apply_updates(pj, upd)
         for k, p in params.items():
             p.grad = torch.from_numpy(g[k].copy())
-        norm = clip_by_global_norm([p.grad for p in params.values()], 1.0)
+        norm = clip_by_global_norm([p.grad for p in params.values()], clip)
         np.testing.assert_allclose(
             float(norm), float(optax.global_norm(g)), rtol=1e-6)
         opt.step()
