@@ -91,12 +91,41 @@
 // Both move the same bytes as the forward plus dout (V,h_r,w_r,D) fp32 read
 // once and the gradient written once: bound by bytes, like the forward.
 //
-// epiband_bwd_dfr is the fp32 forward's warp-per-pixel loop without the
-// shuffle reduction: it walks a pixel's taps and forms dG one column at a
-// time in registers (for_each_column); each lane accumulates dG[c] * fs[c]
-// for its channel pair and stores it once, in the features' type. Where no
-// column has two taps it skips the column walk, whose bookkeeping about
-// doubles its time.
+// epiband_bwd_dfr gathers, for each rect pixel, dG[c] * fs[c] over the
+// columns its taps reach. The position arithmetic is done once per (pixel,
+// hypothesis), never per channel. A block (kDfrWarps warps) takes one view
+// v, rect row y and a tile of `tile` pixels (32), a warp two at a time:
+//   A. for each pixel, lanes across hypotheses form its tap records and dG
+//      columns with the device functions the dfs kernel uses (tap_record,
+//      run_columns, reverse_runs; see phase A below): the first lane of each
+//      run owns its columns and sums their dG. The lanes then list the
+//      in-row columns with their dG, in ascending k (a run's column c before
+//      c + 1), without gaps: a ballot counts where each lane writes. At the
+//      training plan's stage 0 (sigma 2.4-7.5) the list is mostly the taps
+//      themselves; where runs share columns (stage 1, sigma 0.5-1.5) a
+//      column is listed once, which about halves the list.
+//   B. a half-warp per pixel walks its list. Each lane holds four channels:
+//      one 4-channel vector where C % 4 == 0 and the alignment allows it,
+//      else the channel pairs at 2i and 32 + 2i. For each record it reads
+//      the record (a broadcast), loads fs[c]'s four channels through the
+//      read-only path and does four fp32 multiply-adds; eight records'
+//      loads are in flight at once.
+// Each lane writes its four channels once, in the features' type. What
+// bounds it now is instruction issue and the L1 data path, not the bytes:
+// per record a half-warp moves a C-wide row of fs from L1 and spends two
+// instructions per channel (the bf16 unpack and the multiply-add), and
+// phase A spends a few hundred instructions per pixel. Neighbouring pixels
+// reach mostly the same columns: a probe whose loads all hit the same few
+// rows took as long, so L1 misses do not bound phase B, and the columns are
+// not staged in shared memory. Summation order: ascending k, a column's left
+// tap before its right tap. Where no column has two taps (stage 0) that is
+// the warp-per-pixel kernel's order, tap by tap, so dfr rounds as it did.
+// Where runs share columns it differs: that kernel walked the columns in
+// descending order, and in fp32 it added tap by tap instead of each
+// column's dG, so its fp32 sums may differ in the last bits. dG itself
+// rounds as before. The tile, the channel layout (vec) and the shared-memory
+// bytes come from the wrapper's dfr_launch_geometry; the launcher refuses
+// bytes that differ from DfrSmem's.
 //
 // epiband_bwd_dfs sums over the pixels of a rect row, into the source row:
 // the TPU kernels accumulated it in a VMEM block revisited by the grid.
@@ -121,10 +150,11 @@
 //      positions fall as k grows (sigma >= 0), so the taps on column c are
 //      one run of k whose floor is c (left taps) and the next, whose floor
 //      is c - 1 (right taps): the first lane of each run sums them in
-//      ascending k, left taps first (the plain version's and the column
-//      walk's order, so dG rounds as theirs does) and writes dG[c] (and
-//      dG[c + 1] where no run has floor c + 1). A negative sigma has one
-//      lane sum the row in the plain version's order.
+//      ascending k, left taps first (the plain version's order, so dG
+//      rounds as it does) and writes dG[c] (and dG[c + 1] where no run has
+//      floor c + 1). A negative sigma has one lane sum the row in the plain
+//      version's order. The device functions tap_record, run_columns and
+//      reverse_runs do this for both gradient kernels.
 //   B. each warp adds, for its 32 columns, dG * fr of the pixels in its
 //      mask, in pixel order, into its lanes' registers (fr read from
 //      shared memory as 16-byte vectors, the same for every lane).
@@ -562,32 +592,10 @@ epiband_mma_kernel(const bf16* __restrict__ fr, const bf16* __restrict__ fs,
   }
 }
 
-// the forward's tap positions, in its rounding order (no fused multiply-add)
-struct Taps {
-  int i0;
-  float f;
-  bool ok0, ok1;
-};
+// ---- backward: tap records and column sums, shared by dfr and dfs -----------
 
-__device__ __forceinline__ Taps taps_at(float xs, float b, float sg, int k,
-                                        float last) {
-  const float pos = __fsub_rn(xs, __fadd_rn(b, __fmul_rn(sg, static_cast<float>(k))));
-  const float fl = floorf(pos);
-  Taps t;
-  t.f = __fsub_rn(pos, fl);
-  t.ok0 = fl >= 0.f && fl <= last;
-  t.ok1 = fl >= -1.f && fl <= last - 1.f;
-  t.i0 = (t.ok0 || t.ok1) ? static_cast<int>(fl) : 0;
-  return t;
-}
-
-__device__ __forceinline__ void store_pair(float* p, int i, float2 v) {
-  reinterpret_cast<float2*>(p)[i] = v;
-}
-
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, int i, float2 v) {
-  reinterpret_cast<__nv_bfloat162*>(p)[i] = __floats2bfloat162_rn(v.x, v.y);
-}
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may use
+constexpr int kRunLook = 4;       // tap records a run walk reads at once
 
 // The value as the features' type rounds it, widened back to fp32 (bf16
 // values are exact in fp32); the identity for fp32 features.
@@ -601,121 +609,318 @@ __device__ __forceinline__ float round_as<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-template <typename T>
-constexpr bool kRounds = false;
-template <>
-constexpr bool kRounds<__nv_bfloat16> = true;
-
-// sigma from which no two hypotheses' taps share a column: consecutive
-// positions are then at least 2.5 columns apart (less their fp32 rounding,
-// ~1e-4 at these row widths), so their floors differ by 2 or more
-constexpr float kOneTapPerColumn = 2.5f;
-
-// tap weights round((1 - f) * dout) and round(f * dout), in that order
-template <typename T>
-__device__ __forceinline__ float2 tap_weights(const Taps& t, float gk) {
-  return make_float2(round_as<T>(__fmul_rn(__fsub_rn(1.f, t.f), gk)),
-                     round_as<T>(__fmul_rn(t.f, gk)));
+// the forward's tap position of hypothesis k, in its rounding order (no
+// fused multiply-add)
+__device__ __forceinline__ float tap_position(float xs, float b, float sg,
+                                              int k) {
+  return __fsub_rn(xs, __fadd_rn(b, __fmul_rn(sg, static_cast<float>(k))));
 }
 
-// One pixel's dG row, column by column: emit(c, dG[c]) once for every column
-// c that an in-band tap reaches, with
-//
-//   dG[c] = round(sum_k round(weight_k(c) * round(dout[k])))
-//
-// (round: to the features' type, as the JAX package's backward kernels
-// round dout, the hat-weighted products and dG for bf16 features; sums in
-// fp32). The taps move left along the row as k grows (sigma >= 0, a rate
-// times a step), so each column's taps are consecutive in this walk: two open
-// columns (c_old, c_new) hold the running sums, and a column is emitted
-// when a tap lands on a third. The walk is uniform across the warp; dout is
-// read with one coalesced load per 32 hypotheses.
-template <typename T, typename Emit>
-__device__ __forceinline__ void for_each_column(const float* g, int D,
-                                                float xs, float b, float sg,
-                                                float last, int lane,
-                                                Emit emit) {
-  int c_old = -1, c_new = -1;
-  float acc_old = 0.f, acc_new = 0.f;
-  auto put = [&](int c, float w) {
-    if (c == c_new) {
-      acc_new += w;
-    } else if (c == c_old) {
-      acc_old += w;
-    } else {
-      if (c_old >= 0) emit(c_old, round_as<T>(acc_old));
-      c_old = c_new;
-      acc_old = acc_new;
-      c_new = c;
-      acc_new = w;
-    }
-  };
-  for (int k0 = 0; k0 < D; k0 += 32) {
-    const int n = min(32, D - k0);
-    const float gl = lane < n ? round_as<T>(g[k0 + lane]) : 0.f;
-    for (int j = 0; j < n; ++j) {
-      const float gk = __shfl_sync(0xffffffffu, gl, j);
-      const Taps t = taps_at(xs, b, sg, k0 + j, last);
-      const float2 w = tap_weights<T>(t, gk);
-      // the right tap first: as k grows the taps move left
-      if (t.ok1) put(t.i0 + 1, w.y);
-      if (t.ok0) put(t.i0, w.x);
+__device__ __forceinline__ void store_two(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_two(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Hypothesis k's tap record, from its output gradient gk: the floor of its
+// position, clamped to [-2, ws + 1] (a NaN position gives -2, whose taps
+// miss the row), and the bits of its left and right taps' weights
+// round((1 - f) * round(gk)) and round(f * round(gk)) (round: to the
+// features' type, as the JAX package's backward kernels round dout and the
+// hat-weighted products for bf16 features; the identity for fp32).
+template <typename T>
+__device__ __forceinline__ int4 tap_record(float xs, float b, float sg, int k,
+                                           float gk, float last) {
+  const float pos = tap_position(xs, b, sg, k);
+  const float fl = floorf(pos);
+  const float f = __fsub_rn(pos, fl);
+  gk = round_as<T>(gk);
+  return make_int4(static_cast<int>(fminf(fmaxf(fl, -2.f), last + 2.f)),
+                   __float_as_int(
+                       round_as<T>(__fmul_rn(__fsub_rn(1.f, f), gk))),
+                   __float_as_int(round_as<T>(__fmul_rn(f, gk))), 0);
+}
+
+// The columns of a pixel's dG row that the lane of hypothesis k owns, from
+// the pixel's D tap records, for sigma >= 0. Every lane of the warp calls
+// it, with k = k0 + lane. The positions fall as k grows, so the taps on
+// column c are the run of k whose floor is c (left taps), then the run
+// whose floor is c - 1 (right taps). The first lane of a run of floor c
+// owns column c, and column c + 1 too where no run has floor c + 1: each
+// column has one owner. It sums each of its columns in ascending k, left
+// taps first (the plain version's order, so dG rounds as it does).
+struct RunColumns {
+  int c;              // the run's floor
+  bool left, right;   // owns column c; owns column c + 1
+  float dl, dr;       // their dG, rounded to the features' type
+};
+
+template <typename T>
+__device__ __forceinline__ RunColumns run_columns(const int4* rec, int D,
+                                                  int k, int lane) {
+  const int4 r = k < D ? rec[k] : make_int4(INT_MIN, 0, 0, 0);
+  const int prev_lane = __shfl_up_sync(0xffffffffu, r.x, 1);
+  RunColumns o{r.x, false, false, 0.f, 0.f};
+  if (k >= D) return o;
+  const int c = r.x;
+  const int prev = lane > 0 ? prev_lane : k > 0 ? rec[k - 1].x : INT_MAX;
+  if (prev == c) return o;
+  // the records after k, kRunLook at a time: the rest of the run of floor
+  // c, then the run of floor c - 1
+  float sl = __int_as_float(r.y), sr = __int_as_float(r.z);
+  bool done = false;
+  for (int e = k + 1; !done; e += kRunLook) {
+    int4 t[kRunLook];
+#pragma unroll
+    for (int v = 0; v < kRunLook; ++v)
+      t[v] = e + v < D ? rec[e + v] : make_int4(INT_MIN, 0, 0, 0);
+#pragma unroll
+    for (int v = 0; v < kRunLook; ++v) {  // selects, not branches
+      const bool same = !done && t[v].x == c;
+      const bool right = !done && t[v].x == c - 1;
+      sl = same    ? sl + __int_as_float(t[v].y)
+           : right ? sl + __int_as_float(t[v].z)
+                   : sl;
+      sr = same ? sr + __int_as_float(t[v].z) : sr;
+      done = !(same || right);
     }
   }
-  if (c_old >= 0) emit(c_old, round_as<T>(acc_old));
-  if (c_new >= 0) emit(c_new, round_as<T>(acc_new));
+  o.left = true;
+  o.right = prev != c + 1;
+  o.dl = round_as<T>(sl);
+  o.dr = round_as<T>(sr);
+  return o;
 }
 
-// dfr: one warp per rect pixel, lane j accumulates channel pair j of
-// dG[c] * fs[c] over the pixel's columns. Where nothing is rounded (fp32) or
-// no column has two taps (sigma >= kOneTapPerColumn: stage 0), dG[c] is a
-// single tap's weight or a plain sum, and the loop adds tap by tap as the
-// forward reads them, without the column walk's bookkeeping.
+// A negative sigma reverses the runs (the positions rise with k): one lane
+// walks them in ascending k and calls emit(c, dG[c]) for each column an
+// in-row or out-of-row tap lands on, in ascending c, summed in the plain
+// version's order: the left taps on c (the run of floor c), then the right
+// taps (the run of floor c - 1, the run before).
+template <typename T, typename Emit>
+__device__ __forceinline__ void reverse_runs(const int4* rec, int D,
+                                             Emit emit) {
+  int pc = INT_MIN, ps = 0, pe = 0;  // the previous run: floor, [ps, pe)
+  for (int k = 0; k < D;) {
+    const int c = rec[k].x;
+    int e = k + 1;
+    while (e < D && rec[e].x == c) ++e;
+    float s = 0.f;
+    for (int j = k; j < e; ++j) s += __int_as_float(rec[j].y);
+    if (pc == c - 1)
+      for (int j = ps; j < pe; ++j) s += __int_as_float(rec[j].z);
+    emit(c, round_as<T>(s));
+    if (e >= D || rec[e].x != c + 1) {  // no later run sums column c + 1
+      float t = 0.f;
+      for (int j = k; j < e; ++j) t += __int_as_float(rec[j].z);
+      emit(c + 1, round_as<T>(t));
+    }
+    pc = c;
+    ps = k;
+    pe = e;
+    k = e;
+  }
+}
+
+// ---- dfr: column records built once, a channel loop that loads and adds -----
+
+constexpr int kDfrWarps = 8;      // a block's warps: two pixels at a time each
+constexpr int kDfrThreads = kDfrWarps * 32;
+constexpr int kDfrAhead = 2;      // dout values per lane loaded before use
+constexpr int kDfrBatch = 8;      // column records a lane's loads take at once
+
+// Shared-memory layout (bytes) of epiband_bwd_dfr, per warp: the tap records
+// of one pixel (D int4, as dfs's) and the column records of two (2 D int2
+// each: the column and the bits of its dG, listed without gaps).
+struct DfrSmem {
+  int taps, cols, total;
+  __host__ __device__ explicit DfrSmem(int D)
+      : taps(kDfrWarps * D * 16), cols(kDfrWarps * 2 * 2 * D * 8),
+        total(taps + cols) {}
+};
+
+__device__ __forceinline__ float2 bf16_pair(unsigned u) {
+  return make_float2(__uint_as_float(u << 16),
+                     __uint_as_float(u & 0xffff0000u));
+}
+
+// p + off elements as one wide multiply-add: left to itself the compiler
+// forms each of phase B's addresses from the kernel's fs pointer in four
+// instructions
 template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
+__device__ __forceinline__ const T* at(const T* p, unsigned off) {
+  const T* q;
+  asm("mad.wide.u32 %0, %1, %2, %3;"
+      : "=l"(q)
+      : "r"(off), "r"(static_cast<unsigned>(sizeof(T))), "l"(p));
+  return q;
+}
+
+// A lane's four channels of the row at element offset off, as floats: one
+// 4-channel vector at p0 + off (kVec == 4), or the channel pairs at p0 + off
+// and p1 + off (kVec == 2).
+template <int kVec, typename T>
+__device__ __forceinline__ void load_quad(const T* p0, const T* p1,
+                                          unsigned off, float (&f)[4]) {
+  float2 a, b;
+  if constexpr (kVec == 4 && sizeof(T) == 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(at(p0, off)));
+    a = make_float2(v.x, v.y);
+    b = make_float2(v.z, v.w);
+  } else if constexpr (kVec == 4) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(at(p0, off)));
+    a = bf16_pair(u.x);
+    b = bf16_pair(u.y);
+  } else {
+    a = load_pair(at(p0, off), 0);
+    b = load_pair(at(p1, off), 0);
+  }
+  f[0] = a.x;
+  f[1] = a.y;
+  f[2] = b.x;
+  f[3] = b.y;
+}
+
+template <int kVec, typename T>
+__device__ __forceinline__ void store_quad(T* p, int ch0, int ch1, bool has1,
+                                           const float (&f)[4]) {
+  if constexpr (kVec == 4 && sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(p + ch0) = make_float4(f[0], f[1], f[2], f[3]);
+  } else if constexpr (kVec == 4) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(f[0], f[1]);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(f[2], f[3]);
+    *reinterpret_cast<uint2*>(p + ch0) =
+        make_uint2(*reinterpret_cast<const unsigned*>(&a),
+                   *reinterpret_cast<const unsigned*>(&b));
+  } else {
+    store_two(p + ch0, f[0], f[1]);
+    if (has1) store_two(p + ch1, f[2], f[3]);
+  }
+}
+
+// block (tile pixels of row y of view v); see the notes at the top. Warp w
+// takes the tile's pixels 2w + 16i and 2w + 16i + 1, a pair at a time.
+template <typename T, int kVec>
+__global__ void __launch_bounds__(kDfrThreads)
 epiband_bwd_dfr_kernel(const T* __restrict__ fs, const float* __restrict__ base,
                        const float* __restrict__ sigma,
                        const float* __restrict__ dout, T* __restrict__ dfr,
-                       int h_r, int w_r, int ws, int C, int D, float s_max) {
-  const int lane = threadIdx.x & 31;
-  const int x = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int y = blockIdx.y;
-  const int v = blockIdx.z;
-  if (x >= w_r) return;  // whole warp leaves together
-  const bool has = lane < (C >> 1);
-  const size_t row = static_cast<size_t>(v) * h_r + y;
-  const size_t pix = row * w_r + x;
-  const float b = base != nullptr ? base[pix] : 0.f;
-  const float sg = sigma[pix];
-  const float xs = __fadd_rn(static_cast<float>(x), s_max);
-  const T* src = fs + row * static_cast<size_t>(ws) * C;
+                       int h_r, int w_r, int ws, int C, int D, float s_max,
+                       int tile) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const DfrSmem L(D);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int half = lane >> 4, hl = lane & 15;
+  int4* rec = reinterpret_cast<int4*>(smem) + warp * D;
+  int2* cols = reinterpret_cast<int2*>(smem + L.taps) + warp * 2 * 2 * D;
+  const size_t row = static_cast<size_t>(blockIdx.z) * h_r + blockIdx.y;
+  const T* src = fs + row * ws * C;
   const float last = static_cast<float>(ws - 1);
-  const float* g = dout + pix * D;
+  const int x_end = min(w_r, static_cast<int>(blockIdx.x + 1) * tile);
+  // this lane's channels in phase B: ch0 .. ch0 + 3, or pairs ch0 and ch1;
+  // a lane past C loads the row's first channels and stores nothing, so
+  // that no load is predicated
+  const int ch0 = kVec == 4 ? 4 * hl : 2 * hl;
+  const int ch1 = kVec == 4 ? ch0 + 2 : 32 + 2 * hl;
+  const bool has0 = ch0 < C, has1 = ch1 < C;
+  const T* src0 = src + (has0 ? ch0 : 0);
+  const T* src1 = src + (has1 ? ch1 : 0);
 
-  float2 acc = make_float2(0.f, 0.f);
-  auto add = [&](int c, float w) {
-    const float2 s = load_pair(src + static_cast<size_t>(c) * C, lane);
-    acc.x += w * s.x;
-    acc.y += w * s.y;
-  };
-  if (!kRounds<T> || sg >= kOneTapPerColumn) {
-    for (int k0 = 0; k0 < D; k0 += 32) {
-      const int n = min(32, D - k0);
-      const float gl = lane < n ? round_as<T>(g[k0 + lane]) : 0.f;
-      for (int j = 0; j < n; ++j) {
-        const float gk = __shfl_sync(0xffffffffu, gl, j);
-        const Taps t = taps_at(xs, b, sg, k0 + j, last);
-        const float2 w = tap_weights<T>(t, gk);
-        if (has && t.ok0) add(t.i0, w.x);
-        if (has && t.ok1) add(t.i0 + 1, w.y);
-      }
+  for (int x0 = blockIdx.x * tile + 2 * warp; x0 < x_end;
+       x0 += 2 * kDfrWarps) {
+    // the pair's base, sigma and first dout values, loaded before use
+    float b[2], sg[2], g[2][kDfrAhead];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bool in = x0 + h < x_end;
+      const size_t pix = row * w_r + (in ? x0 + h : x0);
+      b[h] = in && base != nullptr ? base[pix] : 0.f;
+      sg[h] = in ? sigma[pix] : 0.f;
+#pragma unroll
+      for (int j = 0; j < kDfrAhead; ++j)
+        g[h][j] = in && lane + 32 * j < D ? dout[pix * D + lane + 32 * j] : 0.f;
     }
-  } else {
-    for_each_column<T>(g, D, xs, b, sg, last, lane, [&](int c, float w) {
-      if (has) add(c, w);
-    });
+
+    // A. each pixel's column records, lanes across hypotheses: its tap
+    // records, then the columns each run's first lane owns, listed in
+    // ascending k (column c before c + 1) without gaps, each as its row's
+    // element offset c * C and its dG; columns outside [0, ws - 1] are
+    // left out
+    int n[2] = {0, 0};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (x0 + h >= x_end) continue;  // uniform across the warp
+      const size_t pix = row * w_r + x0 + h;
+      const float xs = __fadd_rn(static_cast<float>(x0 + h), s_max);
+#pragma unroll
+      for (int j = 0; j < kDfrAhead; ++j) {
+        const int k = lane + 32 * j;
+        if (k < D) rec[k] = tap_record<T>(xs, b[h], sg[h], k, g[h][j], last);
+      }
+      for (int k = lane + 32 * kDfrAhead; k < D; k += 32)
+        rec[k] = tap_record<T>(xs, b[h], sg[h], k, dout[pix * D + k], last);
+      __syncwarp();
+      int2* col = cols + h * 2 * D;
+      if (sg[h] >= 0.f) {
+        for (int k0 = 0; k0 < D; k0 += 32) {
+          const RunColumns r = run_columns<T>(rec, D, k0 + lane, lane);
+          const bool cl = r.left && r.c >= 0 && r.c <= ws - 1;
+          const bool cr = r.right && r.c >= -1 && r.c <= ws - 2;
+          const unsigned bl = __ballot_sync(0xffffffffu, cl);
+          const unsigned br = __ballot_sync(0xffffffffu, cr);
+          const unsigned below = (1u << lane) - 1u;
+          int slot = n[h] + __popc(bl & below) + __popc(br & below);
+          if (cl) col[slot++] = make_int2(r.c * C, __float_as_int(r.dl));
+          if (cr) col[slot] = make_int2((r.c + 1) * C, __float_as_int(r.dr));
+          n[h] += __popc(bl) + __popc(br);
+        }
+      } else {
+        int cnt = 0;
+        if (lane == 0)
+          reverse_runs<T>(rec, D, [&](int c, float d) {
+            if (c >= 0 && c <= ws - 1)
+              col[cnt++] = make_int2(c * C, __float_as_int(d));
+          });
+        n[h] = __shfl_sync(0xffffffffu, cnt, 0);
+      }
+      __syncwarp();  // the column records are written; rec is free again
+    }
+
+    // B. half-warp h adds dG[c] * fs[c] over pixel x0 + h's column records,
+    // in their order, into its lanes' four channels: a record (the same for
+    // the half-warp), a load of fs[c], four multiply-adds
+    const int cnt = half ? n[1] : n[0];
+    const int2* col = cols + half * 2 * D;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    int j = 0;
+    for (; j + kDfrBatch <= cnt; j += kDfrBatch) {
+      int2 r[kDfrBatch];
+      float v[kDfrBatch][4];
+#pragma unroll
+      for (int i = 0; i < kDfrBatch; ++i) r[i] = col[j + i];
+#pragma unroll
+      for (int i = 0; i < kDfrBatch; ++i)
+        load_quad<kVec>(src0, src1, r[i].x, v[i]);
+#pragma unroll
+      for (int i = 0; i < kDfrBatch; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          acc[q] = fmaf(__int_as_float(r[i].y), v[i][q], acc[q]);
+    }
+    for (; j < cnt; ++j) {
+      const int2 r = col[j];
+      float v[4];
+      load_quad<kVec>(src0, src1, r.x, v);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        acc[q] = fmaf(__int_as_float(r.y), v[q], acc[q]);
+    }
+    // each lane's channels, once, in the features' type
+    if (x0 + half < x_end && has0)
+      store_quad<kVec>(dfr + (row * w_r + x0 + half) * C, ch0, ch1, has1, acc);
+    __syncwarp();  // the pair's column records are consumed
   }
-  if (has) store_pair(dfr + pix * C, lane, acc);
 }
 
 // ---- dfs: column groups that gather their pixels ----------------------------
@@ -726,9 +931,6 @@ constexpr int kDfsChunk = 32;     // pixels whose dG rows are staged at once
 constexpr int kDfsSlots = kDfsChunk / kDfsWarps;  // a warp's pixels of a chunk
 constexpr int kDfsAhead = 2;      // dout values per lane loaded before use
 constexpr int kDfsPass = 2 * kDfsThreads;  // pixels a candidate pass checks
-constexpr int kDfsLook = 4;       // tap records a run walk reads at once
-constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may use
-
 
 // Staged fr rows hold the channels padded to 16 bytes, so that a row is read
 // as 16-byte vectors.
@@ -753,18 +955,6 @@ struct DfsSmem {
         cand(masks + 2 * kDfsWarps * 4),
         total(cand + kDfsPass * 5 * 4 + 2 * kDfsWarps * 4) {}
 };
-
-__device__ __forceinline__ float tap_position(float xs, float b, float sg,
-                                              int k) {
-  return __fsub_rn(xs, __fadd_rn(b, __fmul_rn(sg, static_cast<float>(k))));
-}
-
-__device__ __forceinline__ void store_two(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store_two(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
 
 // the 16-byte vector q of a staged fr row as floats (8 bf16 or 4 fp32)
 __device__ __forceinline__ void unpack16(const __nv_bfloat16* row, int q,
@@ -940,32 +1130,19 @@ epiband_bwd_dfs_kernel(const T* __restrict__ fr, const float* __restrict__ base,
         const size_t pix = row * w_r + px[s];
         const float xs = __fadd_rn(static_cast<float>(px[s]), s_max);
         int4* rec = recs + s * D;
-        auto tap = [&](int k, float gk) {
-          const float pos = tap_position(xs, bi, sgi, k);
-          const float fl = floorf(pos);
-          const float f = __fsub_rn(pos, fl);
-          gk = round_as<T>(gk);
-          rec[k] = make_int4(
-              static_cast<int>(fminf(fmaxf(fl, -2.f), last + 2.f)),
-              __float_as_int(round_as<T>(__fmul_rn(__fsub_rn(1.f, f), gk))),
-              __float_as_int(round_as<T>(__fmul_rn(f, gk))), 0);
-        };
 #pragma unroll
         for (int j = 0; j < kDfsAhead; ++j)
-          if (lane + 32 * j < D) tap(lane + 32 * j, g[s][j]);
+          if (lane + 32 * j < D)
+            rec[lane + 32 * j] =
+                tap_record<T>(xs, bi, sgi, lane + 32 * j, g[s][j], last);
         for (int k = lane + 32 * kDfsAhead; k < D; k += 32)
-          tap(k, dout[pix * D + k]);
+          rec[k] = tap_record<T>(xs, bi, sgi, k, dout[pix * D + k], last);
       }
       __syncwarp();
 
-      // A2. the dG row of each slot, lanes across hypotheses. The
-      // positions fall as k grows (sigma >= 0), so the taps on column c are
-      // the run of k whose floor is c (left taps), then the run whose
-      // floor is c - 1 (right taps). The first lane of a run of floor c
-      // sums column c in ascending k, left taps first (the plain version's
-      // and the column walk's order, so dG rounds as theirs does), and
-      // column c + 1 too where no run has floor c + 1: each column of the
-      // pixel has one owner, which writes its dG into the pixel's row.
+      // A2. the dG row of each slot, lanes across hypotheses: each column
+      // of the pixel has one owner (run_columns, reverse_runs), which writes
+      // its dG into the pixel's row
 #pragma unroll
       for (int s = 0; s < kDfsSlots; ++s) {
         if (px[s] < 0) continue;  // uniform across the warp
@@ -974,52 +1151,15 @@ epiband_bwd_dfs_kernel(const T* __restrict__ fr, const float* __restrict__ base,
         const int4* rec = recs + s * D;
         if (cand_sg[q0 + slot] >= 0.f) {
           for (int k0 = 0; k0 < D; k0 += 32) {
-            const int k = k0 + lane;
-            const int4 r = k < D ? rec[k] : make_int4(INT_MIN, 0, 0, 0);
-            const int prev_lane = __shfl_up_sync(0xffffffffu, r.x, 1);
-            if (k >= D) continue;
-            const int c = r.x;
-            const int prev = lane > 0 ? prev_lane : k > 0 ? rec[k - 1].x : INT_MAX;
-            if (prev == c) continue;
-            // the records after k, kDfsLook at a time: the rest of the run
-            // of floor c, then the run of floor c - 1
-            float sl = __int_as_float(r.y), sr = __int_as_float(r.z);
-            bool done = false;
-            for (int e = k + 1; !done; e += kDfsLook) {
-              int4 t[kDfsLook];
-#pragma unroll
-              for (int v = 0; v < kDfsLook; ++v)
-                t[v] = e + v < D ? rec[e + v] : make_int4(INT_MIN, 0, 0, 0);
-#pragma unroll
-              for (int v = 0; v < kDfsLook; ++v) {
-                if (done) continue;
-                if (t[v].x == c) {
-                  sl += __int_as_float(t[v].y);
-                  sr += __int_as_float(t[v].z);
-                } else if (t[v].x == c - 1) {
-                  sl += __int_as_float(t[v].z);
-                } else {
-                  done = true;
-                }
-              }
-            }
-            if (c >= c0 && c < c0 + ncols) drow[c] = round_as<T>(sl);
-            if (prev != c + 1 && c + 1 >= c0 && c + 1 < c0 + ncols)
-              drow[c + 1] = round_as<T>(sr);
+            const RunColumns r = run_columns<T>(rec, D, k0 + lane, lane);
+            if (r.left && r.c >= c0 && r.c < c0 + ncols) drow[r.c] = r.dl;
+            if (r.right && r.c + 1 >= c0 && r.c + 1 < c0 + ncols)
+              drow[r.c + 1] = r.dr;
           }
         } else if (lane == 0) {
-          // a negative sigma reverses the runs: one lane sums the row in
-          // the plain version's order (left taps, then right taps)
-          for (int k = 0; k < D; ++k) {
-            const int c = rec[k].x;
-            if (c >= c0 && c < c0 + ncols) drow[c] += __int_as_float(rec[k].y);
-          }
-          for (int k = 0; k < D; ++k) {
-            const int c = rec[k].x + 1;
-            if (c >= c0 && c < c0 + ncols) drow[c] += __int_as_float(rec[k].z);
-          }
-          for (int c = zero_lo[u][s]; c <= zero_hi[u][s]; ++c)
-            drow[c] = round_as<T>(drow[c]);
+          reverse_runs<T>(rec, D, [&](int c, float d) {
+            if (c >= c0 && c < c0 + ncols) drow[c] = d;
+          });
         }
       }
       // one barrier a chunk: after it, buffer u is staged, and every warp
@@ -1067,6 +1207,24 @@ epiband_bwd_dfs_kernel(const T* __restrict__ fr, const float* __restrict__ base,
     for (int ch = 0; ch < kChan; ch += 2)
       if (ch < C) store_two(dst + ch, acc[ch], acc[ch + 1]);
   }
+}
+
+template <typename T, int kVec>
+cudaError_t launch_dfr(const void* fs, const float* base, const float* sigma,
+                       const float* dout, void* dfr, int V, int h_r, int w_r,
+                       int ws, int C, int D, float s_max, int tile,
+                       int smem_bytes, cudaStream_t st) {
+  const auto kernel = epiband_bwd_dfr_kernel<T, kVec>;
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((w_r + tile - 1) / tile, h_r, V);
+  kernel<<<grid, kDfrThreads, smem_bytes, st>>>(
+      static_cast<const T*>(fs), base, sigma, dout, static_cast<T*>(dfr), h_r,
+      w_r, ws, C, D, s_max, tile);
+  return cudaGetLastError();
 }
 
 template <typename T, int kChan>
@@ -1187,24 +1345,40 @@ int epiband_forward(const void* fr, const void* fs, const float* base,
                                           st));
 }
 
-// dfr (V,h_r,w_r,C) in the features' type; every element is written.
+// dfr (V,h_r,w_r,C) in the features' type; every element is written. tile
+// (pixels per block, a multiple of 2 * kDfrWarps up to 64), vec (4: each
+// lane's channels one vector, which C % 4 == 0 and 4-element alignment of fs
+// and dfr allow; else 2) and smem_bytes come from the wrapper's
+// dfr_launch_geometry: smem_bytes must equal DfrSmem's total and fit a
+// block. C must be even and at most 64, and ws * C below 2^31 (a row's
+// column offsets are 32-bit).
 int epiband_backward_dfr(const void* fs, const float* base, const float* sigma,
                          const float* dout, void* dfr, int V, int h_r,
                          int w_r, int ws, int C, int D, int s_max, int dtype,
-                         void* stream) {
+                         int tile, int vec, int smem_bytes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((w_r + kWarps - 1) / kWarps, h_r, V);
-  const dim3 block(kWarps * 32);
+  const bool ok = tile > 0 && tile % (2 * kDfrWarps) == 0 && tile <= 64 &&
+                  (vec == 4 || vec == 2) && C > 0 && C % vec == 0 &&
+                  C <= 64 && ws > 0 && w_r > 0 && D > 0 && h_r > 0 &&
+                  h_r <= 65535 && V > 0 && V <= 65535 &&
+                  static_cast<long long>(ws) * C <= INT_MAX &&
+                  static_cast<long long>(D) * 48 * kDfrWarps <= kMaxSmem &&
+                  smem_bytes == DfrSmem(D).total;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const float sm = static_cast<float>(s_max);
   if (dtype == 1)
-    epiband_bwd_dfr_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(fs), base, sigma, dout,
-        static_cast<__nv_bfloat16*>(dfr), h_r, w_r, ws, C, D, sm);
-  else
-    epiband_bwd_dfr_kernel<float><<<grid, block, 0, st>>>(
-        static_cast<const float*>(fs), base, sigma, dout,
-        static_cast<float*>(dfr), h_r, w_r, ws, C, D, sm);
-  return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(
+        vec == 4 ? launch_dfr<__nv_bfloat16, 4>(fs, base, sigma, dout, dfr, V,
+                                                h_r, w_r, ws, C, D, sm, tile,
+                                                smem_bytes, st)
+                 : launch_dfr<__nv_bfloat16, 2>(fs, base, sigma, dout, dfr, V,
+                                                h_r, w_r, ws, C, D, sm, tile,
+                                                smem_bytes, st));
+  return static_cast<int>(
+      vec == 4 ? launch_dfr<float, 4>(fs, base, sigma, dout, dfr, V, h_r, w_r,
+                                      ws, C, D, sm, tile, smem_bytes, st)
+               : launch_dfr<float, 2>(fs, base, sigma, dout, dfr, V, h_r, w_r,
+                                      ws, C, D, sm, tile, smem_bytes, st));
 }
 
 // dfs (V,h_r,ws,C) in the features' type; every element is written. window

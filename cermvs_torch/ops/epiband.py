@@ -23,7 +23,8 @@ first use (``ops/cudalib.py``); on CPU tensors they run the plain versions.
 There is no fallback from one to the other. :func:`launch_geometry` sets the
 forward kernel's tile, chunk, copy width, shared memory and grid,
 :func:`dfs_launch_geometry` the dfs kernel's column window, shared memory and
-grid.
+grid, :func:`dfr_launch_geometry` the dfr kernel's pixel tile, channel layout,
+shared memory and grid.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from cermvs_torch.ops import cudalib
 _p, _i = ctypes.c_void_p, ctypes.c_int
 LIB = cudalib.KernelLibrary("epiband", {
     "epiband_forward": [_p, _p, _p, _p, _p] + [_i] * 11 + [_p],
-    "epiband_backward_dfr": [_p, _p, _p, _p, _p] + [_i] * 8 + [_p],
+    "epiband_backward_dfr": [_p, _p, _p, _p, _p] + [_i] * 11 + [_p],
     "epiband_backward_dfs": [_p, _p, _p, _p, _p] + [_i] * 10 + [_p],
 })
 KERNELS = ("epiband_fwd", "epiband_bwd_dfr", "epiband_bwd_dfs")
@@ -51,6 +52,8 @@ REACH_WORDS = 64     # bf16 forward: 32-chunk words of its reached-chunk bitmap
 MAX_GRID_YZ = 65535
 DFS_WARPS = 8        # dfs: warps per block, 32 source columns each
 DFS_CHUNK = 32       # dfs: pixels whose dG rows a block stages at once
+DFR_WARPS = 8        # dfr: warps per block, two pixels at a time each
+DFR_TILE = 32        # dfr: rect pixels per block
 SMEM_LIMIT = 232_448  # dynamic shared memory a block may use (bytes)
 
 
@@ -139,6 +142,47 @@ def dfs_launch_geometry(V: int, h_r: int, ws: int, C: int, D: int,
                          f"room in a block's shared memory")
     return DfsGeometry(window=window, smem_bytes=smem,
                        grid=(-(-ws // window), h_r, V))
+
+
+@dataclass(frozen=True)
+class DfrGeometry:
+    """The dfr kernel's launch: a block of ``DFR_WARPS`` warps per ``tile``
+    (``DFR_TILE``) rect pixels of a row and view, ``grid = (tiles, h_r,
+    V)``; ``vec`` 4 where each lane's four channels are one vector, else 2
+    (the channel pairs at 2i and 32 + 2i); ``smem_bytes`` of dynamic shared
+    memory. The launcher takes tile, vec and smem_bytes."""
+    tile: int
+    vec: int
+    smem_bytes: int
+    grid: tuple
+
+
+@functools.lru_cache(maxsize=256)
+def dfr_launch_geometry(V: int, h_r: int, w_r: int, ws: int, C: int, D: int,
+                        dtype, align: int = 16) -> DfrGeometry:
+    """Launch parameters of ``epiband_backward_dfr`` for a gradient (V, h_r,
+    w_r, C) of ``dtype`` from D hypotheses over source rows of ws columns,
+    with fs and the gradient at addresses that are multiples of ``align``
+    bytes: tiles of ``DFR_TILE`` pixels; 4-channel vectors where C % 4 == 0
+    and the alignment allows them; and the bytes of the kernel's
+    shared-memory layout (``DfrSmem`` in ``csrc/epiband.cu``, whose launcher
+    refuses any other count): per warp, one pixel's D tap records (16 bytes
+    each) and two pixels' lists of up to 2 D column records (8 bytes
+    each)."""
+    if max(h_r, V) > MAX_GRID_YZ:
+        raise ValueError(f"epiband takes h_r and V up to {MAX_GRID_YZ}, got "
+                         f"{h_r} and {V}")
+    if C % 2 or not 0 < C <= 64 or ws * C >= 2 ** 31:
+        raise ValueError(f"the dfr kernel takes an even C <= 64 and ws * C "
+                         f"< 2^31, got C={C} ws={ws}")
+    esize = 2 if dtype == torch.bfloat16 else 4
+    vec = 4 if C % 4 == 0 and align % (4 * esize) == 0 else 2
+    smem = DFR_WARPS * (D * 16 + 2 * 2 * D * 8)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"the dfr kernel's records for D={D} leave no room "
+                         f"in a block's shared memory")
+    return DfrGeometry(tile=DFR_TILE, vec=vec, smem_bytes=smem,
+                       grid=(-(-w_r // DFR_TILE), h_r, V))
 
 
 def epiband_reference(fr, fs, base, sigma, n_hyp: int, s_max: int):
@@ -278,20 +322,30 @@ def epiband_backward_reference(fr, fs, base, sigma, dout, s_max: int):
     return (torch.stack(dfr).to(fr.dtype), torch.stack(dfs).to(fs.dtype))
 
 
-def backward_dfr(fr, fs, base, sigma, dout, s_max: int):
-    """Launch ``epiband_backward_dfr`` on checked CUDA tensors: dfr in the
-    features' dtype."""
+def backward_dfr(fr, fs, base, sigma, dout, s_max: int, out=None):
+    """Launch ``epiband_backward_dfr`` on checked CUDA tensors into ``out``
+    (V, h_r, w_r, C) in the features' dtype, a new tensor unless given: the
+    kernel writes every element."""
     V, h_r, w_r, C = fr.shape
+    ws, D = fs.shape[2], dout.shape[-1]
     _check_kernel_args(fr, fs, base, sigma)
-    dfr = torch.empty_like(fr)
+    if out is None:
+        out = torch.empty((V, h_r, w_r, C), dtype=fr.dtype, device=fr.device)
+    elif (out.shape != fr.shape or out.dtype != fr.dtype
+          or out.device != fr.device or not out.is_contiguous()):
+        raise ValueError("out must be contiguous, shaped and typed as fr, "
+                         "on its device")
+    geo = dfr_launch_geometry(V, h_r, w_r, ws, C, D, fr.dtype,
+                              min(cudalib.pointer_alignment(fs),
+                                  cudalib.pointer_alignment(out)))
     with cudalib.on_device(fr):
         LIB.call("epiband_backward_dfr", fs.data_ptr(),
                  None if base is None else base.data_ptr(), sigma.data_ptr(),
-                 dout.data_ptr(), dfr.data_ptr(), V, h_r, w_r, fs.shape[2],
-                 C, dout.shape[-1], int(s_max), _dtype_code(fr),
-                 cudalib.stream_of(fr))
+                 dout.data_ptr(), out.data_ptr(), V, h_r, w_r, ws, C, D,
+                 int(s_max), _dtype_code(fr), geo.tile, geo.vec,
+                 geo.smem_bytes, cudalib.stream_of(fr))
     cudalib.count_launch("epiband_bwd_dfr")
-    return dfr
+    return out
 
 
 def backward_dfs(fr, fs, base, sigma, dout, s_max: int, out=None):

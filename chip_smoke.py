@@ -52,9 +52,9 @@ Phases (any failure raises, so the exit code is non-zero):
      bf16; the hat also at C = 44 and 3), with their times, bounds and, for
      the hat kernels, the time of one ``grid_sample`` call (forward; it
      and the kernel also in device time) and of one
-     ``grid_sampler_2d_backward`` call (transpose); the epiband dfs kernel
-     also in device time at both stages, beside the earlier design's
-     back-to-back time;
+     ``grid_sampler_2d_backward`` call (transpose); the epiband dfr and dfs
+     kernels also in device time at both stages, beside the earlier
+     designs' back-to-back times;
   9. train through ``train()`` with ``train_DTU.gin``'s bindings (rectified,
      batch 2, nf10, crop 1056x1440) for four steps, time the last three, and
      check the two-pass plan, finite loss and gradients, the kernels'
@@ -68,7 +68,7 @@ last ``{"ok": true, "device": {...}}``. Needs no network and one card.
 ``--profile`` adds a torch.profiler breakdown of one forward per
 construction and of one train step (device time per RAFT.forward range,
 top kernels, busy share; for the step also a line with its device-busy
-time and the dfs kernel's row).
+time and the dfr and dfs kernels' rows).
 """
 
 import json
@@ -125,7 +125,8 @@ NO_LIBRARY = "none: no single PyTorch call computes the pooled 33-tap lookup"
 # The earlier designs' times of the kernels redesigned since (ms per launch,
 # bf16, back-to-back CUDA events; PERF.md's kernel table, NVIDIA H100 80GB
 # HBM3 at 700 W): the warp-per-pixel epiband forward, the thread-per-element
-# hat forward and the epiband dfs that scattered with global atomics.
+# hat forward, the epiband dfs that scattered with global atomics and the
+# warp-per-pixel epiband dfr.
 # Printed in the phases' text beside this run's times; never part of the
 # kernels line, which holds only this run's.
 EARLIER_MS = {"epiband_fwd": {"stage0": 1.537, "stage1": 1.079,
@@ -133,7 +134,8 @@ EARLIER_MS = {"epiband_fwd": {"stage0": 1.537, "stage1": 1.079,
               "hat_rows_fwd": {"feature_warp": 0.115,
                                "volume_back_warp": 0.082,
                                "demo_rescale2": 0.480},
-              "epiband_bwd_dfs": {"stage0": 4.860, "stage1": 1.829}}
+              "epiband_bwd_dfs": {"stage0": 4.860, "stage1": 1.829},
+              "epiband_bwd_dfr": {"stage0": 1.2165, "stage1": 0.9670}}
 HAT_TIMED = ("feature_warp", "volume_back_warp")  # phase 8's timed hat shapes
 
 
@@ -320,7 +322,7 @@ def cuda_ms_both(torch, fn, reps=50):
 def earlier(name, shape):
     """``, earlier design X ms`` for the kernel's recorded time at shape."""
     ms = EARLIER_MS.get(name, {}).get(shape)
-    return "" if ms is None else f", earlier design {ms:.3f} ms back to back"
+    return "" if ms is None else f", earlier design {ms} ms back to back"
 
 
 def ratio_text(kernel, library):
@@ -617,14 +619,12 @@ def phase_training_kernels(torch, plan, batch):
                     D=D, shape=[1, plan.h_r, plan.w_r, ws_v, C], ms=ms,
                     plain_ms=plain, bound_ms=bounds[name][0],
                     bound_by=bounds[name][1])
-                extra = ""
-                if name == "epiband_bwd_dfs":
-                    device = cuda_ms_graph(torch, lambda: fn(*args))
-                    rows[name]["stages"][stage]["device_ms"] = device
-                    extra = f" (device {device:.4f}){earlier(name, stage)}"
+                device = cuda_ms_graph(torch, lambda: fn(*args))
+                rows[name]["stages"][stage]["device_ms"] = device
                 print(f"phase 8: {name} {stage} timing: kernel {ms:.4f} "
-                      f"ms{extra}, plain (both gradients) {plain:.3f} ms, "
-                      f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})",
+                      f"ms (device {device:.4f}){earlier(name, stage)}, "
+                      f"plain (both gradients) {plain:.3f} ms, bound "
+                      f"{bounds[name][0]:.4f} ms ({bounds[name][1]})",
                       flush=True)
 
     h, w = (s // 4 for s in batch["images"].shape[2:4])
@@ -804,10 +804,12 @@ def phase_train(torch, tree, plan5, batch5):
         vol = RectifiedVolume(plan5)
         prof = profile_call(torch, lambda: train_step(state, batch, 0.5,
                                                       volume_fn=vol))
-        dfs = [row for row in prof["port_kernels_ms"] if "dfs" in row[0]]
+        grads = {g: [row for row in prof["port_kernels_ms"] if g in row[0]]
+                 for g in ("dfr", "dfs")}
         print(f"phase 9: profile of one train step: device busy "
               f"{prof['device_busy_ms']:.1f} ms of {prof['wall_ms']:.1f} ms "
-              f"wall; dfs row {dfs}", flush=True)
+              f"wall; dfr row {grads['dfr']}; dfs row {grads['dfs']}",
+              flush=True)
         print(json.dumps({"profile_train_step": prof}), flush=True)
     plans = {(p.h_r, p.w_r, p.ws_r, p.view_s_max) for _, _, p in records}
     return {"launches": launches, "s_per_step": s_per_step,

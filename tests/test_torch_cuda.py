@@ -327,6 +327,82 @@ def test_dfs_writes_every_output(cuda_device, dtype, name, w_r, ws, C, D,
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
+# the dfs cases, and for dfr's own layouts: D = 40 (lanes across hypotheses
+# beyond one warp's 32, not a multiple of 32), C = 62 and 42 (C % 4 != 0:
+# each lane's channel pairs at 2i and 32 + 2i), and C = 64 with fs two
+# elements into its storage, where only the pairs' alignment holds
+DFR_CASES = DFS_CASES + [
+    ("d40", 100, 700, 64, 40, "band", (0.8, 2.0)),
+    ("c62_pairs", 100, 500, 62, 44, "band", (0.5, 1.5)),
+    ("c64_pairs_offset", 128, 400, 64, 64, None, (2.0, 4.0)),
+]
+
+
+def dfr_inputs(rng, dev, dtype, name, w_r, ws, C, D, base_kind, sig):
+    fr, fs, base, sigma, dout, s_max = dfs_inputs(rng, dev, dtype, w_r, ws,
+                                                  C, D, base_kind, sig)
+    if name.endswith("_offset"):  # a view two elements into its storage
+        fs = torch.cat([fs.new_zeros(2), fs.flatten()])[2:].view(fs.shape)
+    return fr, fs, base, sigma, dout, s_max
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 1e-4, 1e-3),
+                                             (torch.bfloat16, 1e-2, 1e-2)])
+@pytest.mark.parametrize("name,w_r,ws,C,D,base_kind,sig", DFR_CASES,
+                         ids=[c[0] for c in DFR_CASES])
+def test_dfr_kernel_matches_plain(cuda_device, dtype, rtol, atol, name, w_r,
+                                  ws, C, D, base_kind, sig):
+    """The dfr kernel against the plain version's dfr; with bf16 features
+    it rounds where the plain version rounds, so under 1% of the elements
+    differ at all. NaN and far bases add nothing in both."""
+    rng = np.random.RandomState(13)
+    args = dfr_inputs(rng, cuda_device, dtype, name, w_r, ws, C, D,
+                      base_kind, sig)
+    geo = eb.dfr_launch_geometry(1, 4, w_r, ws, C, D, dtype,
+                                 cudalib.pointer_alignment(args[1]))
+    assert geo.vec == (2 if "pairs" in name else 4)  # what the case is for
+    before = cudalib.launches.get("epiband_bwd_dfr", 0)
+    dfr = eb.backward_dfr(*args)
+    torch.cuda.synchronize()
+    assert cudalib.launches["epiband_bwd_dfr"] == before + 1
+    ref = eb.epiband_backward_reference(*args)[0]
+    assert dfr.dtype == dtype and dfr.shape == ref.shape
+    assert bool(ref.isfinite().all()) and float(ref.abs().max()) > 1.0
+    torch.testing.assert_close(dfr.float(), ref.float(), rtol=rtol, atol=atol)
+    if dtype == torch.bfloat16:
+        assert float((dfr != ref).float().mean()) < 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,w_r,ws,C,D,base_kind,sig",
+                         [c for c in DFR_CASES if c[0] in (
+                             "ragged_ws", "far_and_nan_bases",
+                             "negative_sigma", "d40", "c62_pairs")],
+                         ids=["ragged_ws", "far_and_nan_bases",
+                              "negative_sigma", "d40", "c62_pairs"])
+def test_dfr_writes_every_output(cuda_device, dtype, name, w_r, ws, C, D,
+                                 base_kind, sig):
+    """``out`` filled with NaN: the kernel writes every element of every
+    pixel (a ragged tile, pixels of far and NaN bases, whose taps all miss
+    the row, and the channels of the pair layout) and nothing else."""
+    rng = np.random.RandomState(14)
+    args = dfr_inputs(rng, cuda_device, dtype, name, w_r, ws, C, D,
+                      base_kind, sig)
+    n = 4 * w_r * C
+    flat = torch.full((n + 64,), float("nan"), device=cuda_device,
+                      dtype=dtype)
+    out = flat[:n].view(1, 4, w_r, C)
+    eb.backward_dfr(*args, out=out)
+    torch.cuda.synchronize()
+    assert not bool(out.isnan().any())
+    assert bool(flat[n:].isnan().all())
+    ref = eb.epiband_backward_reference(*args)[0]
+    tol = 1e-3 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
 @pytest.mark.cuda
 def test_backward_through_autograd_launches_both_kernels(cuda_device):
     rng = np.random.RandomState(2)

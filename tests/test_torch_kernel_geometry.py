@@ -1,13 +1,14 @@
-"""Launch geometry of the epiband forward, epiband dfs and hat-resample
+"""Launch geometry of the epiband forward, epiband dfr and dfs and hat-resample
 forward kernels, on the CPU: the pure-Python helpers
-(``epiband.launch_geometry``, ``epiband.dfs_launch_geometry``,
-``hatwarp.launch_geometry``) whose values the wrappers pass to the C
-launchers, at the shapes the main path gives the kernels (inference,
-training and the demo at rescale 1 and 2; ws up to 2448; C of 64, 44, 16
-and 3; D of 64 and 44; fp32 and bf16). Each launch must stay within a
-block's shared memory, launch a grid that covers every output and read
-whole channel vectors. That the kernels write every output of such a grid
-is held on the card (``test_torch_cuda.py``: ``*_writes_every_output``).
+(``epiband.launch_geometry``, ``epiband.dfr_launch_geometry``,
+``epiband.dfs_launch_geometry``, ``hatwarp.launch_geometry``) whose values
+the wrappers pass to the C launchers, at the shapes the main path gives the
+kernels (inference, training and the demo at rescale 1 and 2; ws up to 2448;
+C of 64, 44, 16 and 3; D of 64 and 44; fp32 and bf16). Each launch must stay
+within a block's shared memory, launch a grid that covers every output and
+read whole channel vectors. That the kernels write every output of such a
+grid is held on the card (``test_torch_cuda.py``:
+``*_writes_every_output``).
 """
 
 import pytest
@@ -147,6 +148,74 @@ def test_dfs_geometry_rejects_what_the_kernel_does_not_take(kw):
     args.update(kw)
     with pytest.raises(ValueError):
         eb.dfs_launch_geometry(**args)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("C", [64, 44, 16])
+@pytest.mark.parametrize("shape", list(EPIBAND_SHAPES.values()),
+                         ids=list(EPIBAND_SHAPES))
+def test_dfr_geometry(shape, C, dtype):
+    """The dfr kernel's blocks fit a block's shared memory, and their tiles
+    (two pixels a warp at a time) cover every pixel of a row once."""
+    V, h_r, w_r, ws, D = shape
+    geo = eb.dfr_launch_geometry(V, h_r, w_r, ws, C, D, dtype)
+    assert geo.smem_bytes <= SMEM_LIMIT
+    assert geo.tile == eb.DFR_TILE and geo.tile % (2 * eb.DFR_WARPS) == 0
+    assert geo.grid[1:] == (h_r, V)
+    assert geo.grid[0] * geo.tile >= w_r > (geo.grid[0] - 1) * geo.tile
+    assert geo.vec == 4 and C % geo.vec == 0
+
+
+# (V, h_r, w_r, ws, D) -> (tiles of 32 pixels, shared-memory bytes): the
+# training plan's widest view at stage 0 and 1, the inference plan's, and a
+# ragged row
+DFR_LAUNCHES = {
+    "training_stage0": ((1, 448, 512, 1040, 64), (16, 24576)),
+    "training_stage1": ((1, 448, 512, 1040, 44), (16, 16896)),
+    "inference_stage0": ((1, 512, 512, 1104, 64), (16, 24576)),
+    "ragged_d44": ((2, 8, 100, 300, 44), (4, 16896)),
+}
+
+
+@pytest.mark.parametrize("shape,want", list(DFR_LAUNCHES.values()),
+                         ids=list(DFR_LAUNCHES))
+def test_dfr_tile_and_bytes(shape, want):
+    for dtype in DTYPES:
+        geo = eb.dfr_launch_geometry(*shape[:4], 64, shape[4], dtype)
+        # per warp: D tap records of 16 bytes, two lists of 2 D records of 8
+        assert (geo.grid[0], geo.smem_bytes) == want
+        assert geo.smem_bytes == eb.DFR_WARPS * 48 * shape[4]
+
+
+@pytest.mark.parametrize("dtype,C,align,vec", [
+    (torch.bfloat16, 64, 16, 4), (torch.bfloat16, 64, 8, 4),
+    (torch.bfloat16, 64, 4, 2), (torch.bfloat16, 62, 16, 2),
+    (torch.float32, 64, 16, 4), (torch.float32, 64, 8, 2),
+    (torch.float32, 44, 16, 4), (torch.float32, 42, 16, 2)])
+def test_dfr_channel_layout_follows_channels_and_alignment(dtype, C, align,
+                                                          vec):
+    """4-channel vectors where C % 4 == 0 and fs and dfr allow them (8 bytes
+    of bf16, 16 of fp32), else the channel pairs."""
+    geo = eb.dfr_launch_geometry(1, 448, 512, 1040, C, 64, dtype, align)
+    assert geo.vec == vec
+
+
+def test_dfr_largest_d_fits_a_block():
+    largest = SMEM_LIMIT // (eb.DFR_WARPS * 48)
+    geo = eb.dfr_launch_geometry(1, 8, 128, 300, 64, largest, torch.bfloat16)
+    assert geo.smem_bytes <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("kw", [dict(C=63), dict(C=7), dict(C=66),
+                                dict(C=128), dict(h_r=65536), dict(V=65536),
+                                dict(D=SMEM_LIMIT // 384 + 1),
+                                dict(ws=2 ** 25 + 1)])
+def test_dfr_geometry_rejects_what_the_kernel_does_not_take(kw):
+    args = dict(V=1, h_r=8, w_r=128, ws=300, C=64, D=64,
+                dtype=torch.bfloat16)
+    args.update(kw)
+    with pytest.raises(ValueError):
+        eb.dfr_launch_geometry(**args)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
