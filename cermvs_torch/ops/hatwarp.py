@@ -18,7 +18,10 @@ On CUDA tensors the wrappers launch the hand-written kernels
 (``cermvs_torch/csrc/hatwarp.cu``: ``hat_rows_forward``,
 ``hat_rows_backward``), which read each output's two non-zero taps; autograd
 saves only ``pos``. :func:`launch_geometry` sets the forward kernel's
-channel vector, block and grid. On CPU tensors they run the plain
+channel vector, block and grid, :func:`backward_launch_geometry` the
+transpose's rows per block, channel vector and shared memory (the
+transpose gathers per row: it writes each element of ``dimg`` once, in the
+image's dtype, with no atomics). On CPU tensors they run the plain
 versions, the hat-matrix products built in row chunks of at most
 ``HAT_BUDGET`` bytes. There is no fallback from one to the other.
 """
@@ -36,12 +39,16 @@ from cermvs_torch.ops import cudalib
 _p, _i = ctypes.c_void_p, ctypes.c_int
 LIB = cudalib.KernelLibrary("hatwarp", {
     "hat_rows_forward": [_p, _p, _p] + [_i] * 9 + [_p],
-    "hat_rows_backward": [_p, _p, _p] + [_i] * 5 + [_p],
+    "hat_rows_backward": [_p, _p, _p] + [_i] * 10 + [_p],
 })
 KERNELS = ("hat_rows_fwd", "hat_rows_bwd")
 HAT_BUDGET = 384 * 1024 * 1024  # bytes of one hat-matrix chunk (plain)
-THREADS = 256  # the forward kernel's block size
+THREADS = 256  # the block size of both kernels
 MAX_GRID_Y = 65535
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may use (bytes)
+# blocks the transpose aims for: four of 256 threads on each of an H100's
+# 132 SMs keep enough dout loads in flight
+BWD_TARGET_BLOCKS = 4 * 132
 
 
 @dataclass(frozen=True)
@@ -73,6 +80,72 @@ def launch_geometry(R: int, S: int, O: int, C: int, dtype,
                          f"O <= {MAX_GRID_Y * positions}, got S={S} O={O} "
                          f"C={C}")
     return Geometry(vec=vec, block=(groups, positions), grid=(R, tiles))
+
+
+@dataclass(frozen=True)
+class BackwardGeometry:
+    """The transpose's launch: ``rows`` image rows per block of ``THREADS``
+    threads (``THREADS // rows`` each), ``vec`` channels per thread,
+    ``groups`` threads per column, ``smem_bytes`` of dynamic shared memory
+    and a ``grid = (row blocks, splits)``: block (x, j) writes the j-th of
+    ``splits`` column ranges of its rows (each ranks its whole rows)."""
+    rows: int
+    vec: int
+    groups: int
+    smem_bytes: int
+    grid: tuple
+
+
+def backward_row_bytes(S: int, O: int) -> int:
+    """Shared bytes of one row of the transpose (``bwd_row_bytes`` in
+    ``csrc/hatwarp.cu``): per output its position and a record (offset and
+    two weights, 16 bytes in all), per bin its end and first output."""
+    return -(-(16 * O + 8 * (S + 1)) // 16) * 16
+
+
+@functools.lru_cache(maxsize=256)
+def backward_launch_geometry(R: int, S: int, O: int, C: int, dtype,
+                             align: int = 16) -> BackwardGeometry:
+    """Launch parameters of ``hat_rows_backward`` for dout (R, O, C) fp32
+    and dimg (R, S, C) of ``dtype``, both at addresses that are multiples of
+    ``align`` bytes: the widest fp32 channel vector (16 bytes at most) that
+    divides C and the alignment; a row's threads, a whole number of warps,
+    as few as its columns' vectors need (so rows of a small image share a
+    block); the threads of one column across its vectors. Raises where one
+    row's positions, records and bins do not fit a block's shared memory
+    (16 O + 8 (S + 1) bytes: O = S = 8192 fit) or a row's offsets do not fit
+    32 bits."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"unsupported image dtype {dtype}")
+    row_bytes = backward_row_bytes(S, O)
+    if row_bytes > SMEM_LIMIT:
+        raise ValueError(
+            f"hat_rows_backward keeps a row's positions, records and bins in "
+            f"shared memory: 16*O + 8*(S+1) = {row_bytes} bytes exceed a "
+            f"block's {SMEM_LIMIT} (O={O}, S={S})")
+    if S * C >= 2 ** 31 or O * C >= 2 ** 31:
+        raise ValueError(f"hat_rows_backward takes S*C and O*C below 2^31, "
+                         f"got S={S} O={O} C={C}")
+    vec = next(v for v in (4, 2, 1) if v == 1 or (
+        C % v == 0 and align % (v * 4) == 0))
+    work = S * (C // vec)  # a row's (column, vector) items
+    threads = 32
+    while threads < THREADS and threads < work:
+        threads *= 2
+    rows = THREADS // threads
+    while rows > 1 and (rows > R or rows * row_bytes > SMEM_LIMIT):
+        rows //= 2
+    threads = THREADS // rows
+    groups = max(1, min(C // vec, threads))
+    row_blocks = max(1, -(-R // rows))
+    # split the columns where the rows alone leave the card short of
+    # blocks, keeping two passes of columns in each range
+    passes = -(-S // (threads // groups))
+    splits = max(1, min(round(BWD_TARGET_BLOCKS / row_blocks), passes // 2,
+                        MAX_GRID_Y))
+    return BackwardGeometry(rows=rows, vec=vec, groups=groups,
+                            smem_bytes=rows * row_bytes,
+                            grid=(row_blocks, splits))
 
 
 def _hats(pos, S: int, dtype):
@@ -154,20 +227,28 @@ def _launch_forward(img, pos, out=None):
     return out
 
 
-def _launch_backward(dout, pos, S, img_dtype):
+def _launch_backward(dout, pos, S, img_dtype, out=None):
+    """Launch ``hat_rows_backward`` into ``out`` (R, S, C) of ``img_dtype``,
+    a new tensor unless given; the kernel writes every element."""
     R, O, C = dout.shape
-    dimg = torch.zeros((R, S, C), dtype=torch.float32, device=dout.device)
+    if out is None:
+        out = torch.empty((R, S, C), dtype=img_dtype, device=dout.device)
+    geo = backward_launch_geometry(
+        R, S, O, C, img_dtype,
+        min(cudalib.pointer_alignment(dout), cudalib.pointer_alignment(out)))
     with cudalib.on_device(dout):
         LIB.call("hat_rows_backward", dout.data_ptr(), pos.data_ptr(),
-                 dimg.data_ptr(), R, S, O, C, _dtype_code(img_dtype),
+                 out.data_ptr(), R, S, O, C, _dtype_code(img_dtype), geo.vec,
+                 geo.rows, geo.groups, geo.grid[1], geo.smem_bytes,
                  cudalib.stream_of(dout))
     cudalib.count_launch("hat_rows_bwd")
-    return dimg.to(img_dtype)
+    return out
 
 
-def hat_rows_backward(dout, pos, S: int, img_dtype):
+def hat_rows_backward(dout, pos, S: int, img_dtype, out=None):
     """``dimg`` (R, S, C) in ``img_dtype`` for ``dout`` (R, O, C): the kernel
-    on CUDA tensors, the plain version on CPU tensors."""
+    on CUDA tensors, the plain version on CPU tensors; written into ``out``
+    (contiguous, (R, S, C), ``img_dtype``, on dout's device) when given."""
     if dout.dim() != 3 or tuple(dout.shape[:2]) != tuple(pos.shape):
         raise ValueError(f"dout {tuple(dout.shape)} does not match pos "
                          f"{tuple(pos.shape)}")
@@ -175,12 +256,20 @@ def hat_rows_backward(dout, pos, S: int, img_dtype):
         raise ValueError("dout and float32 pos must be on one device")
     if img_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"unsupported image dtype {img_dtype}")
+    R, O, C = dout.shape
+    if out is not None and (tuple(out.shape) != (R, S, C)
+                            or out.dtype != img_dtype
+                            or out.device != dout.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {(R, S, C)} "
+                         f"{img_dtype} tensor on {dout.device}")
     dout = dout.float().contiguous()
     if dout.is_cuda:
-        return _launch_backward(dout, pos.contiguous(), S, img_dtype)
+        return _launch_backward(dout, pos.contiguous(), S, img_dtype, out)
     if dout.device.type != "cpu":
         raise ValueError(f"unsupported device {dout.device}")
-    return hat_resample_rows_backward_reference(dout, pos, S, img_dtype)
+    dimg = hat_resample_rows_backward_reference(dout, pos, S, img_dtype)
+    return dimg if out is None else out.copy_(dimg)
 
 
 def _forward(img, pos):

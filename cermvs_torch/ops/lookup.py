@@ -23,15 +23,18 @@ sums, which loses low bits to cancellation (~1e-4 relative).
 
 On CUDA tensors the wrappers launch the hand-written kernels
 (``cermvs_torch/csrc/lookup.cu``: ``lookup_forward``, ``lookup_backward``,
-``lookup_v2_forward``); on CPU tensors they run the plain versions. There
-is no fallback from one to the other. Inputs are taken as contiguous fp32
-(``.contiguous()`` copies a strided volume, such as a permuted view, once
-per call).
+``lookup_v2_forward``); :func:`lookup_launch_geometry` sets the forward's
+tile of pixels staged in shared memory. On CPU tensors they run the plain
+versions. There is no fallback from one to the other. Inputs are taken as
+contiguous fp32 (``.contiguous()`` copies a strided volume, such as a
+permuted view, once per call).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -39,12 +42,69 @@ from cermvs_torch.ops import cudalib
 
 _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 LIB = cudalib.KernelLibrary("lookup", {
-    "lookup_forward": [_p, _p, _p, _ll, _i, _i, _i, _p],
+    "lookup_forward": [_p, _p, _p, _ll, _i, _i, _i, _i, _i, _i, _p],
     "lookup_backward": [_p, _p, _p, _ll, _i, _i, _i, _p],
     "lookup_v2_forward": [_p, _p, _p, _ll, _i, _i, _i, _p],
 })
 KERNELS = ("lookup_fused_fwd", "lookup_fused_bwd", "lookup_fused_v2")
 V2_MAX_D = 128
+TILE_PIXELS = 64  # the forward's pixels per block: ~8 taps a thread at 33
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may use (bytes)
+
+
+@dataclass(frozen=True)
+class LookupGeometry:
+    """The forward kernel's launch: ``grid`` tiles of ``pixels`` pixels,
+    16-byte row copies where ``vec == 4`` and ``smem_bytes`` of dynamic
+    shared memory. The launcher runs as many blocks as stay resident on the
+    card (at most ``grid``), each looping over tiles, the next tile's copy
+    in flight while it computes one."""
+    pixels: int
+    vec: int
+    smem_bytes: int
+    grid: int
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def forward_smem_bytes(P: int, D: int, radius: int, num_levels: int) -> int:
+    """Shared bytes of a block of the forward (``fwd_layout`` in
+    ``csrc/lookup.cu``), each region at a multiple of 16 bytes: a 4-byte
+    record per tap, two buffers of a tile's P rows and x0, and per (pixel,
+    level) 8 bytes and a band of 2r + 2 pooled cells."""
+    L, J = num_levels, 2 * radius + 2
+    T = L * (J - 1)
+    rows = _round16(4 * T)
+    xs = _round16(rows + 2 * 4 * P * D)
+    pix = _round16(xs + 2 * 4 * P)
+    band = _round16(pix + 8 * P * L)
+    return _round16(band + 4 * P * L * J)
+
+
+@functools.lru_cache(maxsize=256)
+def lookup_launch_geometry(M: int, D: int, radius: int, num_levels: int,
+                           align: int = 16) -> LookupGeometry:
+    """Launch parameters of ``lookup_forward`` for M pixels of D cells at an
+    address that is a multiple of ``align`` bytes: ``TILE_PIXELS`` pixels
+    per block, fewer where their rows and bands would not fit a block's
+    shared memory; 16-byte copies where D % 4 == 0 and the alignment
+    allow. Raises only where one pixel does not fit."""
+    per_pixel = forward_smem_bytes(1, D, radius, num_levels)
+    if per_pixel > SMEM_LIMIT:
+        raise ValueError(
+            f"lookup_forward stages a pixel's {D} cells, its bands and "
+            f"{num_levels * (2 * radius + 1)} tap records in shared memory: "
+            f"{per_pixel} bytes exceed a block's {SMEM_LIMIT}")
+    P = TILE_PIXELS
+    while forward_smem_bytes(P, D, radius, num_levels) > SMEM_LIMIT:
+        P -= 1
+    vec = 4 if D % 4 == 0 and align % 16 == 0 else 1
+    return LookupGeometry(pixels=P, vec=vec,
+                          smem_bytes=forward_smem_bytes(P, D, radius,
+                                                        num_levels),
+                          grid=-(-M // P))
 
 
 def _level(x0, lvl: int, radius: int):
@@ -160,6 +220,24 @@ def _launch(fn, name, src, x0, width_out, D, radius, num_levels):
     return out
 
 
+def _launch_forward(corr, x0, radius, num_levels, out=None):
+    """Launch ``lookup_forward`` on the flattened volume ``corr`` (M, D) and
+    ``x0`` (M,), contiguous fp32, into ``out`` (M, T) fp32, a new tensor
+    unless given; the kernel writes every element."""
+    M, D = corr.shape
+    T = num_levels * (2 * radius + 1)
+    geo = lookup_launch_geometry(M, D, radius, num_levels,
+                                 cudalib.pointer_alignment(corr))
+    if out is None:
+        out = torch.empty((M, T), dtype=torch.float32, device=corr.device)
+    with cudalib.on_device(corr):
+        LIB.call("lookup_forward", corr.data_ptr(), x0.data_ptr(),
+                 out.data_ptr(), M, D, radius, num_levels, geo.pixels,
+                 int(geo.vec == 4), geo.smem_bytes, cudalib.stream_of(corr))
+    cudalib.count_launch("lookup_fused_fwd")
+    return out
+
+
 def lookup_fused_backward(g, x0, D: int, radius: int = 5,
                           num_levels: int = 3):
     """``dcorr`` (..., D) fp32 for ``g`` (..., num_levels*(2r+1)): the
@@ -186,10 +264,9 @@ class _LookupFused(torch.autograd.Function):
         if not corr0.is_cuda:
             return lookup_fused_reference(corr0, x0, radius, num_levels)
         D = corr0.shape[-1]
-        T = num_levels * (2 * radius + 1)
-        out = _launch("lookup_forward", "lookup_fused_fwd", _flat(corr0, D),
-                      x0.float().contiguous(), T, D, radius, num_levels)
-        return out.reshape(tuple(x0.shape) + (T,))
+        out = _launch_forward(_flat(corr0, D), x0.float().contiguous(),
+                              radius, num_levels)
+        return out.reshape(tuple(x0.shape) + (out.shape[-1],))
 
     @staticmethod
     def backward(ctx, g):

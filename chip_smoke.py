@@ -20,8 +20,10 @@ Phases (any failure raises, so the exit code is non-zero):
   3. hold the fused lookup kernels (forward, gradient, prefix-sum) against
      their plain versions at phase 4's (1,1,288,400,D), the demo's
      (1,1,300,400,D) and (1,1,600,800,D) and the training batch's
-     (2,1,264,360,D) volumes, D = 64 and 44, with their times, plain times
-     and bounds;
+     (2,1,264,360,D) volumes, D = 64 and 44, with their times (the L2
+     flushed before each launch, and back to back; the forward also in
+     device time, beside the earlier design's time), plain times and
+     bounds;
   4. drive the port's depth inference (``InferenceRunner``) at full DTU width
      — 1152x1600 images, 11 views, cascade (64,64,8)/(44,320,8), HR encoders,
      bf16, random weights from a seed — through the rectified construction
@@ -50,11 +52,11 @@ Phases (any failure raises, so the exit code is non-zero):
      batch, and hold the epiband backward kernels and the hat-resample
      kernels against their plain versions at that plan's shapes (fp32 and
      bf16; the hat also at C = 44 and 3), with their times, bounds and, for
-     the hat kernels, the time of one ``grid_sample`` call (forward; it
-     and the kernel also in device time) and of one
-     ``grid_sampler_2d_backward`` call (transpose); the epiband dfr and dfs
-     kernels also in device time at both stages, beside the earlier
-     designs' back-to-back times;
+     the hat kernels, the time of one ``grid_sample`` call (forward) and of
+     one ``grid_sampler_2d_backward`` call (transpose), each kernel and
+     call also in device time; the epiband dfr and dfs kernels also in
+     device time at both stages; all beside the earlier designs'
+     back-to-back times;
   9. train through ``train()`` with ``train_DTU.gin``'s bindings (rectified,
      batch 2, nf10, crop 1056x1440) for four steps, time the last three, and
      check the two-pass plan, finite loss and gradients, the kernels'
@@ -66,9 +68,11 @@ Phases (any failure raises, so the exit code is non-zero):
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Needs no network and one card.
 ``--profile`` adds a torch.profiler breakdown of one forward per
-construction and of one train step (device time per RAFT.forward range,
-top kernels, busy share; for the step also a line with its device-busy
-time and the dfr and dfs kernels' rows).
+construction, of one rescale-2 demo forward and of one train step (device
+time per RAFT.forward range, top kernels, busy share; for the step also a
+line with its device-busy time, the dfr, dfs and hat_rows_bwd kernels'
+rows and its count of elementwise launches; for the demo forward a line
+with the lookup_fused_fwd row).
 """
 
 import json
@@ -125,8 +129,10 @@ NO_LIBRARY = "none: no single PyTorch call computes the pooled 33-tap lookup"
 # The earlier designs' times of the kernels redesigned since (ms per launch,
 # bf16, back-to-back CUDA events; PERF.md's kernel table, NVIDIA H100 80GB
 # HBM3 at 700 W): the warp-per-pixel epiband forward, the thread-per-element
-# hat forward, the epiband dfs that scattered with global atomics and the
-# warp-per-pixel epiband dfr.
+# hat forward, the epiband dfs that scattered with global atomics, the
+# warp-per-pixel epiband dfr, the hat transpose that scattered with global
+# atomics into a zeroed fp32 buffer (its memset and cast included) and the
+# thread-per-tap lookup forward (fp32, L2 flushed before each launch).
 # Printed in the phases' text beside this run's times; never part of the
 # kernels line, which holds only this run's.
 EARLIER_MS = {"epiband_fwd": {"stage0": 1.537, "stage1": 1.079,
@@ -135,7 +141,12 @@ EARLIER_MS = {"epiband_fwd": {"stage0": 1.537, "stage1": 1.079,
                                "volume_back_warp": 0.082,
                                "demo_rescale2": 0.480},
               "epiband_bwd_dfs": {"stage0": 4.860, "stage1": 1.829},
-              "epiband_bwd_dfr": {"stage0": 1.2165, "stage1": 0.9670}}
+              "epiband_bwd_dfr": {"stage0": 1.2165, "stage1": 0.9670},
+              "hat_rows_bwd": {"feature_warp": 0.134,
+                               "volume_back_warp": 0.128},
+              "lookup_fused_fwd": {"inference_stage0": 0.101,
+                                   "demo_rescale2_stage0": 0.175,
+                                   "training_stage0": 0.074}}
 HAT_TIMED = ("feature_warp", "volume_back_warp")  # phase 8's timed hat shapes
 
 
@@ -320,9 +331,11 @@ def cuda_ms_both(torch, fn, reps=50):
 
 
 def earlier(name, shape):
-    """``, earlier design X ms`` for the kernel's recorded time at shape."""
+    """``, earlier design X ms`` for the kernel's recorded time at shape
+    (back to back; the lookup forward's with the L2 flushed)."""
     ms = EARLIER_MS.get(name, {}).get(shape)
-    return "" if ms is None else f", earlier design {ms} ms back to back"
+    how = "L2 flushed" if name == "lookup_fused_fwd" else "back to back"
+    return "" if ms is None else f", earlier design {ms} ms {how}"
 
 
 def ratio_text(kernel, library):
@@ -492,8 +505,9 @@ def grid_sample_rows_backward(torch, img, pos, dout):
 def profile_call(torch, fn, prefix="raft."):
     """One call of ``fn`` under torch.profiler: device time per named range
     (``prefix``), the top kernels by self device time, the port's own
-    kernels (by their names in ``csrc/``), and the device-busy share of the
-    wall time."""
+    kernels (by their names in ``csrc/``), the launches and device time of
+    elementwise kernels (names holding "elementwise"), and the device-busy
+    share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     def dev(e, own=False):
@@ -518,7 +532,11 @@ def profile_call(torch, fn, prefix="raft."):
     top = sorted(kernels, key=lambda e: dev(e, own=True), reverse=True)[:15]
     ours = [e for e in kernels if any(
         k in e.key for k in ("epiband", "hat_rows", "lookup_"))]
+    elementwise = [e for e in kernels if "elementwise" in e.key]
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "elementwise_launches": sum(e.count for e in elementwise),
+            "elementwise_ms": sum(dev(e, own=True)
+                                  for e in elementwise) / 1e3,
             "busy_share": busy / (wall * 1e3), "spans_ms": spans,
             "top_self_device_ms": [[e.key[:90], e.count,
                                     dev(e, own=True) / 1e3] for e in top],
@@ -667,36 +685,33 @@ def phase_training_kernels(torch, plan, batch):
                 "hat_rows_fwd": float((lib()[:, :, 0].permute(0, 2, 1) - out)
                                       .abs().max()),
                 "hat_rows_bwd": float((lib_bwd() - dimg.float()).abs().max())}
-            # the forward and grid_sample back to back and in device time
-            # (a CUDA graph): back to back, the host's work per call may
-            # bound a launch this short
-            fwd = cuda_ms_both(torch, lambda: hw.hat_resample_rows(img, pos))
-            lib_both = cuda_ms_both(torch, lib)
-            timing = {
-                "hat_rows_fwd": (
-                    fwd[0],
-                    cuda_ms(lambda: hw.hat_resample_rows_reference(img, pos),
-                            3),
-                    lib_both[0]),
-                "hat_rows_bwd": (
-                    cuda_ms(lambda: hw.hat_rows_backward(dout, pos, S, dtype),
-                            20),
-                    cuda_ms(lambda: hw.hat_resample_rows_backward_reference(
-                        dout, pos, S, dtype), 3),
-                    cuda_ms(lib_bwd, 20))}
-            for name, (ms, plain, lib_ms) in timing.items():
+            # each kernel and its library call back to back and in device
+            # time (a CUDA graph): back to back, the host's work per call
+            # may bound a launch this short
+            both = {
+                "hat_rows_fwd": (cuda_ms_both(
+                    torch, lambda: hw.hat_resample_rows(img, pos)),
+                    cuda_ms_both(torch, lib)),
+                "hat_rows_bwd": (cuda_ms_both(
+                    torch, lambda: hw.hat_rows_backward(dout, pos, S, dtype)),
+                    cuda_ms_both(torch, lib_bwd))}
+            plain_ms = {
+                "hat_rows_fwd": cuda_ms(
+                    lambda: hw.hat_resample_rows_reference(img, pos), 3),
+                "hat_rows_bwd": cuda_ms(
+                    lambda: hw.hat_resample_rows_backward_reference(
+                        dout, pos, S, dtype), 3)}
+            for name, (kern, lib_t) in both.items():
+                ms, plain, lib_ms = kern[0], plain_ms[name], lib_t[0]
                 rows[name]["shapes"][shape_name] = dict(
                     shape=[R, S, O, Cc], ms=ms, plain_ms=plain,
                     library_ms=lib_ms, bound_ms=bounds[name][0],
-                    bound_by=bounds[name][1])
-                extra = lib_extra = ""
-                if name == "hat_rows_fwd":
-                    rows[name]["shapes"][shape_name].update(
-                        device_ms=fwd[1], library_device_ms=lib_both[1])
-                    extra = (f" (device {fwd[1]:.4f})"
-                             f"{earlier(name, shape_name)}")
-                    lib_extra = (f" (device {lib_both[1]:.4f}; "
-                                 f"{ratio_text(fwd, lib_both)})")
+                    bound_by=bounds[name][1], device_ms=kern[1],
+                    library_device_ms=lib_t[1])
+                extra = (f" (device {kern[1]:.4f})"
+                         f"{earlier(name, shape_name)}")
+                lib_extra = (f" (device {lib_t[1]:.4f}; "
+                             f"{ratio_text(kern, lib_t)})")
                 print(f"phase 8: {name} {shape_name} timing: kernel "
                       f"{ms:.4f} ms{extra}, plain {plain:.3f} ms, library "
                       f"{lib_ms:.4f} ms{lib_extra} (grid_sample |diff| "
@@ -805,11 +820,13 @@ def phase_train(torch, tree, plan5, batch5):
         prof = profile_call(torch, lambda: train_step(state, batch, 0.5,
                                                       volume_fn=vol))
         grads = {g: [row for row in prof["port_kernels_ms"] if g in row[0]]
-                 for g in ("dfr", "dfs")}
+                 for g in ("dfr", "dfs", "hat_rows_bwd")}
         print(f"phase 9: profile of one train step: device busy "
               f"{prof['device_busy_ms']:.1f} ms of {prof['wall_ms']:.1f} ms "
-              f"wall; dfr row {grads['dfr']}; dfs row {grads['dfs']}",
-              flush=True)
+              f"wall; dfr row {grads['dfr']}; dfs row {grads['dfs']}; "
+              f"hat_rows_bwd row {grads['hat_rows_bwd']}; elementwise "
+              f"launches {prof['elementwise_launches']} "
+              f"({prof['elementwise_ms']:.2f} ms)", flush=True)
         print(json.dumps({"profile_train_step": prof}), flush=True)
     plans = {(p.h_r, p.w_r, p.ws_r, p.view_s_max) for _, _, p in records}
     return {"launches": launches, "s_per_step": s_per_step,
@@ -934,10 +951,16 @@ def phase_lookup_kernels(torch):
             rows[name]["shapes"][shape_name] = dict(
                 shape=list(shape), ms=ms, warm_ms=warm, plain_ms=plain_ms,
                 bound_ms=bounds[name][0], bound_by=bounds[name][1])
+            extra = ""
+            if name == "lookup_fused_fwd":  # and in device time (warm L2)
+                device = cuda_ms_graph(torch, kernel[name])
+                rows[name]["shapes"][shape_name]["device_ms"] = device
+                extra = f", device {device:.4f}"
             print(f"phase 3: {name} {shape_name} timing: kernel {ms:.4f} ms "
-                  f"(L2 flushed; back to back {warm:.4f}), plain "
-                  f"{plain_ms:.3f} ms, bound {bounds[name][0]:.4f} ms "
-                  f"({bounds[name][1]}), library {NO_LIBRARY}", flush=True)
+                  f"(L2 flushed{earlier(name, shape_name)}; back to back "
+                  f"{warm:.4f}{extra}), plain {plain_ms:.3f} ms, bound "
+                  f"{bounds[name][0]:.4f} ms ({bounds[name][1]}), library "
+                  f"{NO_LIBRARY}", flush=True)
     for name in LOOKUPS:
         main = rows[name]["shapes"]["training_stage0" if name ==
                                     "lookup_fused_bwd" else
@@ -946,6 +969,8 @@ def phase_lookup_kernels(torch):
                           plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
                           bound_by=main["bound_by"], library_ms=None,
                           library=NO_LIBRARY)
+        if "device_ms" in main:
+            rows[name]["device_ms"] = main["device_ms"]
     return rows
 
 
@@ -1293,6 +1318,11 @@ def profile_demo_forward(torch, bindings, ckpt, rescale):
     runner(images, poses, intr, scale)  # warm-up
     prof = profile_call(torch, lambda: runner.submit(images, poses, intr,
                                                      scale))
+    print(f"phase 6: profile of one rescale-{rescale} forward: device busy "
+          f"{prof['device_busy_ms']:.1f} ms of {prof['wall_ms']:.1f} ms "
+          f"wall; lookup_fused_fwd row "
+          f"{[r for r in prof['port_kernels_ms'] if 'lookup_fwd' in r[0]]}",
+          flush=True)
     print(json.dumps({f"profile_demo_rescale{rescale}": prof}), flush=True)
 
 

@@ -455,6 +455,116 @@ def test_hat_kernels_match_plain(cuda_device, dtype, C):
     torch.testing.assert_close(dimg.float(), ref.float(), rtol=tol, atol=tol)
 
 
+def hat_backward_case(dev, rng, R, S, O, C, pos, dtype, offset=0):
+    """dout (R, O, C) fp32, ``offset`` elements into its storage (narrower
+    vector loads), for positions ``pos``; returns the kernel's and the
+    plain version's dimg."""
+    dout = torch.from_numpy(rng.randn(R, O, C).astype(np.float32)).to(dev)
+    if offset:
+        flat = torch.zeros(dout.numel() + offset, device=dev)
+        flat[offset:] = dout.reshape(-1)
+        dout = flat[offset:].view(R, O, C)
+    pos = torch.from_numpy(pos.astype(np.float32)).to(dev)
+    before = cudalib.launches.get("hat_rows_bwd", 0)
+    dimg = hw.hat_rows_backward(dout, pos, S, dtype)
+    torch.cuda.synchronize()
+    assert cudalib.launches["hat_rows_bwd"] == before + 1
+    assert dimg.dtype == dtype and tuple(dimg.shape) == (R, S, C)
+    return dimg, hw.hat_resample_rows_backward_reference(dout, pos, S, dtype)
+
+
+def hat_backward_tol(dtype):
+    return 1e-5 if dtype == torch.float32 else 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,offset", [(64, 0), (44, 0), (3, 0), (64, 1)])
+def test_hat_backward_non_monotonic_positions(cuda_device, dtype, C, offset):
+    """The transpose with positions in random order (bins far from their
+    first output: the one-warp ranking) and with a jittered sweep (the
+    counting ranking), each with a dout one element into its storage in
+    one case."""
+    rng = np.random.RandomState(11)
+    R, S, O = 12, 90, 150
+    shuffled = rng.uniform(-3.0, S + 2.0, (R, O))
+    shuffled[0, :3] = [-1e4, 1e4, S - 1.0]
+    sweep = (np.linspace(-4, S + 4, O)[None] + rng.uniform(-0.5, 0.5, (R, O)))
+    for pos in (shuffled, sweep):
+        dimg, ref = hat_backward_case(cuda_device, rng, R, S, O, C, pos,
+                                      dtype, offset)
+        tol = hat_backward_tol(dtype)
+        torch.testing.assert_close(dimg.float(), ref.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hat_backward_pile_up_and_rows_off_the_image(cuda_device, dtype):
+    """A clamp-mode pile-up (every output on column 0 or S-1, one bin's list
+    holding most of the row), rows wholly at -1e4 (empty lists: zeros), and
+    a clamped sweep whose edge bins hold long runs."""
+    rng = np.random.RandomState(12)
+    R, S, O, C = 6, 40, 700, 44
+    pos = np.where(rng.rand(R, O) < 0.5, 0.0, S - 1.0)
+    pos[1] = 0.0
+    pos[2] = -1e4
+    pos[3] = np.clip(np.linspace(-300, S + 300, O), 0.0, S - 1.0)
+    dimg, ref = hat_backward_case(cuda_device, rng, R, S, O, C, pos, dtype)
+    assert bool((dimg[2] == 0).all())
+    tol = hat_backward_tol(dtype)
+    torch.testing.assert_close(dimg.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,O,C", [(90, 151, 64), (33, 7, 44), (50, 300, 3),
+                                   (20, 1000, 2), (300, 40, 16)])
+def test_hat_backward_writes_every_output(cuda_device, dtype, S, O, C):
+    """``out`` filled with NaN, passed to ``hat_rows_backward(..., out=)``:
+    every element is written (columns no output reaches get zero), with
+    several rows per block where rows are small, and two launches give the
+    same bits."""
+    rng = np.random.RandomState(13)
+    R = 5
+    pos = torch.from_numpy(rng.uniform(-3.0, S + 2.0, (R, O)).astype(
+        np.float32)).to(cuda_device)
+    dout = torch.from_numpy(rng.randn(R, O, C).astype(np.float32)).to(
+        cuda_device)
+    out = torch.full((R, S, C), float("nan"), device=cuda_device, dtype=dtype)
+    got = hw.hat_rows_backward(dout, pos, S, dtype, out=out)
+    again = hw.hat_rows_backward(dout, pos, S, dtype)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == out.data_ptr()
+    assert not bool(out.isnan().any())
+    assert torch.equal(out.view(torch.int16 if dtype == torch.bfloat16
+                                else torch.int32),
+                       again.view(torch.int16 if dtype == torch.bfloat16
+                                  else torch.int32))
+    tol = hat_backward_tol(dtype)
+    torch.testing.assert_close(
+        out.float(), hw.hat_resample_rows_backward_reference(
+            dout, pos, S, dtype).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_hat_backward_is_deterministic_at_a_training_shape(cuda_device):
+    """Two launches at a feature warp's shape give identical bits (a sum
+    order fixed by the lists, not by the scheduler)."""
+    rng = np.random.RandomState(14)
+    R, S, O, C = 64, 360, 1040, 64
+    pos = torch.from_numpy((np.linspace(-4, S + 4, O)[None]
+                            + rng.uniform(-0.5, 0.5, (R, O))).astype(
+        np.float32)).to(cuda_device)
+    dout = torch.randn((R, O, C), device=cuda_device,
+                       generator=torch.Generator(cuda_device).manual_seed(0))
+    for dtype in (torch.float32, torch.bfloat16):
+        a = hw.hat_rows_backward(dout, pos, S, dtype)
+        b = hw.hat_rows_backward(dout, pos, S, dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 def test_hat_kernel_rejects_bad_inputs_and_card_stays_usable(cuda_device):
     img = torch.zeros(4, 30, 8, device=cuda_device)
@@ -607,3 +717,94 @@ def test_lookup_kernel_takes_strided_volumes(cuda_device):
                                lk.lookup_fused(base, x0), rtol=0, atol=0)
     with pytest.raises(ValueError, match="one device"):
         lk.lookup_fused(base, x0.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,D,radius,levels", [
+    ((1, 1, 7, 9), 64, 5, 3),      # 63 pixels: one short tile
+    ((2, 1, 13, 11), 64, 5, 3),    # 286 pixels: 4 whole tiles and a part
+    ((1, 2, 9, 10), 44, 5, 3),
+    ((2, 1, 15, 9), 33, 5, 1),     # rows of 132 bytes: the scalar copy
+    ((1, 1, 20, 10), 16, 2, 2)])
+def test_lookup_forward_writes_every_output(cuda_device, shape, D, radius,
+                                            levels):
+    """The tiled forward against its plain version (rtol / atol 1e-5) with
+    M not a multiple of the tile, D = 44, and D = 33 (rows not 16-byte
+    aligned); ``out`` starts as NaN and none is left."""
+    from cermvs_torch.ops import lookup as lk
+
+    rng = np.random.RandomState(15)
+    corr, x0 = lookup_inputs(rng, D, shape)
+    corr = torch.from_numpy(corr).to(cuda_device).reshape(-1, D)
+    x0 = torch.from_numpy(x0).to(cuda_device).reshape(-1)
+    geo = lk.lookup_launch_geometry(corr.shape[0], D, radius, levels)
+    assert geo.vec == (1 if D % 4 else 4)
+    T = levels * (2 * radius + 1)
+    out = torch.full((corr.shape[0], T), float("nan"), device=cuda_device)
+    got = lk._launch_forward(corr, x0, radius, levels, out=out)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == out.data_ptr()
+    assert not bool(out.isnan().any())
+    torch.testing.assert_close(
+        out, lk.lookup_fused_reference(corr, x0, radius, levels), rtol=1e-5,
+        atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_lookup_forward_takes_a_misaligned_volume(cuda_device):
+    """A volume one float into its storage takes the scalar copy and gives
+    the taps of an aligned copy, bit for bit."""
+    from cermvs_torch.ops import lookup as lk
+
+    rng = np.random.RandomState(16)
+    corr, x0 = lookup_inputs(rng, 64)
+    corr = torch.from_numpy(corr).to(cuda_device).reshape(-1, 64)
+    flat = torch.zeros(corr.numel() + 1, device=cuda_device)
+    flat[1:] = corr.reshape(-1)
+    shifted = flat[1:].view(corr.shape)
+    x0 = torch.from_numpy(x0).to(cuda_device).reshape(-1)
+    assert lk.lookup_launch_geometry(
+        corr.shape[0], 64, 5, 3, cudalib.pointer_alignment(shifted)).vec == 1
+    a = lk._launch_forward(corr, x0, 5, 3)
+    b = lk._launch_forward(shifted, x0, 5, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+# sha256 prefixes of the lookup gradient and prefix-sum kernels' outputs on
+# the inputs of ``lookup_digest_case``, from the kernels before the forward
+# was tiled (NVIDIA H100 80GB HBM3, CUDA 12.8): they must not change
+LOOKUP_DIGESTS = {
+    (64, 5, 3): {"bwd": "6d5502e45ec63bc7", "v2": "f20c0d651423d60e"},
+    (44, 5, 3): {"bwd": "f7ce011f6807e9b4", "v2": "59b5b31591177aa5"},
+    (16, 2, 2): {"bwd": "b85e061c743111b1", "v2": "f62b080e7caa76ba"},
+}
+
+
+def lookup_digest_case(dev, D, radius, levels):
+    rng = np.random.RandomState(21)
+    shape = (2, 1, 24, 36)
+    corr = torch.from_numpy(rng.randn(*shape, D).astype(np.float32)).to(dev)
+    x0 = np.maximum(rng.rand(*shape).astype(np.float32) * (D + 16) - 4, 0)
+    x0.reshape(-1)[:3] = [0.0, D - 1.0, D + 40.0]
+    x0 = torch.from_numpy(x0).to(dev)
+    T = levels * (2 * radius + 1)
+    g = torch.from_numpy(rng.randn(*shape, T).astype(np.float32)).to(dev)
+    return corr, x0, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,radius,levels", list(LOOKUP_DIGESTS))
+def test_lookup_gradient_and_prefix_sum_outputs_unchanged(cuda_device, D,
+                                                          radius, levels):
+    import hashlib
+
+    from cermvs_torch.ops import lookup as lk
+
+    corr, x0, g = lookup_digest_case(cuda_device, D, radius, levels)
+    got = {"bwd": lk.lookup_fused_backward(g, x0, D, radius, levels),
+           "v2": lk.lookup_fused_v2(corr, x0, radius, levels)}
+    torch.cuda.synchronize()
+    digests = {k: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+               for k, t in got.items()}
+    assert digests == LOOKUP_DIGESTS[(D, radius, levels)]

@@ -1,7 +1,9 @@
-"""Launch geometry of the epiband forward, epiband dfr and dfs and hat-resample
-forward kernels, on the CPU: the pure-Python helpers
-(``epiband.launch_geometry``, ``epiband.dfr_launch_geometry``,
-``epiband.dfs_launch_geometry``, ``hatwarp.launch_geometry``) whose values
+"""Launch geometry of the epiband forward, epiband dfr and dfs, hat-resample
+forward and transpose and fused lookup forward kernels, on the CPU: the
+pure-Python helpers (``epiband.launch_geometry``,
+``epiband.dfr_launch_geometry``, ``epiband.dfs_launch_geometry``,
+``hatwarp.launch_geometry``, ``hatwarp.backward_launch_geometry``,
+``lookup.lookup_launch_geometry``) whose values
 the wrappers pass to the C launchers, at the shapes the main path gives the
 kernels (inference, training and the demo at rescale 1 and 2; ws up to 2448;
 C of 64, 44, 16 and 3; D of 64 and 44; fp32 and bf16). Each launch must stay
@@ -16,6 +18,7 @@ import torch
 
 from cermvs_torch.ops import epiband as eb
 from cermvs_torch.ops import hatwarp as hw
+from cermvs_torch.ops import lookup as lk
 
 SMEM_LIMIT = 232448  # bytes of shared memory an H100 block can use
 
@@ -251,3 +254,147 @@ def test_hat_geometry_rejects_rows_past_32_bit_indexing():
         hw.launch_geometry(2, 2 ** 26, 100, 64, torch.bfloat16)
     with pytest.raises(ValueError):
         hw.launch_geometry(2, 100, 2 ** 26, 64, torch.bfloat16)
+
+
+# (R, S, O, C) of the transposed hat passes on the training path (the
+# feature warps' and volume back-warps' two passes) and at the demo's
+# rescale-2 widths, which the forward reaches
+HAT_BWD_SHAPES = {
+    "training_feature_warp_pass1": (264, 360, 1040, 64),
+    "training_feature_warp_pass2": (1040, 264, 448, 64),
+    "training_volume_back_warp_pass1": (448, 512, 360, 64),
+    "training_volume_back_warp_pass2": (360, 448, 264, 64),
+    "training_stage1_back_warp_pass1": (448, 512, 360, 44),
+    "inference_src_warp_pass2": (1104, 288, 512, 64),
+    "image_warp": (264, 360, 1040, 3),
+    "demo_rescale2_src_warp_pass1": (600, 800, 2448, 64),
+    "demo_rescale2_src_warp_pass2": (2448, 600, 992, 64),
+    "small_rows": (5, 20, 1000, 2),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", list(HAT_BWD_SHAPES.values()),
+                         ids=list(HAT_BWD_SHAPES))
+def test_hat_backward_geometry(shape, dtype):
+    R, S, O, C = shape
+    geo = hw.backward_launch_geometry(R, S, O, C, dtype)
+    threads = hw.THREADS // geo.rows
+    assert geo.rows in (1, 2, 4, 8) and threads % 32 == 0
+    assert C % geo.vec == 0 and geo.vec * 4 <= 16
+    # 16-byte fp32 loads of dout wherever the channels allow them
+    assert geo.vec == 4 or C % 4 != 0
+    assert geo.groups == min(C // geo.vec, threads)
+    assert geo.smem_bytes == geo.rows * hw.backward_row_bytes(S, O)
+    assert geo.smem_bytes <= SMEM_LIMIT and geo.smem_bytes % 16 == 0
+    row_blocks, splits = geo.grid
+    assert row_blocks * geo.rows >= R > (row_blocks - 1) * geo.rows
+    # column ranges of at least two passes of a block's columns each
+    passes = -(-S // (threads // geo.groups))
+    assert splits == 1 or 2 <= passes // splits
+    # a row's records and bins: 16 bytes per output, 8 per bin
+    assert hw.backward_row_bytes(S, O) >= 16 * O + 8 * (S + 1)
+
+
+@pytest.mark.parametrize("shape,splits", [
+    ((264, 360, 1040, 64), 2), ((448, 512, 360, 64), 1),
+    ((1040, 264, 448, 64), 1), ((360, 448, 264, 64), 1), ((8, 600, 100, 64), 19),
+    ((8, 30, 100, 64), 1)])
+def test_hat_backward_splits_columns_where_rows_are_few(shape, splits):
+    """Blocks share a row's columns where the rows alone give fewer than
+    ``BWD_TARGET_BLOCKS`` blocks (the feature warp's 264 rows), as long as
+    each range keeps two passes of columns."""
+    assert hw.backward_launch_geometry(*shape, torch.bfloat16).grid[1] == \
+        splits
+
+
+@pytest.mark.parametrize("shape,rows", [
+    ((264, 360, 1040, 64), 1), ((264, 360, 1040, 3), 1),
+    ((5, 20, 1000, 2), 4), ((64, 20, 30, 2), 8), ((64, 40, 30, 4), 4)])
+def test_hat_backward_rows_share_a_block_only_where_rows_are_small(shape,
+                                                                   rows):
+    assert hw.backward_launch_geometry(*shape, torch.bfloat16).rows == rows
+
+
+@pytest.mark.parametrize("align,vec", [(16, 4), (8, 2), (4, 1)])
+def test_hat_backward_vector_follows_alignment(align, vec):
+    assert hw.backward_launch_geometry(8, 90, 150, 64, torch.bfloat16,
+                                       align).vec == vec
+
+
+@pytest.mark.parametrize("shape", [(0, 360, 1040, 64), (4, 0, 10, 64),
+                                   (4, 360, 0, 64), (4, 360, 1040, 0)])
+def test_hat_backward_geometry_takes_empty_shapes(shape):
+    """The wrapper asks for a geometry before the launcher skips an empty
+    launch: no division by an empty dimension."""
+    geo = hw.backward_launch_geometry(*shape, torch.float32)
+    assert geo.grid[0] >= 1 and geo.grid[1] >= 1 and geo.groups >= 1
+
+
+def test_hat_backward_takes_rows_of_8192():
+    geo = hw.backward_launch_geometry(4, 8192, 8192, 64, torch.bfloat16)
+    assert geo.rows == 1 and geo.smem_bytes <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("kw", [dict(O=14500), dict(S=30000),
+                                dict(O=8192, S=14000), dict(S=2 ** 25, O=4),
+                                dict(O=4000, C=2 ** 20)])
+def test_hat_backward_geometry_refuses_rows_past_its_limits(kw):
+    args = dict(R=4, S=360, O=1040, C=64)
+    args.update(kw)
+    with pytest.raises(ValueError, match="hat_rows_backward"):
+        hw.backward_launch_geometry(args["R"], args["S"], args["O"],
+                                    args["C"], torch.bfloat16)
+
+
+# (M, D) of the fused lookup forward: the (B, V, h, w) pixels of the main
+# path's volumes (chip_smoke.LOOKUP_SHAPES) and the tests' small ones
+LOOKUP_FWD_SHAPES = {
+    "inference_stage0": (288 * 400, 64),
+    "inference_stage1": (288 * 400, 44),
+    "demo_rescale1_stage0": (300 * 400, 64),
+    "demo_rescale2_stage0": (600 * 800, 64),
+    "demo_rescale2_stage1": (600 * 800, 44),
+    "training_stage0": (2 * 264 * 360, 64),
+    "training_stage1": (2 * 264 * 360, 44),
+    "ragged": (286, 64),
+    "odd_rows": (270, 33),
+}
+
+
+@pytest.mark.parametrize("radius,levels", [(5, 3), (2, 2), (5, 1)])
+@pytest.mark.parametrize("shape", list(LOOKUP_FWD_SHAPES.values()),
+                         ids=list(LOOKUP_FWD_SHAPES))
+def test_lookup_forward_geometry(shape, radius, levels):
+    M, D = shape
+    geo = lk.lookup_launch_geometry(M, D, radius, levels)
+    T, J = levels * (2 * radius + 1), 2 * radius + 2
+    assert geo.pixels == lk.TILE_PIXELS  # every main-path row fits
+    assert geo.grid * geo.pixels >= M > (geo.grid - 1) * geo.pixels
+    assert geo.smem_bytes == lk.forward_smem_bytes(geo.pixels, D, radius,
+                                                   levels)
+    # tables, two buffers of rows and x0, and per (pixel, level) a record
+    # and a band of J cells
+    assert geo.smem_bytes >= 4 * T + 4 * geo.pixels * (
+        2 * D + 2 + levels * (2 + J))
+    assert geo.smem_bytes <= SMEM_LIMIT and geo.smem_bytes % 16 == 0
+    # 16-byte row copies wherever a row is a whole number of them
+    assert geo.vec == (4 if D % 4 == 0 else 1)
+
+
+def test_lookup_forward_tile_shrinks_to_fit_wide_rows():
+    geo = lk.lookup_launch_geometry(1000, 8192, 5, 3)
+    assert 1 <= geo.pixels < lk.TILE_PIXELS
+    assert geo.smem_bytes <= SMEM_LIMIT < lk.forward_smem_bytes(
+        geo.pixels + 1, 8192, 5, 3)
+
+
+@pytest.mark.parametrize("align,vec", [(16, 4), (8, 1), (4, 1)])
+def test_lookup_forward_copy_follows_alignment(align, vec):
+    assert lk.lookup_launch_geometry(1000, 64, 5, 3, align).vec == vec
+
+
+def test_lookup_forward_refuses_a_row_that_does_not_fit():
+    with pytest.raises(ValueError, match="lookup_forward"):
+        lk.lookup_launch_geometry(10, 30000, 5, 3)
+    lk.lookup_launch_geometry(10, 28000, 5, 3)  # one pixel still fits
