@@ -23,11 +23,12 @@ sums, which loses low bits to cancellation (~1e-4 relative).
 
 On CUDA tensors the wrappers launch the hand-written kernels
 (``cermvs_torch/csrc/lookup.cu``: ``lookup_forward``, ``lookup_backward``,
-``lookup_v2_forward``); :func:`lookup_launch_geometry` sets the forward's
-tile of pixels staged in shared memory. On CPU tensors they run the plain
-versions. There is no fallback from one to the other. Inputs are taken as
-contiguous fp32 (``.contiguous()`` copies a strided volume, such as a
-permuted view, once per call).
+``lookup_v2_forward``); :func:`lookup_launch_geometry` (the forward and the
+prefix-sum variant) and :func:`backward_launch_geometry` (the gradient) set
+the tile of pixels each block stages in shared memory. On CPU tensors they
+run the plain versions. There is no fallback from one to the other. Inputs
+are taken as contiguous fp32 (``.contiguous()`` copies a strided volume,
+such as a permuted view, once per call).
 """
 
 from __future__ import annotations
@@ -43,22 +44,23 @@ from cermvs_torch.ops import cudalib
 _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 LIB = cudalib.KernelLibrary("lookup", {
     "lookup_forward": [_p, _p, _p, _ll, _i, _i, _i, _i, _i, _i, _p],
-    "lookup_backward": [_p, _p, _p, _ll, _i, _i, _i, _p],
-    "lookup_v2_forward": [_p, _p, _p, _ll, _i, _i, _i, _p],
+    "lookup_backward": [_p, _p, _p, _ll, _i, _i, _i, _i, _i, _i, _i, _p],
+    "lookup_v2_forward": [_p, _p, _p, _ll, _i, _i, _i, _i, _i, _i, _p],
 })
 KERNELS = ("lookup_fused_fwd", "lookup_fused_bwd", "lookup_fused_v2")
 V2_MAX_D = 128
-TILE_PIXELS = 64  # the forward's pixels per block: ~8 taps a thread at 33
+TILE_PIXELS = 64  # pixels per block: ~8 taps (forward) or 4 cell groups
+# (gradient, D = 64) a thread
 SMEM_LIMIT = 232_448  # dynamic shared memory a block may use (bytes)
 
 
 @dataclass(frozen=True)
 class LookupGeometry:
-    """The forward kernel's launch: ``grid`` tiles of ``pixels`` pixels,
-    16-byte row copies where ``vec == 4`` and ``smem_bytes`` of dynamic
-    shared memory. The launcher runs as many blocks as stay resident on the
-    card (at most ``grid``), each looping over tiles, the next tile's copy
-    in flight while it computes one."""
+    """The forward or prefix-sum kernel's launch: ``grid`` tiles of
+    ``pixels`` pixels, 16-byte row copies where ``vec == 4`` and
+    ``smem_bytes`` of dynamic shared memory. The launcher runs as many
+    blocks as stay resident on the card (at most ``grid``), each looping
+    over tiles, the next tile's copy in flight while it computes one."""
     pixels: int
     vec: int
     smem_bytes: int
@@ -86,8 +88,10 @@ def forward_smem_bytes(P: int, D: int, radius: int, num_levels: int) -> int:
 @functools.lru_cache(maxsize=256)
 def lookup_launch_geometry(M: int, D: int, radius: int, num_levels: int,
                            align: int = 16) -> LookupGeometry:
-    """Launch parameters of ``lookup_forward`` for M pixels of D cells at an
-    address that is a multiple of ``align`` bytes: ``TILE_PIXELS`` pixels
+    """Launch parameters of ``lookup_forward`` and ``lookup_v2_forward``
+    (which turns each staged row into its prefix sums in place, in the same
+    shared memory) for M pixels of D cells at an address that is a multiple
+    of ``align`` bytes: ``TILE_PIXELS`` pixels
     per block, fewer where their rows and bands would not fit a block's
     shared memory; 16-byte copies where D % 4 == 0 and the alignment
     allow. Raises only where one pixel does not fit."""
@@ -105,6 +109,60 @@ def lookup_launch_geometry(M: int, D: int, radius: int, num_levels: int,
                           smem_bytes=forward_smem_bytes(P, D, radius,
                                                         num_levels),
                           grid=-(-M // P))
+
+
+@dataclass(frozen=True)
+class BackwardGeometry:
+    """The gradient kernel's launch: ``grid`` tiles of ``pixels`` pixels,
+    16-byte copies of the tap gradients where ``vec == 4``, ``cells``
+    consecutive cells a thread (4: one 16-byte store each) and
+    ``smem_bytes`` of dynamic shared memory; persistent blocks as for the
+    forward."""
+    pixels: int
+    vec: int
+    cells: int
+    smem_bytes: int
+    grid: int
+
+
+def backward_smem_bytes(P: int, radius: int, num_levels: int) -> int:
+    """Shared bytes of a block of the gradient (``bwd_layout`` in
+    ``csrc/lookup.cu``), each region at a multiple of 16 bytes: two buffers
+    of a tile's P rows of T tap gradients and its x0, and per (pixel,
+    level) a 16-byte record."""
+    T = num_levels * (2 * radius + 1)
+    xs = _round16(2 * 4 * P * T)
+    rec = _round16(xs + 2 * 4 * P)
+    return _round16(rec + 16 * P * num_levels)
+
+
+@functools.lru_cache(maxsize=256)
+def backward_launch_geometry(M: int, D: int, radius: int, num_levels: int,
+                             g_align: int = 16,
+                             out_align: int = 16) -> BackwardGeometry:
+    """Launch parameters of ``lookup_backward`` for M pixels, ``g`` and
+    ``dcorr`` at addresses that are multiples of ``g_align`` and
+    ``out_align`` bytes: ``TILE_PIXELS`` pixels per block, fewer where
+    their taps would not fit; 16-byte copies where ``g`` is aligned and
+    every tile's span starts aligned (P * T % 4 == 0); 4 cells a thread
+    where D % 4 == 0 and ``dcorr`` is aligned. Raises only where one pixel
+    does not fit."""
+    T = num_levels * (2 * radius + 1)
+    per_pixel = backward_smem_bytes(1, radius, num_levels)
+    if per_pixel > SMEM_LIMIT:
+        raise ValueError(
+            f"lookup_backward stages a pixel's {T} tap gradients and "
+            f"{num_levels} records in shared memory: {per_pixel} bytes "
+            f"exceed a block's {SMEM_LIMIT}")
+    P = TILE_PIXELS
+    while backward_smem_bytes(P, radius, num_levels) > SMEM_LIMIT:
+        P -= 1
+    vec = 4 if g_align % 16 == 0 and P * T % 4 == 0 else 1
+    cells = 4 if D % 4 == 0 and out_align % 16 == 0 else 1
+    return BackwardGeometry(pixels=P, vec=vec, cells=cells,
+                            smem_bytes=backward_smem_bytes(P, radius,
+                                                           num_levels),
+                            grid=-(-M // P))
 
 
 def _level(x0, lvl: int, radius: int):
@@ -209,32 +267,43 @@ def _flat(t, width):
     return t.float().contiguous().reshape(-1, width)
 
 
-def _launch(fn, name, src, x0, width_out, D, radius, num_levels):
-    """One kernel launch over the flattened pixels; returns (M, width_out)."""
-    M = x0.numel()
-    out = torch.empty((M, width_out), dtype=torch.float32, device=src.device)
-    with cudalib.on_device(src):
-        LIB.call(fn, src.data_ptr(), x0.data_ptr(), out.data_ptr(), M, D,
-                 radius, num_levels, cudalib.stream_of(src))
-    cudalib.count_launch(name)
-    return out
-
-
-def _launch_forward(corr, x0, radius, num_levels, out=None):
-    """Launch ``lookup_forward`` on the flattened volume ``corr`` (M, D) and
-    ``x0`` (M,), contiguous fp32, into ``out`` (M, T) fp32, a new tensor
-    unless given; the kernel writes every element."""
+def _launch_forward(corr, x0, radius, num_levels, out=None, prefix=False):
+    """Launch ``lookup_forward`` (``lookup_v2_forward`` where ``prefix``) on
+    the flattened volume ``corr`` (M, D) and ``x0`` (M,), contiguous fp32,
+    into ``out`` (M, T) fp32, a new tensor unless given; the kernel writes
+    every element."""
     M, D = corr.shape
     T = num_levels * (2 * radius + 1)
     geo = lookup_launch_geometry(M, D, radius, num_levels,
                                  cudalib.pointer_alignment(corr))
     if out is None:
         out = torch.empty((M, T), dtype=torch.float32, device=corr.device)
+    fn, name = (("lookup_v2_forward", "lookup_fused_v2") if prefix else
+                ("lookup_forward", "lookup_fused_fwd"))
     with cudalib.on_device(corr):
-        LIB.call("lookup_forward", corr.data_ptr(), x0.data_ptr(),
+        LIB.call(fn, corr.data_ptr(), x0.data_ptr(), out.data_ptr(), M, D,
+                 radius, num_levels, geo.pixels, int(geo.vec == 4),
+                 geo.smem_bytes, cudalib.stream_of(corr))
+    cudalib.count_launch(name)
+    return out
+
+
+def _launch_backward(g, x0, D, radius, num_levels, out=None):
+    """Launch ``lookup_backward`` on the flattened tap gradients ``g`` (M,
+    T) and ``x0`` (M,), contiguous fp32, into ``out`` (M, D) fp32, a new
+    tensor unless given; the kernel writes every element."""
+    M = g.shape[0]
+    if out is None:
+        out = torch.empty((M, D), dtype=torch.float32, device=g.device)
+    geo = backward_launch_geometry(M, D, radius, num_levels,
+                                   cudalib.pointer_alignment(g),
+                                   cudalib.pointer_alignment(out))
+    with cudalib.on_device(g):
+        LIB.call("lookup_backward", g.data_ptr(), x0.data_ptr(),
                  out.data_ptr(), M, D, radius, num_levels, geo.pixels,
-                 int(geo.vec == 4), geo.smem_bytes, cudalib.stream_of(corr))
-    cudalib.count_launch("lookup_fused_fwd")
+                 int(geo.vec == 4), geo.cells, geo.smem_bytes,
+                 cudalib.stream_of(g))
+    cudalib.count_launch("lookup_fused_bwd")
     return out
 
 
@@ -247,9 +316,9 @@ def lookup_fused_backward(g, x0, D: int, radius: int = 5,
         raise ValueError(f"g {tuple(g.shape)} does not match x0 "
                          f"{tuple(x0.shape)} and {T} taps")
     if g.is_cuda:
-        x0c = x0.float().contiguous()
-        out = _launch("lookup_backward", "lookup_fused_bwd", _flat(g, T), x0c,
-                      D, D, radius, num_levels)
+        out = _launch_backward(_flat(g, T),
+                               x0.float().contiguous().reshape(-1), D,
+                               radius, num_levels)
         return out.reshape(tuple(x0.shape) + (D,))
     if g.device.type != "cpu":
         raise ValueError(f"unsupported device {g.device}")
@@ -294,7 +363,7 @@ def lookup_fused_v2(corr0: torch.Tensor, x0: torch.Tensor, radius: int = 5,
         raise ValueError(f"lookup_fused_v2 takes D <= {V2_MAX_D}, got {D}")
     if not corr0.is_cuda:
         return lookup_fused_v2_reference(corr0, x0, radius, num_levels)
-    T = num_levels * (2 * radius + 1)
-    out = _launch("lookup_v2_forward", "lookup_fused_v2", _flat(corr0, D),
-                  x0.detach().float().contiguous(), T, D, radius, num_levels)
-    return out.reshape(tuple(x0.shape) + (T,))
+    out = _launch_forward(_flat(corr0, D),
+                          x0.detach().float().contiguous().reshape(-1),
+                          radius, num_levels, prefix=True)
+    return out.reshape(tuple(x0.shape) + (out.shape[-1],))

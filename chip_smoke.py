@@ -16,14 +16,15 @@ Phases (any failure raises, so the exit code is non-zero):
      straddling a chunk edge, bases of +-1e5 and NaN, a ragged w_r, C = 44
      and 16); time both stages on the main path's bases, back to back
      (``ms``) and in device time (``device_ms``, a CUDA graph of launches),
-     beside the earlier design's back-to-back time;
+     beside the earlier design's back-to-back time, with bf16 features
+     (the tensor-core kernel) and with fp32 features (the fp32 kernel,
+     which fp32 models take), each beside its bound;
   3. hold the fused lookup kernels (forward, gradient, prefix-sum) against
      their plain versions at phase 4's (1,1,288,400,D), the demo's
      (1,1,300,400,D) and (1,1,600,800,D) and the training batch's
      (2,1,264,360,D) volumes, D = 64 and 44, with their times (the L2
-     flushed before each launch, and back to back; the forward also in
-     device time, beside the earlier design's time), plain times and
-     bounds;
+     flushed before each launch, back to back and in device time, beside
+     the earlier designs' times), plain times and bounds;
   4. drive the port's depth inference (``InferenceRunner``) at full DTU width
      — 1152x1600 images, 11 views, cascade (64,64,8)/(44,320,8), HR encoders,
      bf16, random weights from a seed — through the rectified construction
@@ -72,7 +73,8 @@ construction, of one rescale-2 demo forward and of one train step (device
 time per RAFT.forward range, top kernels, busy share; for the step also a
 line with its device-busy time, the dfr, dfs and hat_rows_bwd kernels'
 rows and its count of elementwise launches; for the demo forward a line
-with the lookup_fused_fwd row).
+with the lookup_fused_fwd row; and a profile of one fused-lookup train
+step with its lookup_fused_fwd and lookup_fused_bwd rows).
 """
 
 import json
@@ -131,8 +133,10 @@ NO_LIBRARY = "none: no single PyTorch call computes the pooled 33-tap lookup"
 # HBM3 at 700 W): the warp-per-pixel epiband forward, the thread-per-element
 # hat forward, the epiband dfs that scattered with global atomics, the
 # warp-per-pixel epiband dfr, the hat transpose that scattered with global
-# atomics into a zeroed fp32 buffer (its memset and cast included) and the
-# thread-per-tap lookup forward (fp32, L2 flushed before each launch).
+# atomics into a zeroed fp32 buffer (its memset and cast included), the
+# thread-per-tap lookup forward, the thread-per-cell lookup gradient and
+# the warp-per-pixel prefix-sum lookup (fp32, L2 flushed before each
+# launch).
 # Printed in the phases' text beside this run's times; never part of the
 # kernels line, which holds only this run's.
 EARLIER_MS = {"epiband_fwd": {"stage0": 1.537, "stage1": 1.079,
@@ -146,7 +150,11 @@ EARLIER_MS = {"epiband_fwd": {"stage0": 1.537, "stage1": 1.079,
                                "volume_back_warp": 0.128},
               "lookup_fused_fwd": {"inference_stage0": 0.101,
                                    "demo_rescale2_stage0": 0.175,
-                                   "training_stage0": 0.074}}
+                                   "training_stage0": 0.074},
+              "lookup_fused_bwd": {"training_stage0": 0.120,
+                                   "training_stage1": 0.091},
+              "lookup_fused_v2": {"inference_stage0": 0.064,
+                                  "demo_rescale2_stage0": 0.232}}
 HAT_TIMED = ("feature_warp", "volume_back_warp")  # phase 8's timed hat shapes
 
 
@@ -332,9 +340,10 @@ def cuda_ms_both(torch, fn, reps=50):
 
 def earlier(name, shape):
     """``, earlier design X ms`` for the kernel's recorded time at shape
-    (back to back; the lookup forward's with the L2 flushed)."""
+    (back to back; the lookups' with the L2 flushed, as phase 3 times
+    them)."""
     ms = EARLIER_MS.get(name, {}).get(shape)
-    how = "L2 flushed" if name == "lookup_fused_fwd" else "back to back"
+    how = "L2 flushed" if name in LOOKUPS else "back to back"
     return "" if ms is None else f", earlier design {ms} ms {how}"
 
 
@@ -901,7 +910,8 @@ def phase_lookup_kernels(torch):
     """The fused lookup kernels against their plain versions on the card at
     the main path's shapes (inference at scale 1 and the training batch,
     stage 0 and stage 1), with their times (L2 flushed before each launch,
-    and back to back), plain times and bounds."""
+    back to back, and in device time with a warm L2), plain times and
+    bounds."""
     from cermvs_torch.ops import lookup as lk
 
     rng = np.random.RandomState(7)
@@ -948,17 +958,15 @@ def phase_lookup_kernels(torch):
             ms = cuda_ms_cold(torch, kernel[name], 20)
             warm = cuda_ms(kernel[name], 50)
             plain_ms = cuda_ms(plain[name], 3)
+            device = cuda_ms_graph(torch, kernel[name])  # warm L2
             rows[name]["shapes"][shape_name] = dict(
-                shape=list(shape), ms=ms, warm_ms=warm, plain_ms=plain_ms,
-                bound_ms=bounds[name][0], bound_by=bounds[name][1])
-            extra = ""
-            if name == "lookup_fused_fwd":  # and in device time (warm L2)
-                device = cuda_ms_graph(torch, kernel[name])
-                rows[name]["shapes"][shape_name]["device_ms"] = device
-                extra = f", device {device:.4f}"
+                shape=list(shape), ms=ms, warm_ms=warm, device_ms=device,
+                plain_ms=plain_ms, bound_ms=bounds[name][0],
+                bound_by=bounds[name][1])
             print(f"phase 3: {name} {shape_name} timing: kernel {ms:.4f} ms "
                   f"(L2 flushed{earlier(name, shape_name)}; back to back "
-                  f"{warm:.4f}{extra}), plain {plain_ms:.3f} ms, bound "
+                  f"{warm:.4f}, device {device:.4f}), plain {plain_ms:.3f} "
+                  f"ms, bound "
                   f"{bounds[name][0]:.4f} ms ({bounds[name][1]}), library "
                   f"{NO_LIBRARY}", flush=True)
     for name in LOOKUPS:
@@ -966,11 +974,10 @@ def phase_lookup_kernels(torch):
                                     "lookup_fused_bwd" else
                                     "inference_stage0"]
         rows[name].update(max_abs_err=errs[name], ms=main["ms"],
+                          device_ms=main["device_ms"],
                           plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
                           bound_by=main["bound_by"], library_ms=None,
                           library=NO_LIBRARY)
-        if "device_ms" in main:
-            rows[name]["device_ms"] = main["device_ms"]
     return rows
 
 
@@ -1321,7 +1328,7 @@ def profile_demo_forward(torch, bindings, ckpt, rescale):
     print(f"phase 6: profile of one rescale-{rescale} forward: device busy "
           f"{prof['device_busy_ms']:.1f} ms of {prof['wall_ms']:.1f} ms "
           f"wall; lookup_fused_fwd row "
-          f"{[r for r in prof['port_kernels_ms'] if 'lookup_fwd' in r[0]]}",
+          f"{[r for r in prof['port_kernels_ms'] if 'lookup_tile' in r[0]]}",
           flush=True)
     print(json.dumps({f"profile_demo_rescale{rescale}": prof}), flush=True)
 
@@ -1435,6 +1442,19 @@ def phase_train_pallas(torch, tree, plan5, batch5):
                      lookup_impl=impl, device="cuda")
         first[impl] = train_step(init_state(model, 1000), batch, 0.0,
                                  volume_fn=RectifiedVolume(plan5))
+        if impl == "pallas" and "--profile" in sys.argv:
+            vol = RectifiedVolume(plan5)
+            state = init_state(model, 1000)
+            prof = profile_call(torch, lambda: train_step(
+                state, batch, 0.0, volume_fn=vol))
+            rows = [r for r in prof["port_kernels_ms"] if "lookup_" in r[0]]
+            print(f"phase 10: profile of one fused-lookup train step: "
+                  f"device busy {prof['device_busy_ms']:.1f} ms of "
+                  f"{prof['wall_ms']:.1f} ms wall; lookup rows {rows}",
+                  flush=True)
+            print(json.dumps({"profile_train_step_fused_lookup": prof}),
+                  flush=True)
+            del state
         del model
     rel = {k: abs(first["pallas"][k] - first["banded"][k])
            / abs(first["banded"][k]) for k in ("loss", "grad_norm")}
@@ -1514,25 +1534,30 @@ def phase_epiband_kernel(torch, plan, model):
                 raise RuntimeError(f"epiband kernel disagrees with its plain "
                                    f"version ({name}, {dtype})")
 
-    # timings at the main path's dtype and bases, stage by stage
+    # timings on the main path's bases, stage by stage: bf16 features (the
+    # main path's, the tensor-core kernel) and fp32 (the fp32 kernel)
     stages = {}
-    for name, D, base_kind, sig, Cc, _ in (cases[0], cases[4]):
-        fr, fs, base, sigma = epiband_case(
-            torch, rng, plan.h_r, plan.w_r, ws_v, Cc, D, base_kind, sig,
-            torch.bfloat16, stage0)
-        ms, device_ms = cuda_ms_both(
-            torch, lambda: eb.epiband(fr, fs, base, sigma, D, s_v))
-        plain = cuda_ms(
-            lambda: eb.epiband_reference(fr, fs, base, sigma, D, s_v), 3)
-        bound, by = epiband_bounds(torch, fr, fs, base, sigma, D,
-                                   s_v)["epiband_fwd"]
-        stages[name] = dict(D=D, base=base_kind,
-                            shape=[1, plan.h_r, plan.w_r, ws_v, Cc], ms=ms,
-                            device_ms=device_ms, plain_ms=plain,
-                            bound_ms=bound, bound_by=by)
-        print(f"phase 2: {name} timing: kernel {ms:.4f} ms (device "
-              f"{device_ms:.4f}){earlier('epiband_fwd', name)}, plain "
-              f"{plain:.3f} ms, bound {bound:.4f} ms ({by})", flush=True)
+    for dtype, suffix in ((torch.bfloat16, ""), (torch.float32, "_fp32")):
+        for name, D, base_kind, sig, Cc, _ in (cases[0], cases[4]):
+            fr, fs, base, sigma = epiband_case(
+                torch, rng, plan.h_r, plan.w_r, ws_v, Cc, D, base_kind, sig,
+                dtype, stage0)
+            ms, device_ms = cuda_ms_both(
+                torch, lambda: eb.epiband(fr, fs, base, sigma, D, s_v))
+            plain = cuda_ms(
+                lambda: eb.epiband_reference(fr, fs, base, sigma, D, s_v), 3)
+            bound, by = epiband_bounds(torch, fr, fs, base, sigma, D,
+                                       s_v)["epiband_fwd"]
+            stages[name + suffix] = dict(
+                D=D, base=base_kind, dtype=str(dtype)[6:],
+                shape=[1, plan.h_r, plan.w_r, ws_v, Cc], ms=ms,
+                device_ms=device_ms, plain_ms=plain, bound_ms=bound,
+                bound_by=by)
+            print(f"phase 2: {name} {str(dtype)[6:]} timing: kernel "
+                  f"{ms:.4f} ms (device {device_ms:.4f})"
+                  f"{earlier('epiband_fwd', name) if not suffix else ''}, "
+                  f"plain {plain:.3f} ms, bound {bound:.4f} ms ({by})",
+                  flush=True)
     return max_err, stages
 
 

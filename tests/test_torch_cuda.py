@@ -808,3 +808,177 @@ def test_lookup_gradient_and_prefix_sum_outputs_unchanged(cuda_device, D,
     digests = {k: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
                for k, t in got.items()}
     assert digests == LOOKUP_DIGESTS[(D, radius, levels)]
+
+
+# (D, radius, levels) of the tiled gradient and prefix-sum kernels' cases:
+# rows of 16-128 cells (33: not a whole number of 16-byte vectors), at the
+# main path's radius and levels and at fewer
+LOOKUP_TILE_CASES = [(D, r, L) for D in (16, 33, 44, 64, 128)
+                     for r, L in ((5, 3), (2, 2), (5, 1))]
+
+
+def lookup_tile_inputs(dev, D, radius, levels, seed):
+    """286 pixels (4 whole tiles of 64 and a part) with indices at 0, D - 1,
+    D + 40, 3e7 and NaN besides the drawn ones, their volume and a tap
+    gradient, flattened."""
+    rng = np.random.RandomState(seed)
+    corr, x0 = lookup_inputs(rng, D, (2, 1, 13, 11))
+    x0.reshape(-1)[3:5] = [3e7, np.nan]
+    T = levels * (2 * radius + 1)
+    g = rng.randn(x0.size, T).astype(np.float32)
+    return (torch.from_numpy(corr).to(dev).reshape(-1, D),
+            torch.from_numpy(x0).to(dev).reshape(-1),
+            torch.from_numpy(g).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,radius,levels", LOOKUP_TILE_CASES)
+def test_lookup_backward_writes_every_output(cuda_device, D, radius, levels):
+    """The tiled gradient against its plain version (rtol / atol 1e-5: the
+    adds in another order) at a ragged M, with far and NaN indices (no
+    gradient); ``out`` starts as NaN and none is left."""
+    from cermvs_torch.ops import lookup as lk
+
+    _, x0, g = lookup_tile_inputs(cuda_device, D, radius, levels, 17)
+    M = x0.numel()
+    geo = lk.backward_launch_geometry(M, D, radius, levels)
+    assert (geo.vec, geo.cells) == (4, 1 if D % 4 else 4)
+    out = torch.full((M, D), float("nan"), device=cuda_device)
+    got = lk._launch_backward(g, x0, D, radius, levels, out=out)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == out.data_ptr()
+    assert not bool(out.isnan().any())
+    torch.testing.assert_close(
+        out, lk.lookup_fused_backward_reference(g, x0, D, radius, levels),
+        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,radius,levels", LOOKUP_TILE_CASES)
+def test_lookup_v2_writes_every_output(cuda_device, D, radius, levels):
+    """The tiled prefix-sum kernel against its plain version (rtol / atol
+    1e-4: both prefix sums, another scan order) and the pooled taps (2e-3)
+    at a ragged M; a NaN index gives NaN taps in all three, and ``out``
+    starts as NaN and holds none elsewhere."""
+    from cermvs_torch.ops import lookup as lk
+
+    corr, x0, _ = lookup_tile_inputs(cuda_device, D, radius, levels, 18)
+    M, T = x0.numel(), levels * (2 * radius + 1)
+    assert lk.lookup_launch_geometry(M, D, radius, levels).vec == (
+        1 if D % 4 else 4)
+    out = torch.full((M, T), float("nan"), device=cuda_device)
+    got = lk._launch_forward(corr, x0, radius, levels, out=out, prefix=True)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == out.data_ptr()
+    assert torch.equal(out.isnan().any(-1), x0.isnan())
+    torch.testing.assert_close(
+        out, lk.lookup_fused_v2_reference(corr, x0, radius, levels),
+        rtol=1e-4, atol=1e-4, equal_nan=True)
+    torch.testing.assert_close(
+        out, lk.lookup_fused_reference(corr, x0, radius, levels), rtol=2e-3,
+        atol=2e-3, equal_nan=True)
+
+
+def one_float_in(t):
+    """``t``'s values at an address 4 bytes past a 16-byte boundary."""
+    flat = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
+    flat[1:] = t.reshape(-1)
+    return flat[1:].view(t.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 44])
+def test_lookup_backward_takes_misaligned_tensors(cuda_device, D):
+    """Tap gradients one float into their storage take the 4-byte copy, an
+    output one float in the one-cell threads, and both give the aligned
+    launch's gradient bit for bit."""
+    from cermvs_torch.ops import lookup as lk
+
+    _, x0, g = lookup_tile_inputs(cuda_device, D, 5, 3, 19)
+    M = x0.numel()
+    shifted = one_float_in(g)
+    out = one_float_in(torch.empty((M, D), device=cuda_device))
+    geo = lk.backward_launch_geometry(M, D, 5, 3,
+                                      cudalib.pointer_alignment(shifted),
+                                      cudalib.pointer_alignment(out))
+    assert (geo.vec, geo.cells) == (1, 1)
+    a = lk._launch_backward(g, x0, D, 5, 3)
+    b = lk._launch_backward(shifted, x0, D, 5, 3, out=out)
+    torch.cuda.synchronize()
+    assert b.data_ptr() == out.data_ptr()
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_lookup_v2_takes_a_misaligned_volume(cuda_device):
+    """A volume one float into its storage takes the scalar copy and gives
+    the prefix-sum taps of an aligned copy, bit for bit."""
+    from cermvs_torch.ops import lookup as lk
+
+    corr, x0, _ = lookup_tile_inputs(cuda_device, 64, 5, 3, 20)
+    shifted = one_float_in(corr)
+    assert lk.lookup_launch_geometry(
+        corr.shape[0], 64, 5, 3, cudalib.pointer_alignment(shifted)).vec == 1
+    a = lk._launch_forward(corr, x0, 5, 3, prefix=True)
+    b = lk._launch_forward(shifted, x0, 5, 3, prefix=True)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+# sha256 prefixes of the lookup forward's outputs on the inputs of
+# ``lookup_digest_case``, from the tiled forward as it stood before the
+# gradient and prefix-sum kernels shared its tile (NVIDIA H100 80GB HBM3,
+# CUDA 12.8): they must not change
+FORWARD_DIGESTS = {
+    (64, 5, 3): "676ecf66222ade4b",
+    (44, 5, 3): "ec5e8eddaad2b728",
+    (16, 2, 2): "09d04b58857abc4c",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,radius,levels", list(FORWARD_DIGESTS))
+def test_lookup_forward_outputs_unchanged(cuda_device, D, radius, levels):
+    import hashlib
+
+    from cermvs_torch.ops import lookup as lk
+
+    corr, x0, _ = lookup_digest_case(cuda_device, D, radius, levels)
+    out = lk.lookup_fused(corr, x0, radius, levels)
+    torch.cuda.synchronize()
+    digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]
+    assert digest == FORWARD_DIGESTS[(D, radius, levels)]
+
+
+@pytest.mark.cuda
+def test_lookup_launchers_refuse_a_layout_they_do_not_share(cuda_device):
+    """The gradient and prefix-sum launchers refuse shared memory other
+    than their layout's, a prefix-sum row past 128 cells and a 16-byte
+    store into an unaligned output; the card stays usable."""
+    from cermvs_torch.ops import lookup as lk
+
+    corr, x0, g = lookup_tile_inputs(cuda_device, 64, 5, 3, 22)
+    M = x0.numel()
+    out = torch.empty((M, 64), device=cuda_device)
+    taps = torch.empty((M, 33), device=cuda_device)
+    stream = cudalib.stream_of(g)
+    bwd = lk.backward_launch_geometry(M, 64, 5, 3)
+    fwd = lk.lookup_launch_geometry(M, 64, 5, 3)
+    shifted = one_float_in(out)
+    for fn, args in [
+            ("lookup_backward", (g, out, 64, bwd.pixels, 1, 4,
+                                 bwd.smem_bytes + 16)),
+            ("lookup_backward", (g, shifted, 64, bwd.pixels, 1, 4,
+                                 bwd.smem_bytes)),
+            ("lookup_v2_forward", (corr, taps, 64, fwd.pixels, 1,
+                                   fwd.smem_bytes - 16)),
+            ("lookup_v2_forward", (corr, taps, 129, fwd.pixels, 0,
+                                   lk.forward_smem_bytes(fwd.pixels, 129, 5,
+                                                         3)))]:
+        src, dst, D, *rest = args
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            lk.LIB.call(fn, src.data_ptr(), x0.data_ptr(), dst.data_ptr(), M,
+                        D, 5, 3, *rest, stream)
+    torch.testing.assert_close(
+        lk.lookup_fused_backward(g, x0, 64),
+        lk.lookup_fused_backward_reference(g, x0, 64), rtol=1e-5, atol=1e-5)

@@ -1,18 +1,23 @@
 """Launch geometry of the epiband forward, epiband dfr and dfs, hat-resample
-forward and transpose and fused lookup forward kernels, on the CPU: the
-pure-Python helpers (``epiband.launch_geometry``,
+forward and transpose and fused lookup (forward, prefix-sum, gradient)
+kernels, on the CPU: the pure-Python helpers (``epiband.launch_geometry``,
 ``epiband.dfr_launch_geometry``, ``epiband.dfs_launch_geometry``,
 ``hatwarp.launch_geometry``, ``hatwarp.backward_launch_geometry``,
-``lookup.lookup_launch_geometry``) whose values
+``lookup.lookup_launch_geometry``, which the prefix-sum kernel shares,
+``lookup.backward_launch_geometry``) whose values
 the wrappers pass to the C launchers, at the shapes the main path gives the
 kernels (inference, training and the demo at rescale 1 and 2; ws up to 2448;
 C of 64, 44, 16 and 3; D of 64 and 44; fp32 and bf16). Each launch must stay
 within a block's shared memory, launch a grid that covers every output and
 read whole channel vectors. That the kernels write every output of such a
 grid is held on the card (``test_torch_cuda.py``:
-``*_writes_every_output``).
+``*_writes_every_output``). The lookup gradient's and prefix-sum kernel's
+index arithmetic (integer taps from an integer floor or a sentinel; prefix
+sums turned into pooled cells in place) is emulated in numpy here and held
+against the plain versions.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -398,3 +403,171 @@ def test_lookup_forward_refuses_a_row_that_does_not_fit():
     with pytest.raises(ValueError, match="lookup_forward"):
         lk.lookup_launch_geometry(10, 30000, 5, 3)
     lk.lookup_launch_geometry(10, 28000, 5, 3)  # one pixel still fits
+
+
+@pytest.mark.parametrize("radius,levels", [(5, 3), (2, 2), (5, 1)])
+def test_lookup_forward_geometry_holds_the_widest_prefix_rows(radius,
+                                                              levels):
+    """The prefix-sum kernel runs at the forward's geometry (it scans each
+    staged row in place): its widest rows, 128 cells, at the full tile."""
+    geo = lk.lookup_launch_geometry(288 * 400, lk.V2_MAX_D, radius, levels)
+    assert (geo.pixels, geo.vec) == (lk.TILE_PIXELS, 4)
+    assert geo.smem_bytes <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("radius,levels", [(5, 3), (2, 2), (5, 1)])
+@pytest.mark.parametrize("shape", list(LOOKUP_FWD_SHAPES.values()),
+                         ids=list(LOOKUP_FWD_SHAPES))
+def test_lookup_backward_geometry(shape, radius, levels):
+    M, D = shape
+    geo = lk.backward_launch_geometry(M, D, radius, levels)
+    T = levels * (2 * radius + 1)
+    assert geo.pixels == lk.TILE_PIXELS  # every main-path tile fits
+    assert geo.grid * geo.pixels >= M > (geo.grid - 1) * geo.pixels
+    assert geo.smem_bytes == lk.backward_smem_bytes(geo.pixels, radius,
+                                                    levels)
+    # two buffers of tap gradients and x0, a 16-byte record per (pixel,
+    # level)
+    assert geo.smem_bytes >= 4 * geo.pixels * (2 * T + 2 + 4 * levels)
+    assert geo.smem_bytes <= SMEM_LIMIT and geo.smem_bytes % 16 == 0
+    # 16-byte copies (a tile's span of P * T floats starts aligned), and 4
+    # cells a thread with a 16-byte store wherever a row holds whole vectors
+    assert geo.vec == 4 and geo.pixels * T % 4 == 0
+    assert geo.cells == (4 if D % 4 == 0 else 1)
+
+
+def test_lookup_backward_tile_shrinks_to_fit_wide_taps():
+    geo = lk.backward_launch_geometry(1000, 64, 200, 3)  # T = 1203
+    assert 1 <= geo.pixels < lk.TILE_PIXELS
+    assert geo.smem_bytes <= SMEM_LIMIT < lk.backward_smem_bytes(
+        geo.pixels + 1, 200, 3)
+    # a span of P * T floats is no whole number of vectors: 4-byte copies
+    assert geo.vec == (4 if geo.pixels * 1203 % 4 == 0 else 1)
+
+
+@pytest.mark.parametrize("g_align,out_align,D,vec,cells", [
+    (16, 16, 64, 4, 4), (8, 16, 64, 1, 4), (4, 16, 44, 1, 4),
+    (16, 8, 64, 4, 1), (16, 4, 44, 4, 1), (16, 16, 33, 4, 1),
+    (4, 4, 33, 1, 1)])
+def test_lookup_backward_copy_and_store_follow_alignment(g_align, out_align,
+                                                         D, vec, cells):
+    geo = lk.backward_launch_geometry(1000, D, 5, 3, g_align, out_align)
+    assert (geo.vec, geo.cells) == (vec, cells)
+
+
+def test_lookup_backward_refuses_taps_that_do_not_fit():
+    with pytest.raises(ValueError, match="lookup_backward"):
+        lk.backward_launch_geometry(10, 64, 5000, 3)
+    lk.backward_launch_geometry(10, 64, 4000, 3)  # one pixel still fits
+
+
+FAR_CELL, NO_CELL = 2.0 ** 22, -(1 << 30)
+
+
+def backward_emulation(g, x0, D, radius, levels):
+    """The gradient kernel's arithmetic in numpy fp32: per (pixel, level) a
+    record {floor(x0 * 2^-l) as an integer, or a sentinel where it is huge
+    or NaN; (1 - f) * 2^-l; f * 2^-l}, then per cell j and level the
+    integer taps k1 = (j >> l) - c0 + r and k1 - 1, added in that order."""
+    K = 2 * radius + 1
+    M = x0.shape[0]
+    out = np.zeros((M, D), np.float32)
+    j = np.arange(D)
+    for lvl in range(levels):
+        inv = np.float32(2.0 ** -lvl)
+        q = x0 * inv
+        c0 = np.floor(q)
+        f = q - c0
+        with np.errstate(invalid="ignore"):
+            near = (c0 >= -FAR_CELL) & (c0 <= FAR_CELL)
+        cell = np.where(near, np.nan_to_num(c0), NO_CELL).astype(np.int64)
+        w1, w2 = (np.float32(1) - f) * inv, f * inv
+        ci = j >> lvl
+        k1 = ci[None] - cell[:, None] + radius
+        assert np.abs(k1).max() < 2 ** 31  # the kernel's int32 holds it
+        whole = (ci < D >> lvl)[None]
+        for k, w in ((k1, w1), (k1 - 1, w2)):
+            tap = whole & (k >= 0) & (k < K)
+            gk = np.take_along_axis(g[:, lvl * K:(lvl + 1) * K],
+                                    np.where(tap, k, 0), axis=1)
+            out += np.where(tap, gk * w[:, None], np.float32(0))
+    return out
+
+
+def v2_emulation(corr, x0, D, radius, levels):
+    """The prefix-sum kernel's arithmetic in numpy fp32: each row's
+    inclusive prefix sums S in place (a lane's four cells in order, then
+    the scan over the 32 lanes' totals as the shuffle scan adds them), and
+    pooled cell c of level l is (S[(c+1) 2^l - 1] - S[c 2^l - 1]) * 2^-l
+    with S[-1] = 0."""
+    M = corr.shape[0]
+    cells = np.zeros((M, 128), np.float32)
+    cells[:, :D] = corr
+    runs = np.cumsum(cells.reshape(M, 32, 4), axis=2, dtype=np.float32)
+    incl = runs[:, :, 3].copy()
+    for off in (1, 2, 4, 8, 16):  # Hillis-Steele, as __shfl_up_sync
+        incl[:, off:] = incl[:, off:] + incl[:, :-off].copy()
+    excl = np.concatenate([np.zeros((M, 1), np.float32), incl[:, :-1]], 1)
+    S = (excl[:, :, None] + runs).reshape(M, 128)[:, :D]
+    outs = []
+    for lvl in range(levels):
+        inv, Dl = np.float32(2.0 ** -lvl), D >> lvl
+        q = x0 * inv
+        c0 = np.floor(q)
+        f = (q - c0)[:, None]
+        with np.errstate(invalid="ignore"):
+            near = (c0 >= -FAR_CELL) & (c0 <= FAR_CELL)
+        c0i = np.where(near, np.nan_to_num(c0), NO_CELL).astype(np.int64)
+        c = c0i[:, None] - radius + np.arange(2 * radius + 2)
+        inside = (c >= 0) & (c < Dl)
+        cs = np.where(inside, c, 0)
+        hi = np.take_along_axis(S, ((cs + 1) << lvl) - 1, axis=1)
+        lo = np.where(cs > 0, np.take_along_axis(
+            S, np.maximum((cs << lvl) - 1, 0), axis=1), np.float32(0))
+        band = np.where(inside, (hi - lo) * inv, np.float32(0))
+        outs.append((np.float32(1) - f) * band[:, :-1] + f * band[:, 1:])
+    return np.concatenate(outs, axis=1)
+
+
+EMULATED_INDICES = [0.0, None, None, 3e7, np.nan]  # None: D - 1, D + 40
+
+
+def emulation_inputs(D, T, seed):
+    rng = np.random.RandomState(seed)
+    x0 = np.maximum(rng.rand(60).astype(np.float32) * (D + 16) - 4, 0)
+    x0[:5] = [D - 1.0 if i == 1 else D + 40.0 if i == 2 else v
+              for i, v in enumerate(EMULATED_INDICES)]
+    return (rng.randn(60, D).astype(np.float32), x0,
+            rng.randn(60, T).astype(np.float32))
+
+
+@pytest.mark.parametrize("D", [16, 33, 44, 64])
+@pytest.mark.parametrize("radius,levels", [(5, 3), (2, 2), (5, 1)])
+def test_lookup_backward_integer_taps_match_plain(D, radius, levels):
+    """Integer taps from the integer floor and the sentinel (x0 at 0,
+    D - 1, D + 40, 3e7 and NaN) give the plain gradient (rtol / atol 1e-6;
+    a NaN or far index no gradient)."""
+    _, x0, g = emulation_inputs(D, levels * (2 * radius + 1), 31)
+    got = backward_emulation(g, x0, D, radius, levels)
+    want = lk.lookup_fused_backward_reference(
+        torch.from_numpy(g), torch.from_numpy(x0), D, radius, levels)
+    assert not np.any(got[3:5])
+    np.testing.assert_allclose(got, want.numpy(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("D", [16, 33, 44, 64, 128])
+@pytest.mark.parametrize("radius,levels", [(5, 3), (2, 2), (5, 1)])
+def test_lookup_v2_prefix_in_place_matches_plain(D, radius, levels):
+    """Pooled cells from in-place inclusive prefix sums (S[-1] = 0) give
+    the plain prefix-sum taps (rtol / atol 1e-5: another scan order) and
+    the pooled taps (2e-3); NaN taps where x0 is NaN, as in both."""
+    corr, x0, _ = emulation_inputs(D, 1, 32)
+    got = v2_emulation(corr, x0, D, radius, levels)
+    ct, xt = torch.from_numpy(corr), torch.from_numpy(x0)
+    np.testing.assert_allclose(
+        got, lk.lookup_fused_v2_reference(ct, xt, radius, levels).numpy(),
+        rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        got, lk.lookup_fused_reference(ct, xt, radius, levels).numpy(),
+        rtol=2e-3, atol=2e-3)
+    assert np.array_equal(np.isnan(got).any(1), np.isnan(x0))
