@@ -4,8 +4,9 @@
 // Forward. Replaces the TPU kernels of the JAX package's ops/pallas/epiband.py
 // reached from _epiband_fwd_impl: _epiband_kernel (dynamic base),
 // _epiband_kernel_static (base == 0) and _epiband_kernel_chunked
-// (hypothesis-chunked windows). One kernel per feature type covers all
-// three: for each view v, rect row y, pixel x and hypothesis k
+// (hypothesis-chunked windows). One kernel template covers all three, for
+// bf16 and fp32 features: for each view v, rect row y, pixel x and
+// hypothesis k
 //
 //   pos      = (x + s_max) - (base[v,y,x] + k * sigma[v,y,x])
 //   G(s)     = <fr[v,y,x,:], fs[v,y,s,:]>                 (fp32 accumulate)
@@ -25,57 +26,68 @@
 // widest stage-0 view of the DTU slice (h_r x w_r = 512 x 512, ws = 1104,
 // C = 64, D = 64, bf16 features) about 0.16 GB against 4.3 GFLOP:
 // 27 flop/byte, far below the ~295 flop/byte ridge, so the least time is
-// set by the bytes. The TPU kernels built a full G tile on the MXU and
+// set by the bytes. The TPU kernels built a full G tile on the MXU (for
+// fp32 features at Precision.HIGHEST, a multi-pass bf16 product) and
 // selected the band with barrel rolls and hat-matrix segment sums because
 // Mosaic cannot gather.
 //
-// Design, bf16 features (the model's type): a G tile on the tensor cores.
-// A warp per pixel that forms only the 2*D dot products a pixel needs
+// Design: a G tile on the tensor cores, one kernel template for both
+// feature types (epiband_mma_kernel<T, ...>). A warp per pixel that forms
+// only the 2*D dot products a pixel needs (the first design, for both types)
 // spends, for every output, two source-row loads, a 5-step shuffle
 // reduction and the position arithmetic in every lane: it is bound by
-// instruction issue, ~30x its byte bound. Here a block (256 threads) takes
-// one view v, rect row y and a tile of `tile` rect pixels (64 for D <= 64;
-// 32 or 16 for wider D, so that each thread keeps at most 16 outputs in
-// registers). It
+// instruction issue, 17-33x its byte bound. Here a block (256 threads) takes
+// one view v, rect row y, a tile of `tile` rect pixels and `hyps` of the D
+// hypotheses (all D unless the tile's outputs would not fit: each thread
+// keeps at most 16 outputs in registers). bf16 takes tile 64 for D <= 64,
+// 32 or 16 for wider D; fp32 always tile 64, and for D > 64 the fewest equal
+// groups of hypotheses, one block each. A block
 //   1. stages the tile's fr rows (tile x C, zero-padded to a multiple of
 //      16 channels) in shared memory with cp.async;
 //   2. computes each output's tap position once, in the plain version's
 //      rounding order (__fsub_rn/__fadd_rn/__fmul_rn, no contraction: a
 //      floor that flips moves a tap a whole column), and marks, in a shared
-//      bitmap, the 128-column chunks of the source row that an in-band tap
-//      reaches: out-of-band, far and NaN positions mark nothing, so they
-//      neither widen the band nor cost a chunk. A thread keeps its outputs'
-//      positions in registers with lanes across pixels and warps across
-//      hypotheses, so the 32 outputs of one warp slot sit at one hypothesis
-//      of consecutive pixels and reach one or two chunks; lane i holds slot
-//      i's chunk range;
+//      bitmap, the chunks of the source row (128 columns for bf16, 64 for
+//      fp32) that an in-band tap reaches: out-of-band, far and NaN positions
+//      mark nothing, so they neither widen the band nor cost a chunk. A
+//      thread keeps its outputs' positions in registers with lanes across
+//      pixels and warps across hypotheses, so the 32 outputs of one warp
+//      slot sit at one hypothesis of consecutive pixels and reach one or two
+//      chunks; lane i holds slot i's chunk range;
 //   3. walks the reached chunks in order, double-buffered: while chunk i is
-//      used, cp.async brings chunk i+1 (128 x C bf16) into the other buffer;
-//      for chunk i the block forms G = Fr_tile . Fs_chunk^T with mma.sync
-//      m16n8k16 (bf16 in, fp32 accumulate; fragments from ldmatrix, A held
-//      in registers for the whole walk) into a shared fp32 tile, and each
-//      warp adds, for the slots a ballot finds in the chunk, every output's
+//      used, cp.async brings chunk i+1 into the other buffer; for chunk i
+//      the block forms G = Fr_tile . Fs_chunk^T into a shared fp32 tile,
+//      and each warp
+//      adds, for the slots a ballot finds in the chunk, every output's
 //      weighted G term of its taps there. A tap pair that straddles two
 //      chunks adds (1 - f) G(i0) in the first and f G(i0 + 1) in the next;
 //      both start from 0 and add in that order, so the sum is the plain
 //      version's (1 - f) G(i0) + f G(i0 + 1), rounded the same way;
-//   4. writes the tile's (tile x D) fp32 outputs through shared memory, so
-//      that they leave once, coalesced.
+//   4. writes the tile's outputs through shared memory, so that they leave
+//      once, coalesced.
+// bf16 forms G with mma.sync m16n8k16 (bf16 in, fp32 accumulate; A
+// fragments from ldmatrix, held in registers for the whole walk). fp32
+// forms it as a split product, 3xTF32: each value v = hi + lo in two TF32
+// values, G = A_lo B_hi + A_hi B_lo + A_hi B_hi with mma.sync m16n8k8 (TF32
+// in, fp32 accumulate), ~2^-22 relative. A single TF32 pass (~2^-11
+// relative per operand) is not fp32 arithmetic and is never used: it would
+// not hold the fp32 forward's rtol 1e-4 / atol 1e-3. Three passes of half
+// the bf16 depth make 6x the bf16 kernel's mma instructions over the same
+// tile, and every operand is split before use; so the fp32 form reads A
+// from shared memory at each step instead of holding it, which lets three
+// blocks share an SM.
 // The dense G tile computes more dot products than the taps need (a stage-0
 // tile's band is about tile + s_max columns, of which 2*D are read): at the
-// inference plan's stage 0 about 22 GFLOP against the 0.16 GB the function
-// moves, under the tensor cores' ridge, so the bytes still bound the
-// kernel. The source band is staged in chunks, never whole: a bf16 row at
-// ws = 2448 (313 KB) does not fit a block's 227 KB. The tile, the copy
-// width (`vec` channels, 16 bytes where C % 8 == 0) and the shared-memory
-// bytes come from the wrapper's launch_geometry; the launcher refuses
-// bytes that differ from Smem's.
-//
-// fp32 features (tests, a float32 model) keep CUDA-core fp32 arithmetic:
-// one warp per rect pixel (8 pixels per block), one channel pair per lane,
-// the fr row in registers; for every hypothesis the warp reads the two
-// source rows, forms the interpolated dot product lane-wise and reduces it
-// with warp shuffles. Never TF32.
+// inference plan's stage 0 about 22 GFLOP with bf16 features against the
+// 0.16 GB the function moves, under the tensor cores' ridge, so the bytes
+// still bound the bf16 kernel in principle; the fp32 kernel's three passes
+// over the same tile make the tensor cores' rate the nearer limit. The
+// source band is staged in chunks, never whole: a bf16 row at ws = 2448
+// (313 KB) does not fit a block's 227 KB. bf16's bitmap has a fixed 64 words (ws <= 2048 chunks); fp32's a bit
+// per chunk of the row, so it takes any ws. The tile, the copy width (`vec`
+// channels, 16 bytes where C and the alignment allow) and the shared-memory
+// bytes come from the wrapper's launch_geometry; the launcher refuses bytes
+// that differ from Smem's.
 //
 // Backward. Replaces the kernels reached from _epiband_bwd_impl
 // (_epiband_bwd_kernel, _epiband_bwd_kernel_chunked,
@@ -180,7 +192,13 @@
 
 namespace {
 
-constexpr int kWarps = 8;  // rect pixels per block
+constexpr int kWarps = 8;              // warps per block of the forward
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxOut = 16;            // outputs per thread: tile * hyps <= kThreads * kMaxOut
+constexpr int kReachWords = 64;        // bf16: reached-chunk bitmap, ws <= 2048 chunks
+constexpr int kLocalChunks = 64;       // chunks a thread marks in registers first
+constexpr int kFp32Tile = 64;          // fp32: rect pixels per block
+constexpr int kMaxSmem = 232448;       // dynamic shared memory a block may use
 
 __device__ __forceinline__ float2 load_pair(const float* p, int i) {
   return __ldg(reinterpret_cast<const float2*>(p) + i);
@@ -190,89 +208,62 @@ __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p, int i) {
   return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p) + i));
 }
 
-// fp32 features: lane j holds channel pair j (C <= 64)
-__global__ void __launch_bounds__(kWarps * 32)
-epiband_fp32_kernel(const float* __restrict__ fr, const float* __restrict__ fs,
-               const float* __restrict__ base, const float* __restrict__ sigma,
-               float* __restrict__ out, int h_r, int w_r, int ws, int C, int D,
-               float s_max) {
-  const int lane = threadIdx.x & 31;
-  const int x = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int y = blockIdx.y;
-  const int v = blockIdx.z;
-  if (x >= w_r) return;  // whole warp leaves together
-  const bool has = lane < (C >> 1);
-  const size_t row = static_cast<size_t>(v) * h_r + y;
-  const size_t pix = row * w_r + x;
-
-  const float2 a = has ? load_pair(fr + pix * C, lane) : make_float2(0.f, 0.f);
-  const float b = base != nullptr ? base[pix] : 0.f;
-  const float sg = sigma[pix];
-  // rounded separately, in the oracle's order (no fused multiply-add)
-  const float xs = __fadd_rn(static_cast<float>(x), s_max);
-  const float* src = fs + row * static_cast<size_t>(ws) * C;
-  const float last = static_cast<float>(ws - 1);
-  float* dst = out + pix * D;
-
-  for (int k0 = 0; k0 < D; k0 += 32) {
-    const int n = min(32, D - k0);
-    float mine = 0.f;
-#pragma unroll 4
-    for (int j = 0; j < n; ++j) {
-      const float kf = static_cast<float>(k0 + j);
-      const float pos = __fsub_rn(xs, __fadd_rn(b, __fmul_rn(sg, kf)));
-      const float fl = floorf(pos);
-      const float f = __fsub_rn(pos, fl);
-      const bool ok0 = fl >= 0.f && fl <= last;
-      const bool ok1 = fl >= -1.f && fl <= last - 1.f;
-      float part = 0.f;
-      if ((ok0 || ok1) && has) {  // ok0/ok1 are uniform across the warp
-        const int i0 = static_cast<int>(fl);
-        float d0 = 0.f, d1 = 0.f;
-        if (ok0) {
-          const float2 s = load_pair(src + static_cast<size_t>(i0) * C, lane);
-          d0 = a.x * s.x + a.y * s.y;
-        }
-        if (ok1) {
-          const float2 s = load_pair(src + static_cast<size_t>(i0 + 1) * C, lane);
-          d1 = a.x * s.x + a.y * s.y;
-        }
-        part = (ok0 ? 1.f - f : 0.f) * d0 + (ok1 ? f : 0.f) * d1;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, o);
-      if (lane == j) mine = f == f ? part : f;  // a NaN position: NaN
-    }
-    if (lane < n) dst[k0 + lane] = mine;
-  }
-}
-
-// ---- bf16 forward: a G tile on the tensor cores ----------------------------
+// ---- forward: a G tile on the tensor cores ----------------------------------
 
 using bf16 = __nv_bfloat16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kMaxOut = 16;       // outputs per thread: tile * D <= kThreads * kMaxOut
-constexpr int kChunk = 128;       // source columns per staged chunk
-constexpr int kReachWords = 64;   // reached-chunk bitmap: ws <= 2048 chunks
-constexpr int kLocalChunks = 64;  // chunks a thread marks in registers first
+
+// Source columns per staged chunk (and its log2) of each feature type, and
+// the blocks an SM should hold (which caps a thread's registers): an fp32
+// row is twice as wide, so its chunks are half as long, and three blocks'
+// layouts (74 KB at C = 64) and registers (85 a thread) fit an SM; bf16
+// keeps two.
+template <typename T>
+struct Fwd {
+  static constexpr int kChunk = 64, kShift = 6, kMinBlocks = 3;
+};
+
+template <>
+struct Fwd<bf16> {
+  static constexpr int kChunk = 128, kShift = 7, kMinBlocks = 2;
+};
 
 __host__ __device__ constexpr int padded_channels(int C) { return (C + 15) & ~15; }
 
-// Shared-memory layout (bytes) of the bf16 forward: the fr tile (tile rows),
-// two source-chunk buffers (chunk rows each), the fp32 G tile (which at the
-// end holds the output tile, rows of os = D | 1 floats), the tile's base
-// and sigma, the reached-chunk bitmap. A staged row holds the padded
-// channels plus 8 bf16, an odd number of 16-byte units, so ldmatrix's eight
-// rows hit distinct banks; G rows are kChunk + 8 floats and output rows an
-// odd number, so a warp's 32 pixels of one column hit distinct banks.
+// Words of the reached-chunk bitmap: bf16 a fixed kReachWords; fp32 one bit
+// per chunk of the row, so any ws fits.
+__host__ __device__ inline int reach_words(int ws, bool bf16_features) {
+  return bf16_features ? kReachWords
+                       : ((ws + Fwd<float>::kChunk - 1) / Fwd<float>::kChunk + 31) / 32;
+}
+
+// The hypotheses a block takes: all D where the tile's outputs fit the
+// threads' registers (tile * D <= kThreads * kMaxOut, always for bf16), else
+// the fewest equal groups that do, one group per block.
+__host__ __device__ inline int hyp_group(int tile, int D) {
+  const long long cap = kThreads * kMaxOut;
+  const int groups = static_cast<int>((static_cast<long long>(tile) * D + cap - 1) / cap);
+  return (D + groups - 1) / groups;
+}
+
+// Shared-memory layout (bytes) of the forward, for `tile` pixels, C channels
+// of `esize` bytes, `hyps` hypotheses, chunks of `chunk` columns and a
+// bitmap of `words`: the fr tile (tile rows), two source-chunk buffers
+// (chunk rows each), the fp32 G tile (which at the end holds the output
+// tile, rows of os = hyps | 1 floats), the tile's base and sigma, the
+// bitmap. A staged row holds the padded channels plus 8 elements: for bf16
+// an odd number of 16-byte units, so ldmatrix's eight rows hit distinct
+// banks; for fp32 8 words past a multiple of 16, so the float2 fragment
+// loads of a half-warp (rows g..g+3, words 2t, 2t+1) hit distinct banks. G
+// rows are chunk + 8 floats and output rows an odd number, so a warp's 32
+// pixels of one column hit distinct banks.
 struct Smem {
-  int lds, gs, os, a, b, g, prm, reach, total;
-  __host__ __device__ Smem(int tile, int C, int D)
-      : lds(padded_channels(C) + 8), gs(kChunk + 8), os(D | 1), a(0),
-        b(tile * lds * 2), g(b + 2 * kChunk * lds * 2),
+  int lds, gs, os, a, b, g, prm, reach, words, total;
+  __host__ __device__ Smem(int tile, int C, int hyps, int chunk, int n_words,
+                           int esize)
+      : lds(padded_channels(C) + 8), gs(chunk + 8), os(hyps | 1), a(0),
+        b(tile * lds * esize), g(b + 2 * chunk * lds * esize),
         prm(g + tile * (gs > os ? gs : os) * 4), reach(prm + 2 * tile * 4),
-        total(reach + kReachWords * 4) {}
+        words(n_words), total(reach + n_words * 4) {}
 };
 
 template <int kBytes>
@@ -309,11 +300,12 @@ struct CopyWalk {
 };
 
 // rows [0, n) of C channels (row stride C) into shared rows of stride lds
-template <int kVec>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, int n,
-                                           int C, int lds, const CopyWalk& w) {
+template <int kVec, typename T>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src, int n, int C,
+                                           int lds, const CopyWalk& w) {
   for (int r = w.r0, v = w.v0; r < n;) {
-    cp_async<kVec * 2>(dst + r * lds + v * kVec, src + r * C + v * kVec);
+    cp_async<kVec * static_cast<int>(sizeof(T))>(dst + r * lds + v * kVec,
+                                                 src + r * C + v * kVec);
     r += w.dr;
     v += w.dv;
     if (v >= w.per_row) {
@@ -362,6 +354,7 @@ __device__ __forceinline__ void load_a(unsigned (&af)[4][4], const bf16* sA,
 __device__ __forceinline__ void g_tile(const unsigned (&af)[4][4],
                                        const bf16* sB, float* sG, int mt,
                                        int ksteps, int lds, int gs) {
+  constexpr int kChunk = Fwd<bf16>::kChunk;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3, q = lane >> 3, r = lane & 7;
   const int m0 = (warp % mt) * 16;
@@ -395,6 +388,128 @@ __device__ __forceinline__ void g_tile(const unsigned (&af)[4][4],
   }
 }
 
+// fp32 features: G as a split (3xTF32) product on the tensor cores. One
+// TF32 product keeps 10 of fp32's 23 mantissa bits, ~2^-11 relative per
+// operand: a single pass errs by more than the fp32 forward's rtol 1e-4 /
+// atol 1e-3 allow, and is never used. Each value v is split as v = hi +
+// lo, hi = rna_tf32(v), lo = rna_tf32(v - hi) (v - hi is exact), and G =
+// A_lo B_hi + A_hi B_lo + A_hi B_hi with mma.sync m16n8k8 (TF32 in, fp32
+// accumulate, each product exact): what it drops, A_lo B_lo and lo's own
+// rounding, is ~2^-22 relative (test_torch_kernel_geometry.py emulates it).
+// The rounding is cvt.rna.tf32.f32's, done in integer operations: half a
+// TF32 unit added to the magnitude, the 13 low bits cleared (ties away from
+// zero); with the conversion instruction the kernel took 15-20% longer on
+// an H100 (benchmarks/port_epiband_probe.py, cvt_split).
+__device__ __forceinline__ unsigned rna_tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float v, unsigned& hi,
+                                           unsigned& lo) {
+  hi = rna_tf32(v);
+  lo = rna_tf32(__fsub_rn(v, __uint_as_float(hi)));
+}
+
+// d += a . b for one m16n8k8 tile: TF32 in, fp32 accumulate
+__device__ __forceinline__ void mma1688(float* d, const unsigned* a,
+                                        unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// sG[m][n] = <sA[m], sB[n]> for fp32 features: warp w takes m-tile w % mt
+// (its rows of sA from a_row on) and its share of the chunk's 8-column
+// n-tiles, four at a time. Per 8-channel step the warp loads and splits its
+// A fragment {a0, a1, a2, a3} = rows (g, g + 8, g, g + 8) at k (t, t, t + 4,
+// t + 4) and each B fragment {b0, b1} = column g at k (t, t + 4), one
+// float2 each: a thread's k positions t and t + 4 are channels 2t and 2t + 1
+// in A and B alike, so G sums the same channels. Then the three products,
+// the small ones first, four independent tiles in a row. A is read from
+// shared memory at every step, not held in registers: 64 registers of
+// split A fragments would leave room for two blocks an SM, not three.
+__device__ __forceinline__ void g_tile_tf32(const float* a_row,
+                                            const float* sB, float* sG,
+                                            int mt, int ksteps, int lds,
+                                            int gs) {
+  constexpr int kChunk = Fwd<float>::kChunk;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = (warp % mt) * 16;
+  const int per_warp = kChunk / 8 * mt / kWarps;
+  const int n_first = (warp / mt) * per_warp;
+  for (int i0 = 0; i0 < per_warp; i0 += 4) {
+    float d[4][4] = {};
+    const float* b_row = sB + ((n_first + i0) * 8 + g) * lds + 2 * t;
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      if (ks < ksteps) {
+        unsigned ah[4], al[4];
+        const float2 u = *reinterpret_cast<const float2*>(a_row + ks * 8);
+        const float2 w =
+            *reinterpret_cast<const float2*>(a_row + 8 * lds + ks * 8);
+        split_tf32(u.x, ah[0], al[0]);
+        split_tf32(w.x, ah[1], al[1]);
+        split_tf32(u.y, ah[2], al[2]);
+        split_tf32(w.y, ah[3], al[3]);
+        unsigned bh[4][2], bl[4][2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 b = *reinterpret_cast<const float2*>(
+              b_row + i * 8 * lds + ks * 8);
+          split_tf32(b.x, bh[i][0], bl[i][0]);
+          split_tf32(b.y, bh[i][1], bl[i][1]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mma1688(d[i], al, bh[i][0], bh[i][1]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mma1688(d[i], ah, bl[i][0], bl[i][1]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mma1688(d[i], ah, bh[i][0], bh[i][1]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float* o = sG + (m0 + g) * gs + (n_first + i0 + i) * 8 + 2 * t;
+      *reinterpret_cast<float2*>(o) = make_float2(d[i][0], d[i][1]);
+      *reinterpret_cast<float2*>(o + 8 * gs) = make_float2(d[i][2], d[i][3]);
+    }
+  }
+}
+
+// The A fragments of a warp's m-tile for the whole walk, and its G tile per
+// chunk, for each feature type: fp32, the rows of sA, split at every use,
+// and m16n8k8 over 8-channel steps; bf16, ldmatrix fragments held in
+// registers and m16n8k16 over 16-channel steps.
+template <typename T>
+struct Frags {
+  const float* row;
+  static __device__ int steps(int C) { return (C + 7) >> 3; }
+  __device__ void load(const float* sA, int mt, int ksteps, int lds) {
+    const int lane = threadIdx.x & 31;
+    row = sA + ((threadIdx.x >> 5) % mt * 16 + (lane >> 2)) * lds +
+          2 * (lane & 3);
+  }
+  __device__ void g(const float* sB, float* sG, int mt, int ksteps, int lds,
+                    int gs) const {
+    g_tile_tf32(row, sB, sG, mt, ksteps, lds, gs);
+  }
+};
+
+template <>
+struct Frags<bf16> {
+  unsigned f[4][4];
+  static __device__ int steps(int C) { return padded_channels(C) >> 4; }
+  __device__ void load(const bf16* sA, int mt, int ksteps, int lds) {
+    load_a(f, sA, mt, ksteps, lds);
+  }
+  __device__ void g(const bf16* sB, float* sG, int mt, int ksteps, int lds,
+                    int gs) const {
+    g_tile(f, sB, sG, mt, ksteps, lds, gs);
+  }
+};
+
 // the first chunk after `after` whose bit is set, or -1
 __device__ __forceinline__ int next_reached(const unsigned* reach, int after,
                                             int n_words) {
@@ -411,10 +526,10 @@ __device__ __forceinline__ int next_reached(const unsigned* reach, int after,
 
 // The outputs a thread keeps: with lanes across pixels and warps across
 // hypotheses, slot (i, a) is pixel x = lane % L + 32 a and hypothesis
-// k = warp + 8 (lane / L) + 8 (32 / L) i, L = min(tile, 32) lanes a pixel
-// set: kPixels pixel slots a, kSlots hypothesis slots i. A warp's outputs
-// of one slot i then cover consecutive pixels at (nearly) one hypothesis,
-// whose taps fall in one or two chunks.
+// k = k0 + warp + 8 (lane / L) + 8 (32 / L) i, L = min(tile, 32) lanes a
+// pixel set: kPixels pixel slots a, kSlots hypothesis slots i. A warp's
+// outputs of one slot i then cover consecutive pixels at (nearly) one
+// hypothesis, whose taps fall in one or two chunks.
 template <int kTile>
 struct Slots {
   static constexpr int kLanes = kTile < 32 ? kTile : 32;
@@ -423,37 +538,45 @@ struct Slots {
   static constexpr int kStep = 8 * (32 / kLanes);
 };
 
-// block (tile pixels of row y of view v); see the notes at the top
-template <int kTile, int kVec>
-__global__ void __launch_bounds__(kThreads, 2)
-epiband_mma_kernel(const bf16* __restrict__ fr, const bf16* __restrict__ fs,
+// block (tile pixels of row y of view v, hypotheses [k0, k0 + hyps) of D);
+// see the notes at the top
+template <typename T, int kTile, int kVec>
+__global__ void __launch_bounds__(kThreads, Fwd<T>::kMinBlocks)
+epiband_mma_kernel(const T* __restrict__ fr, const T* __restrict__ fs,
                    const float* __restrict__ base,
                    const float* __restrict__ sigma, float* __restrict__ out,
-                   int h_r, int w_r, int ws, int C, int D, float s_max) {
+                   int h_r, int w_r, int ws, int C, int D, int hyps,
+                   float s_max) {
   using S = Slots<kTile>;
+  constexpr int kChunk = Fwd<T>::kChunk, kShift = Fwd<T>::kShift;
+  constexpr bool kBf16 = sizeof(T) == 2;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Smem L(kTile, C, D);
-  bf16* sA = reinterpret_cast<bf16*>(smem + L.a);
-  bf16* sB = reinterpret_cast<bf16*>(smem + L.b);
+  const int n_words = (((ws + kChunk - 1) >> kShift) + 31) >> 5;
+  const Smem L(kTile, C, hyps, kChunk, reach_words(ws, kBf16),
+               static_cast<int>(sizeof(T)));
+  T* sA = reinterpret_cast<T*>(smem + L.a);
+  T* sB = reinterpret_cast<T*>(smem + L.b);
   float* sG = reinterpret_cast<float*>(smem + L.g);
   float* sBase = reinterpret_cast<float*>(smem + L.prm);
   float* sSig = sBase + kTile;
   unsigned* sReach = reinterpret_cast<unsigned*>(smem + L.reach);
-  constexpr int kShift = 7;  // log2(kChunk)
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int x0 = blockIdx.x * kTile;
+  const int groups = (D + hyps - 1) / hyps;
+  const int tile_i = blockIdx.x / groups;
+  const int k0 = (blockIdx.x - tile_i * groups) * hyps;
+  const int k_end = min(D, k0 + hyps);
+  const int x0 = tile_i * kTile;
   const int n_px = min(kTile, w_r - x0);
   const size_t row = static_cast<size_t>(blockIdx.z) * h_r + blockIdx.y;
   const size_t pix0 = row * w_r + x0;
-  const bf16* src = fs + row * ws * C;
-  const int n_words = (((ws + kChunk - 1) >> kShift) + 31) >> 5;
+  const T* src = fs + row * ws * C;
   const CopyWalk walk(C, kVec);
 
   // zeros in the padded channels and ragged rows of the staged tiles
   for (int i = tid; i < L.g / 16; i += kThreads)
     reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
-  for (int i = tid; i < kReachWords; i += kThreads) sReach[i] = 0u;
+  for (int i = tid; i < L.words; i += kThreads) sReach[i] = 0u;
   for (int i = tid; i < n_px; i += kThreads) {
     sBase[i] = base != nullptr ? base[pix0 + i] : 0.f;
     sSig[i] = sigma[pix0 + i];
@@ -467,7 +590,7 @@ epiband_mma_kernel(const bf16* __restrict__ fr, const bf16* __restrict__ fs,
   // output NaN. Lane i ends up holding slot i's reached chunks [c_lo, c_hi]
   // over the warp.
   const int xl = lane % S::kLanes;
-  const int kl = warp + 8 * (lane / S::kLanes);
+  const int kl = k0 + warp + 8 * (lane / S::kLanes);
   float p[S::kSlots][S::kPixels], acc[S::kSlots][S::kPixels];
   int c_lo = 1 << 30, c_hi = -1;
   unsigned long long marks = 0;  // reached chunks below kLocalChunks
@@ -488,7 +611,7 @@ epiband_mma_kernel(const bf16* __restrict__ fr, const bf16* __restrict__ fs,
       const int x = xl + 32 * a;
       p[i][a] = -4.f;
       acc[i][a] = 0.f;
-      if (x < n_px && k < D) {
+      if (x < n_px && k < k_end) {
         const float xs = __fadd_rn(static_cast<float>(x0 + x), s_max);
         const float pos = __fsub_rn(
             xs, __fadd_rn(sBase[x], __fmul_rn(sSig[x], static_cast<float>(k))));
@@ -519,7 +642,7 @@ epiband_mma_kernel(const bf16* __restrict__ fr, const bf16* __restrict__ fs,
   }
 
   // the reached chunks in order, the next one's copy in flight
-  const int mt = kTile >> 4, ksteps = padded_channels(C) >> 4;
+  const int mt = kTile >> 4, ksteps = Frags<T>::steps(C);
   const int buf_elems = kChunk * L.lds;
   auto stage_chunk = [&](int c, int buf) {
     const int cb = c << kShift;
@@ -532,15 +655,15 @@ epiband_mma_kernel(const bf16* __restrict__ fr, const bf16* __restrict__ fs,
   cp_async_commit();
   cp_async_wait<1>();  // the fr tile
   __syncthreads();
-  unsigned af[4][4];
-  load_a(af, sA, mt, ksteps, L.lds);
+  Frags<T> af;
+  af.load(sA, mt, ksteps, L.lds);
   for (int buf = 0; c >= 0; buf ^= 1) {
     const int cn = next_reached(sReach, c, n_words);
     if (cn >= 0) stage_chunk(cn, buf ^ 1);
     cp_async_commit();
     cp_async_wait<1>();  // all but the newest group: chunk c
     __syncthreads();     // ... for every thread; and sG is free again
-    g_tile(af, sB + buf * buf_elems, sG, mt, ksteps, L.lds, L.gs);
+    af.g(sB + buf * buf_elems, sG, mt, ksteps, L.lds, L.gs);
     __syncthreads();
     const int cb = c << kShift;
     const unsigned ncols = static_cast<unsigned>(min(kChunk, ws - cb));
@@ -566,7 +689,8 @@ epiband_mma_kernel(const bf16* __restrict__ fr, const bf16* __restrict__ fs,
   }
   cp_async_wait<0>();
 
-  // the output tile through shared memory (G's space), out coalesced
+  // the output tile through shared memory (G's space), out coalesced: rows
+  // of n_k = k_end - k0 outputs, D apart
   __syncthreads();
 #pragma unroll
   for (int i = 0; i < S::kSlots; ++i) {
@@ -574,19 +698,20 @@ epiband_mma_kernel(const bf16* __restrict__ fr, const bf16* __restrict__ fs,
 #pragma unroll
     for (int a = 0; a < S::kPixels; ++a) {
       const int x = xl + 32 * a;
-      if (x < n_px && k < D) sG[x * L.os + k] = acc[i][a];
+      if (x < n_px && k < k_end) sG[x * L.os + k - k0] = acc[i][a];
     }
   }
   __syncthreads();
-  float* dst = out + pix0 * D;
-  const int dq = kThreads / D, dr = kThreads - dq * D;
-  int x = tid / D, k = tid - x * D;
-  for (int o = tid; o < n_px * D; o += kThreads) {
-    dst[o] = sG[x * L.os + k];
+  float* dst = out + pix0 * D + k0;
+  const int n_k = k_end - k0;
+  const int dq = kThreads / n_k, dr = kThreads - dq * n_k;
+  int x = tid / n_k, k = tid - x * n_k;
+  for (int o = tid; o < n_px * n_k; o += kThreads) {
+    dst[x * D + k] = sG[x * L.os + k];
     k += dr;
     x += dq;
-    if (k >= D) {
-      k -= D;
+    if (k >= n_k) {
+      k -= n_k;
       ++x;
     }
   }
@@ -594,7 +719,6 @@ epiband_mma_kernel(const bf16* __restrict__ fr, const bf16* __restrict__ fs,
 
 // ---- backward: tap records and column sums, shared by dfr and dfs -----------
 
-constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may use
 constexpr int kRunLook = 4;       // tap records a run walk reads at once
 
 // The value as the features' type rounds it, widened back to fp32 (bf16
@@ -1261,42 +1385,43 @@ cudaError_t launch_dfs_chan(const void* fr, const float* base,
                            s_max, window, smem_bytes, st);
 }
 
-template <int kTile, int kVec>
+template <typename T, int kTile, int kVec>
 cudaError_t launch_mma(const void* fr, const void* fs, const float* base,
                        const float* sigma, float* out, int V, int h_r,
-                       int w_r, int ws, int C, int D, float s_max,
+                       int w_r, int ws, int C, int D, int hyps, float s_max,
                        int smem_bytes, cudaStream_t st) {
-  const auto kernel = epiband_mma_kernel<kTile, kVec>;
+  const auto kernel = epiband_mma_kernel<T, kTile, kVec>;
   if (smem_bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid((w_r + kTile - 1) / kTile, h_r, V);
+  const dim3 grid((w_r + kTile - 1) / kTile * ((D + hyps - 1) / hyps), h_r,
+                  V);
   kernel<<<grid, kThreads, smem_bytes, st>>>(
-      static_cast<const bf16*>(fr), static_cast<const bf16*>(fs), base, sigma,
-      out, h_r, w_r, ws, C, D, s_max);
+      static_cast<const T*>(fr), static_cast<const T*>(fs), base, sigma, out,
+      h_r, w_r, ws, C, D, hyps, s_max);
   return cudaGetLastError();
 }
 
-template <int kTile>
+template <typename T, int kTile>
 cudaError_t launch_tile(int vec, const void* fr, const void* fs,
                         const float* base, const float* sigma, float* out,
                         int V, int h_r, int w_r, int ws, int C, int D,
-                        float s_max, int smem_bytes, cudaStream_t st) {
-  switch (vec) {
-    case 8:
-      return launch_mma<kTile, 8>(fr, fs, base, sigma, out, V, h_r, w_r, ws,
-                                  C, D, s_max, smem_bytes, st);
-    case 4:
-      return launch_mma<kTile, 4>(fr, fs, base, sigma, out, V, h_r, w_r, ws,
-                                  C, D, s_max, smem_bytes, st);
-    case 2:
-      return launch_mma<kTile, 2>(fr, fs, base, sigma, out, V, h_r, w_r, ws,
-                                  C, D, s_max, smem_bytes, st);
-    default:
-      return cudaErrorInvalidValue;
+                        int hyps, float s_max, int smem_bytes,
+                        cudaStream_t st) {
+  if constexpr (sizeof(T) == 2) {  // 16-byte copies: 8 bf16
+    if (vec == 8)
+      return launch_mma<T, kTile, 8>(fr, fs, base, sigma, out, V, h_r, w_r,
+                                     ws, C, D, hyps, s_max, smem_bytes, st);
   }
+  if (vec == 4)
+    return launch_mma<T, kTile, 4>(fr, fs, base, sigma, out, V, h_r, w_r, ws,
+                                   C, D, hyps, s_max, smem_bytes, st);
+  if (vec == 2)
+    return launch_mma<T, kTile, 2>(fr, fs, base, sigma, out, V, h_r, w_r, ws,
+                                   C, D, hyps, s_max, smem_bytes, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1306,43 +1431,47 @@ extern "C" {
 // dtype: 0 = float32 features, 1 = bfloat16 features. C must be even and at
 // most 64, and fr/fs aligned to two elements (checked by the Python
 // wrapper). tile, vec and smem_bytes come from the wrapper's launch
-// geometry (epiband.launch_geometry): fp32 takes tile 8 (pixels per block);
-// bf16 takes tile 16, 32 or 64 with tile * D <= 4096 and ws <= 2048 chunks,
-// vec (channels per copy) 8, 4 or 2 dividing C and the features'
-// alignment, and smem_bytes equal to Smem's total, so that a layout that
-// drifted from the wrapper's is refused at its first launch. Returns a
-// cudaError_t value.
+// geometry (epiband.launch_geometry): bf16 takes tile 16, 32 or 64 with
+// tile * D <= 4096 and ws <= 2048 chunks, vec (channels per copy) 8, 4 or 2;
+// fp32 takes tile 64, any D (in groups of hyp_group(64, D) hypotheses, a
+// block each) and ws, vec 4 or 2; vec must divide C and the features'
+// alignment, and smem_bytes equal Smem's total and fit a block, so that a
+// layout that drifted from the wrapper's is refused at its first launch.
+// Returns a cudaError_t value.
 int epiband_forward(const void* fr, const void* fs, const float* base,
                     const float* sigma, float* out, int V, int h_r, int w_r,
                     int ws, int C, int D, int s_max, int dtype, int tile,
                     int vec, int smem_bytes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float sm = static_cast<float>(s_max);
-  if (dtype != 1) {
-    if (tile != kWarps) return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid((w_r + kWarps - 1) / kWarps, h_r, V);
-    epiband_fp32_kernel<<<grid, kWarps * 32, 0, st>>>(
-        static_cast<const float*>(fr), static_cast<const float*>(fs), base,
-        sigma, out, h_r, w_r, ws, C, D, sm);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const bool ok = (tile == 16 || tile == 32 || tile == 64) &&
-                  tile * D <= kThreads * kMaxOut &&
-                  static_cast<long long>(ws) <= 32LL * kReachWords * kChunk &&
-                  C % 2 == 0 && C <= 64 && vec > 0 && C % vec == 0 &&
-                  smem_bytes == Smem(tile, C, D).total;
+  const bool bf = dtype == 1;
+  bool ok = tile > 0 && D > 0 && ws > 0 && w_r > 0 && C > 0 && C % 2 == 0 &&
+            C <= 64 && vec > 0 && C % vec == 0 && smem_bytes <= kMaxSmem &&
+            (bf ? (tile == 16 || tile == 32 || tile == 64) &&
+                      tile * D <= kThreads * kMaxOut &&
+                      static_cast<long long>(ws) <=
+                          32LL * kReachWords * Fwd<bf16>::kChunk
+                : tile == kFp32Tile && vec <= 4);
+  const int hyps = ok ? hyp_group(tile, D) : 0;
+  ok = ok && smem_bytes == Smem(tile, C, hyps,
+                                bf ? Fwd<bf16>::kChunk : Fwd<float>::kChunk,
+                                reach_words(ws, bf), bf ? 2 : 4).total;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (!bf)
+    return static_cast<int>(launch_tile<float, kFp32Tile>(
+        vec, fr, fs, base, sigma, out, V, h_r, w_r, ws, C, D, hyps, sm,
+        smem_bytes, st));
   if (tile == 64)
-    return static_cast<int>(launch_tile<64>(vec, fr, fs, base, sigma, out, V,
-                                            h_r, w_r, ws, C, D, sm,
-                                            smem_bytes, st));
+    return static_cast<int>(launch_tile<bf16, 64>(vec, fr, fs, base, sigma,
+                                                  out, V, h_r, w_r, ws, C, D,
+                                                  hyps, sm, smem_bytes, st));
   if (tile == 32)
-    return static_cast<int>(launch_tile<32>(vec, fr, fs, base, sigma, out, V,
-                                            h_r, w_r, ws, C, D, sm,
-                                            smem_bytes, st));
-  return static_cast<int>(launch_tile<16>(vec, fr, fs, base, sigma, out, V,
-                                          h_r, w_r, ws, C, D, sm, smem_bytes,
-                                          st));
+    return static_cast<int>(launch_tile<bf16, 32>(vec, fr, fs, base, sigma,
+                                                  out, V, h_r, w_r, ws, C, D,
+                                                  hyps, sm, smem_bytes, st));
+  return static_cast<int>(launch_tile<bf16, 16>(vec, fr, fs, base, sigma,
+                                                out, V, h_r, w_r, ws, C, D,
+                                                hyps, sm, smem_bytes, st));
 }
 
 // dfr (V,h_r,w_r,C) in the features' type; every element is written. tile

@@ -23,6 +23,21 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+# the compute dtypes a module also takes by name, the names the JAX
+# package's bindings take (``RAFT.dtype = "float32"``)
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(dtype) -> torch.dtype:
+    """``dtype`` as a torch dtype: given as one, or by a name of
+    :data:`DTYPES`."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    if isinstance(dtype, str) and dtype in DTYPES:
+        return DTYPES[dtype]
+    raise ValueError(f"dtype must be a torch dtype or one of "
+                     f"{sorted(DTYPES)}, got {dtype!r}")
+
 
 def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
     """Apply ``conv`` to an NHWC tensor in compute dtype; returns NHWC."""
@@ -90,7 +105,7 @@ class BasicEncoder(nn.Module):
                  type: str = "HR", dtype=torch.bfloat16):
         super().__init__()
         self.type = type
-        self.dtype = dtype
+        self.dtype = compute_dtype(dtype)
         self.norm = _norm(norm_fn)
         dim = 32
         self.conv1 = nn.Conv2d(3, dim, 7, stride=2, padding=3)

@@ -25,7 +25,8 @@ import torch.nn as nn
 from torch.profiler import record_function
 
 from cermvs_torch.config import configurable
-from cermvs_torch.models.extractor import BasicEncoder, init_conv_
+from cermvs_torch.models.extractor import (BasicEncoder, compute_dtype,
+                                           init_conv_)
 from cermvs_torch.models.update import UpdateBlock
 from cermvs_torch.ops import corr as corr_ops
 
@@ -48,7 +49,9 @@ class RAFT(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  device="cuda"):
         """``generator``: the CPU generator the weights are drawn from (seed 0
-        when None); ``device``: where the module lives after init.
+        when None); ``device``: where the module lives after init;
+        ``dtype``: the compute dtype, a torch dtype or its name
+        (``"float32"``, ``"bfloat16"``, as a gin binding gives it).
 
         ``remat``, ``unroll_iters`` and ``encoder_chunk`` are the JAX
         package's bindings of the same names, accepted so that its gin
@@ -74,7 +77,7 @@ class RAFT(nn.Module):
         self.lookup_impl = lookup_impl
         self.aggregation = tuple(aggregation)
         self.force_per_view_volumes = force_per_view_volumes
-        self.dtype = dtype
+        self.dtype = dtype = compute_dtype(dtype)
         self.volume_fn = volume_fn
         self.fnet = BasicEncoder(dim_fmap, "instance", encoder_type, dtype)
         self.cnet = BasicEncoder(dim_net + dim_inp, "none", encoder_type,

@@ -26,7 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from cermvs_torch.config import configurable
-from cermvs_torch.models.extractor import conv_nhwc
+from cermvs_torch.models.extractor import compute_dtype, conv_nhwc
 
 
 def _conv_w(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:
@@ -50,7 +50,7 @@ class ConvGRU(nn.Module):
         super().__init__()
         self.h_planes = h_planes
         self.static_planes = static_planes
-        self.dtype = dtype
+        self.dtype = compute_dtype(dtype)
         cin = h_planes + static_planes + dyn_planes
         self.convz = nn.Conv2d(cin, h_planes, kernel, padding=kernel // 2)
         self.convr = nn.Conv2d(cin, h_planes, kernel, padding=kernel // 2)
@@ -126,7 +126,7 @@ class UpdateBlock(nn.Module):
                  aggregation: Sequence[str] = ("mean",),
                  dtype=torch.bfloat16):
         super().__init__()
-        self.dtype = dtype
+        self.dtype = compute_dtype(dtype)
         self.aggregation = tuple(aggregation)
         self.size_disp_enc = size_disp_enc
         self.cor_planes = len(self.aggregation) * num_levels * (2 * radius + 1)

@@ -21,7 +21,8 @@ On CUDA tensors the wrappers launch the hand-written kernels
 ``epiband_backward_dfr``, ``epiband_backward_dfs``), built with ``nvcc`` at
 first use (``ops/cudalib.py``); on CPU tensors they run the plain versions.
 There is no fallback from one to the other. :func:`launch_geometry` sets the
-forward kernel's tile, chunk, copy width, shared memory and grid,
+forward kernel's tile, hypotheses per block, chunk, copy width, shared
+memory and grid,
 :func:`dfs_launch_geometry` the dfs kernel's column window, shared memory and
 grid, :func:`dfr_launch_geometry` the dfr kernel's pixel tile, channel layout,
 shared memory and grid.
@@ -44,11 +45,12 @@ LIB = cudalib.KernelLibrary("epiband", {
     "epiband_backward_dfs": [_p, _p, _p, _p, _p] + [_i] * 10 + [_p],
 })
 KERNELS = ("epiband_fwd", "epiband_bwd_dfr", "epiband_bwd_dfs")
-THREADS = 256        # the forward kernels' block size
-FP32_PIXELS = 8      # the fp32 forward: a warp per rect pixel
-MAX_OUT = 16         # bf16 forward: outputs a thread keeps in registers
+THREADS = 256        # the forward kernel's block size
+MAX_OUT = 16         # forward: outputs a thread keeps in registers
 CHUNK = 128          # bf16 forward: source columns per staged chunk
 REACH_WORDS = 64     # bf16 forward: 32-chunk words of its reached-chunk bitmap
+FP32_TILE = 64       # fp32 forward: rect pixels per block
+FP32_CHUNK = 64      # fp32 forward: source columns per staged chunk
 MAX_GRID_YZ = 65535
 DFS_WARPS = 8        # dfs: warps per block, 32 source columns each
 DFS_CHUNK = 32       # dfs: pixels whose dG rows a block stages at once
@@ -59,16 +61,26 @@ SMEM_LIMIT = 232_448  # dynamic shared memory a block may use (bytes)
 
 @dataclass(frozen=True)
 class Geometry:
-    """The forward kernel's launch: ``tile`` rect pixels per block of
-    ``THREADS``, ``chunk`` source columns per staged chunk (the kernel's
-    compile-time ``kChunk``) and ``vec`` channels per copy (bf16),
-    ``smem_bytes`` of dynamic shared memory and ``grid = (tiles, h_r,
-    V)``. The launcher takes tile, vec and smem_bytes."""
+    """The forward kernel's launch: ``tile`` rect pixels and ``hyps``
+    hypotheses per block of ``THREADS``, ``chunk`` source columns per staged
+    chunk (the kernel's compile-time ``kChunk``), ``vec`` channels per copy,
+    ``smem_bytes`` of dynamic shared memory and ``grid = (tiles * groups,
+    h_r, V)``, ``groups = ceil(D / hyps)``. The launcher takes tile, vec and
+    smem_bytes, and forms hyps as :func:`hyp_group` does."""
     tile: int
+    hyps: int
     chunk: int
     vec: int
     smem_bytes: int
     grid: tuple
+
+
+def hyp_group(tile: int, D: int) -> int:
+    """Hypotheses per block: all D where the tile's outputs fit the
+    threads' registers (tile * D <= THREADS * MAX_OUT), else the fewest
+    equal groups that do (the kernel's ``hyp_group``)."""
+    groups = -(-tile * D // (THREADS * MAX_OUT))
+    return -(-D // groups)
 
 
 @functools.lru_cache(maxsize=256)
@@ -76,32 +88,43 @@ def launch_geometry(V: int, h_r: int, w_r: int, ws: int, C: int, D: int,
                     dtype, align: int = 16) -> Geometry:
     """Launch parameters of ``epiband_forward`` for fr (V, h_r, w_r, C) and
     fs (V, h_r, ws, C) of ``dtype`` whose addresses are multiples of
-    ``align`` bytes, and D hypotheses. fp32: a warp per pixel, no shared
-    memory. bf16: the widest tile of 64, 32 or 16 pixels whose outputs fit
-    the threads' registers (tile * D <= THREADS * MAX_OUT), chunks of CHUNK
-    columns, the widest copy (16 bytes at most) that divides C and the
-    alignment, and the bytes of the kernel's shared-memory layout (``Smem``
-    in ``csrc/epiband.cu``, whose launcher refuses any other count)."""
+    ``align`` bytes, and D hypotheses. bf16: the widest tile of 64, 32 or
+    16 pixels whose outputs fit the threads' registers (tile * D <=
+    THREADS * MAX_OUT), all D hypotheses a block, chunks of CHUNK columns,
+    a bitmap of REACH_WORDS words. fp32: tiles of FP32_TILE pixels, the
+    hypotheses in :func:`hyp_group`'s groups (any D), chunks of FP32_CHUNK
+    columns, a bitmap of one bit per chunk of the row (any ws). Both: the
+    widest copy (16 bytes at most) that divides C and the alignment, and
+    the bytes of the kernel's shared-memory layout (``Smem`` in
+    ``csrc/epiband.cu``, whose launcher refuses any other count)."""
     if max(h_r, V) > MAX_GRID_YZ:
         raise ValueError(f"epiband takes h_r and V up to {MAX_GRID_YZ}, got "
                          f"{h_r} and {V}")
-    if dtype != torch.bfloat16:
-        return Geometry(tile=FP32_PIXELS, chunk=0, vec=2, smem_bytes=0,
-                        grid=(-(-w_r // FP32_PIXELS), h_r, V))
-    fits = [t for t in (64, 32, 16) if t * D <= THREADS * MAX_OUT]
-    if not fits or ws > 32 * REACH_WORDS * CHUNK:
-        raise ValueError(f"the bf16 epiband kernel takes D <= "
-                         f"{THREADS * MAX_OUT // 16} and ws <= "
-                         f"{32 * REACH_WORDS * CHUNK}, got D={D} ws={ws}")
-    tile = fits[0]
-    vec = next(v for v in (8, 4, 2) if C % v == 0 and align % (2 * v) == 0)
-    lds = -(-C // 16) * 16 + 8              # bf16 per staged row
-    smem = ((tile + 2 * CHUNK) * lds * 2    # fr tile, two source chunks
-            # the fp32 G tile, then the output tile (rows of D | 1)
-            + tile * max(CHUNK + 8, D | 1) * 4
-            + 2 * tile * 4 + REACH_WORDS * 4)  # base, sigma, bitmap
-    return Geometry(tile=tile, chunk=CHUNK, vec=vec, smem_bytes=smem,
-                    grid=(-(-w_r // tile), h_r, V))
+    esize = 2 if dtype == torch.bfloat16 else 4
+    if esize == 2:
+        fits = [t for t in (64, 32, 16) if t * D <= THREADS * MAX_OUT]
+        if not fits or ws > 32 * REACH_WORDS * CHUNK:
+            raise ValueError(f"the bf16 epiband kernel takes D <= "
+                             f"{THREADS * MAX_OUT // 16} and ws <= "
+                             f"{32 * REACH_WORDS * CHUNK}, got D={D} ws={ws}")
+        tile, chunk, words = fits[0], CHUNK, REACH_WORDS
+    else:
+        tile, chunk = FP32_TILE, FP32_CHUNK
+        words = -(-(-(-ws // chunk)) // 32)
+    hyps = hyp_group(tile, D)
+    vec = next(v for v in (8, 4, 2)
+               if C % v == 0 and align % (v * esize) == 0 and v * esize <= 16)
+    lds = -(-C // 16) * 16 + 8              # elements per staged row
+    smem = ((tile + 2 * chunk) * lds * esize  # fr tile, two source chunks
+            # the fp32 G tile, then the output tile (rows of hyps | 1)
+            + tile * max(chunk + 8, hyps | 1) * 4
+            + 2 * tile * 4 + words * 4)     # base, sigma, bitmap
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"the epiband forward's bitmap for ws={ws} leaves no "
+                         f"room in a block's shared memory")
+    return Geometry(tile=tile, hyps=hyps, chunk=chunk, vec=vec,
+                    smem_bytes=smem,
+                    grid=(-(-w_r // tile) * -(-D // hyps), h_r, V))
 
 
 @dataclass(frozen=True)
@@ -242,9 +265,10 @@ def _check(fr, fs, base, sigma, n_hyp, s_max):
 
 
 def _check_kernel_args(fr, fs, base, sigma):
-    """What the CUDA kernel adds to :func:`_check`: one channel pair per
-    lane (an even C <= 64), and fr/fs rows read as 2-element vectors, so
-    both must start on a 2-element boundary (base/sigma on 4 bytes)."""
+    """What the CUDA kernels add to :func:`_check`: an even C <= 64 (rows
+    copied and read as channel pairs at least, the gradients' lanes one
+    pair each), so fr and fs must start on a 2-element boundary
+    (base/sigma on 4 bytes)."""
     C = fr.shape[-1]
     if C % 2 or C > 64:
         raise ValueError(f"kernel takes an even channel count <= 64, got {C}")

@@ -11,14 +11,14 @@ Phases (any failure raises, so the exit code is non-zero):
   2. hold the epiband forward kernel against its plain PyTorch version on
      the card at the DTU slice's shapes (stage 0: D=64, base == 0; stage 1:
      D=44 with bases inside and outside the band and with the main path's
-     bases; narrow and wide sigma; fp32 and bf16), and at the bf16
-     kernel's edges (a stage-1 tile band wider than one chunk, tap pairs
+     bases; narrow and wide sigma; fp32 and bf16), and at the kernel's
+     edges (a stage-1 tile band wider than one chunk, tap pairs
      straddling a chunk edge, bases of +-1e5 and NaN, a ragged w_r, C = 44
      and 16); time both stages on the main path's bases, back to back
      (``ms``) and in device time (``device_ms``, a CUDA graph of launches),
-     beside the earlier design's back-to-back time, with bf16 features
-     (the tensor-core kernel) and with fp32 features (the fp32 kernel,
-     which fp32 models take), each beside its bound;
+     with bf16 features (beside the first design's back-to-back time) and
+     with fp32 features (the split 3xTF32 product, beside the first
+     design's device time), each beside its bound;
   3. hold the fused lookup kernels (forward, gradient, prefix-sum) against
      their plain versions at phase 4's (1,1,288,400,D), the demo's
      (1,1,300,400,D) and (1,1,600,800,D) and the training batch's
@@ -32,7 +32,11 @@ Phases (any failure raises, so the exit code is non-zero):
      timed forwards each), and check the result: finite (288, 400)
      disparities, the launch counts, and rectified-vs-exact, kernel-vs-plain
      and fused-vs-banded lookup agreement on a small lateral-motion scene,
-     where rectification is lossless;
+     where rectification is lossless; then the same forward of the fp32
+     model, which the runner builds from the binding ``RAFT.dtype =
+     "float32"`` as a ``-p`` flag gives it, rectified with TF32 off (one
+     warm-up, three timed forwards, s/view, peak memory, the bf16 pass's
+     launch counts, finite disparities);
   5. run ``inference()`` on a two-item in-memory loader and check the PFM
      names;
   6. the demo contract: write a synthetic DTU test scan (11 imaged views of
@@ -136,11 +140,13 @@ NO_LIBRARY = "none: no single PyTorch call computes the pooled 33-tap lookup"
 # atomics into a zeroed fp32 buffer (its memset and cast included), the
 # thread-per-tap lookup forward, the thread-per-cell lookup gradient and
 # the warp-per-pixel prefix-sum lookup (fp32, L2 flushed before each
-# launch).
+# launch); the warp-per-pixel epiband forward with fp32 features in device
+# time (a CUDA graph of launches).
 # Printed in the phases' text beside this run's times; never part of the
 # kernels line, which holds only this run's.
 EARLIER_MS = {"epiband_fwd": {"stage0": 1.537, "stage1": 1.079,
                               "demo_rescale2": 5.125},
+              "epiband_fwd_fp32": {"stage0": 1.4286, "stage1": 1.0031},
               "hat_rows_fwd": {"feature_warp": 0.115,
                                "volume_back_warp": 0.082,
                                "demo_rescale2": 0.480},
@@ -1535,7 +1541,7 @@ def phase_epiband_kernel(torch, plan, model):
                                    f"version ({name}, {dtype})")
 
     # timings on the main path's bases, stage by stage: bf16 features (the
-    # main path's, the tensor-core kernel) and fp32 (the fp32 kernel)
+    # bf16 model's) and fp32 (the fp32 model's, phase 4's last pass)
     stages = {}
     for dtype, suffix in ((torch.bfloat16, ""), (torch.float32, "_fp32")):
         for name, D, base_kind, sig, Cc, _ in (cases[0], cases[4]):
@@ -1553,12 +1559,67 @@ def phase_epiband_kernel(torch, plan, model):
                 shape=[1, plan.h_r, plan.w_r, ws_v, Cc], ms=ms,
                 device_ms=device_ms, plain_ms=plain, bound_ms=bound,
                 bound_by=by)
+            was = (earlier("epiband_fwd", name) if not suffix else
+                   f", first design "
+                   f"{EARLIER_MS['epiband_fwd_fp32'][name]} ms device")
             print(f"phase 2: {name} {str(dtype)[6:]} timing: kernel "
-                  f"{ms:.4f} ms (device {device_ms:.4f})"
-                  f"{earlier('epiband_fwd', name) if not suffix else ''}, "
-                  f"plain {plain:.3f} ms, bound {bound:.4f} ms ({by})",
-                  flush=True)
+                  f"{ms:.4f} ms (device {device_ms:.4f}){was}, plain "
+                  f"{plain:.3f} ms, bound {bound:.4f} ms ({by})", flush=True)
     return max_err, stages
+
+
+def phase_fp32_forward(torch, images, poses, intr, expect):
+    """Phase 4's last pass: the fp32 model, built by the InferenceRunner
+    from the binding ``RAFT.dtype = "float32"`` as a ``-p`` flag gives it,
+    through the rectified construction with TF32 off (cuDNN and matmul):
+    one warm-up, three timed forwards; the bf16 pass's launch counts
+    (``expect``), finite disparities at a quarter of the image size.
+    Returns s/view, peak bytes and launches."""
+    import argparse
+
+    from cermvs_torch import config as pcfg
+    from cermvs_torch.ops import cudalib
+    from cermvs_torch.pipeline.inference import InferenceRunner
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    flags = pcfg.add_cli_flags(argparse.ArgumentParser()).parse_args(
+        ["-p", 'RAFT.dtype = "float32"'])
+    pcfg.clear_config()
+    pcfg.parse_cli(flags)
+    try:
+        runner = InferenceRunner(construction="rectified", device="cuda")
+    finally:
+        pcfg.clear_config()
+    if runner.model.dtype != torch.float32:
+        raise RuntimeError(f"RAFT.dtype = \"float32\" built a "
+                           f"{runner.model.dtype} model")
+    runner(images, poses, intr, 1.0)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cudalib.reset_launches()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        disp = runner.submit(images, poses, intr, 1.0)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {k: cudalib.launches.get(k, 0) for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    d = disp[0].float().cpu().numpy()
+    hw = tuple(n // runner.model.stride_factor for n in images.shape[1:3])
+    print(f"phase 4: rectified fp32 (RAFT.dtype = \"float32\") "
+          f"{[round(t, 4) for t in times]} s/view, path={runner.last_path}, "
+          f"launches={launches} (expected {expect}), peak "
+          f"{peak / 2**30:.2f} GiB, disparity {d.shape} range "
+          f"[{d.min():.3e}, {d.max():.3e}]", flush=True)
+    if runner.last_path != "rectified":
+        raise RuntimeError("the fp32 model did not take the rectified path")
+    check_launches(launches, expect, "fp32 rectified forward")
+    if d.shape != hw or not np.isfinite(d).all():
+        raise RuntimeError(f"bad fp32 disparity: shape {d.shape}, finite "
+                           f"{np.isfinite(d).all()}")
+    return dict(s_per_view=times, peak_bytes=peak, launches=launches)
 
 
 def main():
@@ -1724,6 +1785,7 @@ def main():
                    {"lookup_fused_fwd": sum(s[2] for s in small.cascade)},
                    "fused-lookup forward")
     np.testing.assert_allclose(d_fused, a, rtol=1e-4, atol=1e-8)
+    fp32 = phase_fp32_forward(torch, images, poses, intr, expect)
 
     # ---- phase 5: inference() writes the PFM contract ----------------------
     class _Loader:
@@ -1793,6 +1855,8 @@ def main():
     print(json.dumps({"slice": {
         "rectified_s_per_view": times, "exact_s_per_view": t_exact,
         "rectified_peak_bytes": peak, "exact_peak_bytes": peak_exact,
+        "rectified_fp32_s_per_view": fp32["s_per_view"],
+        "rectified_fp32_peak_bytes": fp32["peak_bytes"],
         "train_s_per_step": training["s_per_step"],
         "train_peak_bytes": training["peak_bytes"],
         "train_steps": training["steps"], "train_plan": training["plan"],

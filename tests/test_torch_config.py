@@ -21,10 +21,14 @@ import torch
 import cermvs_torch
 import cermvs_tpu
 from cermvs_tpu import config as jcfg
+from cermvs_tpu.pipeline.inference import InferenceRunner as JRunner
+from cermvs_tpu.utils.torch_import import convert_raft
 from cermvs_torch import config as pcfg
 from cermvs_torch.models.raft import RAFT
-from cermvs_torch.pipeline.inference import inference
+from cermvs_torch.pipeline.inference import InferenceRunner, inference
 from cermvs_torch.training.step import init_state
+from test_torch_slice import CASCADE as SLICE_CASCADE
+from test_torch_slice import TOL as SLICE_TOL
 from test_torch_slice import _Loader, _scene
 
 CASCADE = ((8, 64, 1), (-1, 320, 1))
@@ -76,14 +80,18 @@ def test_port_configurables_take_every_jax_binding():
     assert {k: v for k, v in missing.items() if v} == {}
 
 
-def _forward(seed=0):
+def _run(model):
     images, poses, intr = _scene(H=32, W=96)
-    model = RAFT(cascade=CASCADE, dtype=torch.float32, device="cpu",
-                 test_mode=True, generator=torch.Generator().manual_seed(seed))
     with torch.no_grad():
         return model(torch.from_numpy(images)[None],
                      torch.from_numpy(poses)[None],
-                     torch.from_numpy(intr)[None]).numpy()
+                     torch.from_numpy(intr)[None]).float().numpy()
+
+
+def _forward(seed=0):
+    return _run(RAFT(cascade=CASCADE, dtype=torch.float32, device="cpu",
+                     test_mode=True,
+                     generator=torch.Generator().manual_seed(seed)))
 
 
 @pytest.mark.parametrize("flag", ["RAFT.remat = False",
@@ -134,3 +142,60 @@ def test_share_bindings_build_their_modules(bindings, flag, modules):
     sd = RAFT(cascade=CASCADE, device="cpu").state_dict()
     assert sorted({k.split(".")[1] for k in sd
                    if k.startswith("update_block.")}) == modules
+
+
+@pytest.mark.parametrize("name,want", [("float32", torch.float32),
+                                       ("bfloat16", torch.bfloat16)])
+def test_dtype_binding_by_name_reaches_every_module(bindings, name, want):
+    """``RAFT.dtype`` bound by name, as the JAX package's gin files and
+    flags bind it: every module that computes in a dtype holds the torch
+    dtype, and the forward is the one of the model built with it."""
+    bindings(f'RAFT.dtype = "{name}"')
+    model = RAFT(cascade=CASCADE, device="cpu", test_mode=True)
+    held = {n: m.dtype for n, m in model.named_modules()
+            if hasattr(m, "dtype")}
+    assert {"", "fnet", "cnet", "update_block", "update_block.gru"} <= set(
+        held)
+    assert set(held.values()) == {want}
+    np.testing.assert_array_equal(
+        _run(model), _run(RAFT(cascade=CASCADE, device="cpu", test_mode=True,
+                               dtype=want)))
+
+
+@pytest.mark.parametrize("name", ["float16", "fp32", "torch.float32"])
+def test_dtype_binding_of_an_unknown_name_raises(bindings, name):
+    bindings(f'RAFT.dtype = "{name}"')
+    with pytest.raises(ValueError, match="'bfloat16', 'float32'"):
+        RAFT(cascade=CASCADE, device="cpu")
+
+
+def test_float32_binding_matches_jax_on_the_slice(bindings):
+    """``RAFT.dtype = "float32"`` bound in both packages: the port's
+    InferenceRunner, its model built from the binding, gives the JAX
+    package's disparities on test_torch_slice's scene, rectified, at that
+    file's tolerance (its module docstring says why)."""
+    seeded = RAFT(cascade=SLICE_CASCADE, dtype=torch.float32, device="cpu",
+                  generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for i in range(len(SLICE_CASCADE)):
+            getattr(seeded.update_block, f"delta{i}")[2].weight.mul_(1e-3)
+    params = convert_raft({k: v.numpy()
+                           for k, v in seeded.state_dict().items()})
+    images, poses, intr = _scene()
+    bindings('RAFT.dtype = "float32"')
+    jcfg.clear_config()
+    jcfg.parse_config(['RAFT.dtype = "float32"'])
+    try:
+        jr = JRunner(params, construction="rectified", cascade=SLICE_CASCADE,
+                     rect_lambda_max=0.1)
+        dj = np.asarray(jr.submit(images, poses, intr, 1.0))[0]
+    finally:
+        jcfg.clear_config()
+    pr = InferenceRunner(params=params, construction="rectified",
+                         cascade=SLICE_CASCADE, rect_lambda_max=0.1,
+                         device="cpu")
+    assert pr.model.dtype == torch.float32 and jr.model.dtype == "float32"
+    dp = pr.submit(images, poses, intr, 1.0)[0].numpy()
+    assert pr.last_path == jr._last_path == "rectified"
+    assert np.abs(dj).max() > 1e-4
+    np.testing.assert_allclose(dp, dj, **SLICE_TOL)

@@ -141,6 +141,119 @@ def test_kernel_edges_match_plain(cuda_device, dtype, rtol, atol, name, w_r,
                                equal_nan=True)
 
 
+# (id, w_r, ws, C, D, base kind, sigma range): the fp32 kernel's own edges:
+# hypotheses in groups of at most 64 (one block each, the last shorter),
+# and a row of more than 64 of its 64-column chunks, whose far chunks the
+# bitmap marks in shared memory, not in registers
+FP32_EDGE_CASES = [
+    ("groups_65", 100, 700, 64, 65, "band", (1.0, 3.0)),
+    ("groups_100_stage0", 128, 900, 64, 100, None, (4.0, 6.0)),
+    ("groups_257", 45, 600, 44, 257, "band", (0.5, 1.5)),
+    ("row_of_94_chunks", 128, 6000, 64, 44, "band", (0.5, 1.5)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,w_r,ws,C,D,base_kind,sig", FP32_EDGE_CASES,
+                         ids=[c[0] for c in FP32_EDGE_CASES])
+def test_fp32_kernel_groups_and_wide_rows_match_plain(cuda_device, name, w_r,
+                                                      ws, C, D, base_kind,
+                                                      sig):
+    """Shapes the bf16 kernel refuses or never meets: every output is
+    written (``out`` starts as NaN) and matches the plain version."""
+    rng = np.random.RandomState(10)
+    fr, fs, base, sigma, s_max = edge_inputs(rng, w_r, ws, C, D, base_kind,
+                                             sig)
+    fr, fs = (torch.from_numpy(a).to(cuda_device) for a in (fr, fs))
+    base = None if base is None else torch.from_numpy(base).to(cuda_device)
+    sigma = torch.from_numpy(sigma).to(cuda_device)
+    out = torch.full((1, 4, w_r, D), float("nan"), device=cuda_device)
+    eb._launch(fr, fs, base, sigma, D, s_max, out=out)
+    torch.cuda.synchronize()
+    ref = eb.epiband_reference(fr, fs, base, sigma, D, s_max)
+    assert not bool(out.isnan().any())
+    assert float(ref.abs().max()) > 1.0
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 1e-4, 1e-3),
+                                             (torch.bfloat16, 1e-3, 1e-2)])
+@pytest.mark.parametrize("C", [64, 44])
+def test_kernel_takes_features_two_elements_in(cuda_device, dtype, rtol,
+                                               atol, C):
+    """fr and fs two elements into their storage (8 bytes for fp32, 4 for
+    bf16): the copies narrow to channel pairs, and the result holds."""
+    rng = np.random.RandomState(12)
+    fr, fs, base, sigma, s_max = edge_inputs(rng, 100, 400, C, 44, "band",
+                                             (0.5, 1.5))
+
+    def shifted(a):
+        flat = torch.zeros(a.size + 2, device=cuda_device, dtype=dtype)
+        flat[2:] = torch.from_numpy(a.reshape(-1)).to(cuda_device, dtype)
+        return flat[2:].view(a.shape)
+
+    fr, fs = shifted(fr), shifted(fs)
+    base, sigma = (torch.from_numpy(a).to(cuda_device) for a in (base, sigma))
+    geo = eb.launch_geometry(1, 4, 100, 400, C, 44, dtype,
+                             min(cudalib.pointer_alignment(fr),
+                                 cudalib.pointer_alignment(fs)))
+    assert geo.vec == 2
+    out = eb.epiband(fr, fs, base, sigma, 44, s_max)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out, eb.epiband_reference(fr, fs, base, sigma, 44, s_max), rtol=rtol,
+        atol=atol)
+
+
+# sha256 prefixes of the bf16 forward's outputs on ``forward_digest_case``'s
+# inputs, phase 2's two stage shapes, taken from the kernel before it was
+# templated for fp32 (NVIDIA H100 80GB HBM3, CUDA 12.8): they must not change
+BF16_FORWARD_DIGESTS = {0: "26d26def6eb64317", 1: "739c76e5762ab735"}
+
+
+def forward_digest_case(dev, stage):
+    """Phase 2's stage shapes (the inference plan's widest view, (1, 512,
+    512) pixels against 1104 source columns, C = 64): stage 0, D = 64 with
+    base == 0; stage 1, D = 44 with bases as the main path forms them
+    (sigma * (5 k0 - 22), k0 a smooth stage-0 estimate), bf16 features."""
+    rng = np.random.default_rng(31 + stage)
+    fr = rng.standard_normal((1, 512, 512, 64), dtype=np.float32)
+    fs = rng.standard_normal((1, 512, 1104, 64), dtype=np.float32)
+    sig = (4.26, 5.64) if stage == 0 else (0.85, 1.13)
+    sigma = rng.uniform(*sig, (1, 512, 512)).astype(np.float32)
+    base = None
+    if stage == 1:
+        yy, xx = np.meshgrid(np.linspace(0, 1, 512), np.linspace(0, 1, 512),
+                             indexing="ij")
+        k0 = 63 * (0.5 + 0.25 * np.sin(2 * np.pi * xx)
+                   + 0.25 * np.cos(2 * np.pi * yy))
+        k0 = np.clip(k0 + rng.uniform(-0.5, 0.5, k0.shape), 0, 63)
+        base = torch.from_numpy(
+            (sigma * (5.0 * k0 - 22.0)).astype(np.float32)).to(dev)
+    fr, fs = (torch.from_numpy(a).to(dev, torch.bfloat16) for a in (fr, fs))
+    return fr, fs, base, torch.from_numpy(sigma).to(dev), (64, 44)[stage]
+
+
+def forward_digests(dev):
+    """{stage: sha256 prefix of the bf16 forward's output}."""
+    import hashlib
+
+    got = {}
+    for stage in (0, 1):
+        fr, fs, base, sigma, D = forward_digest_case(dev, stage)
+        out = eb.epiband(fr, fs, base, sigma, D, 576)
+        torch.cuda.synchronize()
+        got[stage] = hashlib.sha256(
+            out.cpu().numpy().tobytes()).hexdigest()[:16]
+    return got
+
+
+@pytest.mark.cuda
+def test_bf16_forward_outputs_unchanged(cuda_device):
+    assert forward_digests(cuda_device) == BF16_FORWARD_DIGESTS
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("C,offset", [(64, 0), (44, 0), (3, 0), (64, 1)])

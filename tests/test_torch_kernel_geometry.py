@@ -62,13 +62,120 @@ def test_epiband_geometry(shape, C, dtype):
     assert geo.grid[1:] == (h_r, V)
     assert geo.grid[0] * geo.tile >= w_r > (geo.grid[0] - 1) * geo.tile
     assert C % geo.vec == 0
+    esize = 2 if dtype == torch.bfloat16 else 4
+    assert geo.vec * esize <= 16
     if dtype == torch.float32:
-        assert (geo.tile, geo.smem_bytes) == (eb.FP32_PIXELS, 0)
+        words = -(-(-(-ws // eb.FP32_CHUNK)) // 32)
+        layout = forward_layout(eb.FP32_TILE, C, D, eb.FP32_CHUNK, words, 4)
+        assert (geo.tile, geo.hyps, geo.chunk) == (eb.FP32_TILE, D,
+                                                    eb.FP32_CHUNK)
+        assert geo.smem_bytes == layout["total"]
+        # three blocks an SM (228 KB, 1 KB of it reserved per block)
+        assert 3 * (geo.smem_bytes + 1024) <= 228 * 1024
         return
     assert geo.tile in (16, 32, 64) and geo.tile * D <= (
         eb.THREADS * eb.MAX_OUT)
     assert geo.chunk % 64 == 0 and ws <= 32 * eb.REACH_WORDS * geo.chunk
-    assert geo.vec * 2 <= 16
+    assert geo.smem_bytes == forward_layout(geo.tile, C, D, eb.CHUNK,
+                                            eb.REACH_WORDS, 2)["total"]
+
+
+def forward_layout(tile, C, hyps, chunk, words, esize):
+    """Offsets (bytes) of the forward's shared-memory layout, as ``Smem``
+    in ``csrc/epiband.cu`` sets them: staged rows of lds elements, G rows of
+    gs floats, output rows of os floats."""
+    lds = (C + 15) // 16 * 16 + 8
+    gs, os_ = chunk + 8, hyps | 1
+    b = tile * lds * esize
+    g = b + 2 * chunk * lds * esize
+    prm = g + tile * max(gs, os_) * 4
+    reach = prm + 2 * tile * 4
+    return dict(lds=lds, gs=gs, os=os_, b=b, g=g, prm=prm, reach=reach,
+                total=reach + words * 4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("C", [64, 44, 16, 2])
+def test_epiband_layout_banks_and_alignment(C, dtype):
+    """The staged rows' stride gives conflict-free fragment loads: bf16, an
+    odd number of 16-byte units (ldmatrix's eight rows); fp32, 8 words past
+    a multiple of 16 (a half-warp's float2 loads, rows g..g+3 at words 2t
+    and 2t + 1). G rows are 8 words past a multiple of 32 (the float2
+    stores of rows g..g+3). Every region starts on 16 bytes (uint4 zeroing,
+    16-byte cp.async)."""
+    esize = 2 if dtype == torch.bfloat16 else 4
+    chunk = eb.CHUNK if esize == 2 else eb.FP32_CHUNK
+    lay = forward_layout(64, C, 64, chunk, 1, esize)
+    if esize == 2:
+        assert lay["lds"] * 2 % 16 == 0 and lay["lds"] * 2 // 16 % 2 == 1
+    else:
+        assert lay["lds"] % 16 == 8
+        halfwarp = {(g * lay["lds"] + 2 * t + j) % 32 for g in range(4)
+                    for t in range(4) for j in range(2)}
+        assert len(halfwarp) == 32
+    assert lay["gs"] % 32 == 8
+    assert all(lay[k] % 16 == 0 for k in ("b", "g", "prm", "reach"))
+
+
+# D -> (hypotheses per block, groups) of the fp32 forward (tile 64): all D
+# up to 64, else the fewest equal groups of at most 64
+FP32_GROUPS = {8: (8, 1), 44: (44, 1), 64: (64, 1), 65: (33, 2),
+               100: (50, 2), 128: (64, 2), 257: (52, 5), 1000: (63, 16)}
+
+
+@pytest.mark.parametrize("D,want", list(FP32_GROUPS.items()),
+                         ids=[str(d) for d in FP32_GROUPS])
+def test_epiband_fp32_groups_cover_every_hypothesis(D, want):
+    """Each block's threads keep hypotheses k0 + warp + 8 i (8 warps, 8
+    slots, below its group's end): over the groups, every k in [0, D)
+    once."""
+    geo = eb.launch_geometry(1, 4, 300, 700, 64, D, torch.float32)
+    groups = -(-D // geo.hyps)
+    assert (geo.hyps, groups) == want
+    assert geo.grid == (-(-300 // 64) * groups, 4, 1)
+    assert geo.smem_bytes == forward_layout(64, 64, geo.hyps, 64, 1,
+                                            4)["total"]
+    seen = []
+    for g in range(groups):
+        k0, k_end = g * geo.hyps, min(D, (g + 1) * geo.hyps)
+        seen += [k0 + w + 8 * i for i in range(8) for w in range(8)
+                 if k0 + w + 8 * i < k_end]
+    assert sorted(seen) == list(range(D))
+
+
+@pytest.mark.parametrize("kw", [dict(D=257), dict(ws=262145),
+                                dict(D=1000, ws=1_000_000)])
+def test_epiband_fp32_takes_what_bf16_refuses(kw):
+    """The bf16 caps (tile * D <= 4096, a 64-word bitmap) are not the fp32
+    kernel's: it groups hypotheses and sizes its bitmap by ws."""
+    args = dict(V=1, h_r=8, w_r=128, ws=300, C=64, D=64)
+    args.update(kw)
+    with pytest.raises(ValueError):
+        eb.launch_geometry(**args, dtype=torch.bfloat16)
+    geo = eb.launch_geometry(**args, dtype=torch.float32)
+    words = -(-(-(-args["ws"] // 64)) // 32)
+    assert geo.smem_bytes == forward_layout(64, 64, geo.hyps, 64, words,
+                                            4)["total"] <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("kw", [dict(h_r=65536), dict(V=65536),
+                                dict(ws=2 ** 27)])
+def test_epiband_fp32_geometry_refuses_its_edges(kw):
+    """A grid past 65535 rows or views, and a row whose bitmap leaves no
+    room in a block's shared memory."""
+    args = dict(V=1, h_r=8, w_r=128, ws=300, C=64, D=64)
+    args.update(kw)
+    with pytest.raises(ValueError):
+        eb.launch_geometry(**args, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("C,align,vec", [(64, 16, 4), (64, 8, 2),
+                                         (44, 16, 4), (16, 16, 4), (6, 16, 2),
+                                         (2, 16, 2)])
+def test_epiband_fp32_copy_width_follows_channels_and_alignment(C, align,
+                                                                vec):
+    geo = eb.launch_geometry(1, 4, 128, 300, C, 44, torch.float32, align)
+    assert geo.vec == vec
 
 
 @pytest.mark.parametrize("D", [8, 64, 100, 200, 256])
@@ -571,3 +678,48 @@ def test_lookup_v2_prefix_in_place_matches_plain(D, radius, levels):
         got, lk.lookup_fused_reference(ct, xt, radius, levels).numpy(),
         rtol=2e-3, atol=2e-3)
     assert np.array_equal(np.isnan(got).any(1), np.isnan(x0))
+
+
+def tf32_rna(x):
+    """fp32 values rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero: ``cvt.rna.tf32.f32``."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def tf32_product(a, b, split):
+    """G = a . b^T as the fp32 forward's mma.sync m16n8k8 steps form it:
+    per 8-channel step, each pass's eight TF32 products (exact) added to
+    the fp32 accumulator. ``split``: the 3xTF32 passes A_lo B_hi, A_hi B_lo,
+    A_hi B_hi; else one pass of A_hi B_hi."""
+    ah, bh = tf32_rna(a), tf32_rna(b)
+    al, bl = tf32_rna(a - ah), tf32_rna(b - bh)
+    passes = [(al, bh), (ah, bl), (ah, bh)] if split else [(ah, bh)]
+    acc = np.zeros((a.shape[0], b.shape[0]), np.float32)
+    for k in range(0, a.shape[1], 8):
+        for x, y in passes:
+            step = x[:, k:k + 8].astype(np.float64) @ y[:, k:k + 8].astype(
+                np.float64).T
+            acc = (acc + step).astype(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("C", [64, 44, 16])
+def test_split_tf32_product_holds_the_fp32_tolerance(C):
+    """The fp32 forward's G tile over phase 2's values (standard normal
+    features, a 64-pixel tile against a 1104-column row) against fp64
+    products: the split product's worst error is under 5% of what rtol
+    1e-4 / atol 1e-3 allow, where one TF32 pass exceeds it."""
+    rng = np.random.RandomState(C)
+    a = rng.randn(64, C).astype(np.float32)
+    b = rng.randn(1104, C).astype(np.float32)
+    exact = a.astype(np.float64) @ b.astype(np.float64).T
+    allowed = 1e-3 + 1e-4 * np.abs(exact)
+
+    def worst(split):
+        return float((np.abs(tf32_product(a, b, split) - exact)
+                      / allowed).max())
+
+    assert worst(split=True) < 0.05
+    assert worst(split=False) > 1.0
