@@ -15,7 +15,8 @@ be used.
 Volume interface (shared with ``corr.ExactVolume``): :meth:`prepare` does
 the stage-independent work once per forward — the rect geometry and the
 warped (ref, src) feature rows of every view — and :meth:`build` makes one
-cascade stage's volume from that context.
+cascade stage's volume from that context. :class:`MixedVolume` combines the
+two constructions for scenes where only some neighbours can be rectified.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from cermvs_torch.ops import rectify
+from cermvs_torch.ops.corr import ExactVolume
 from cermvs_torch.ops.epiband import epiband, epiband_reference
 from cermvs_torch.ops.rectify import RectPlan
 
@@ -180,3 +182,57 @@ class RectifiedVolume:
 def make_rectified_volume_fn(plan: RectPlan, impl: str = "kernel"):
     """The rectified construction RAFT takes as ``volume_fn``."""
     return RectifiedVolume(plan, impl)
+
+
+class MixedVolume:
+    """The mixed construction: rectified volume slices for the neighbours in
+    ``rect_views``, exact gathers for the rest.
+
+    ``plan`` and ``rect_views`` come from
+    :func:`rectify.plan_rectification_partial` (the plan's per-view entries
+    follow ``rect_views``). With ``mean_over_views`` the two means combine
+    as ``(vol_r * |rect| + vol_e * |exact|) / V``; otherwise the per-view
+    volumes come back in the original jj order."""
+
+    def __init__(self, plan: RectPlan, rect_views, impl: str = "kernel"):
+        self.rect_views = tuple(int(v) for v in rect_views)
+        self.rect = RectifiedVolume(plan, impl)
+        self.exact = ExactVolume()
+
+    def prepare(self, fmaps, poses, intrinsics, ii, jj, feature_dtype):
+        V = int(jj.shape[0])
+        ev = [v for v in range(V) if v not in self.rect_views]
+        if not ev:
+            raise ValueError("all views rectifiable: use "
+                             "make_rectified_volume_fn")
+        rv_t = torch.tensor(self.rect_views, device=jj.device)
+        ev_t = torch.tensor(ev, device=jj.device)
+        ctx_r = self.rect.prepare(fmaps, poses, intrinsics,
+                                  ii[:len(self.rect_views)], jj[rv_t],
+                                  feature_dtype)
+        ctx_e = self.exact.prepare(fmaps, poses, intrinsics, ii[:len(ev)],
+                                   jj[ev_t], feature_dtype)
+        return ctx_r, ctx_e, ev
+
+    def build(self, ctx, origin, n_hyp, incre, hyp_chunk=16,
+              mean_over_views=False, zero_slab=False):
+        ctx_r, ctx_e, ev = ctx
+        rv = self.rect_views
+        vol_r = self.rect.build(ctx_r, origin, n_hyp, incre, hyp_chunk,
+                                mean_over_views, zero_slab)
+        vol_e = self.exact.build(ctx_e, origin, n_hyp, incre, hyp_chunk,
+                                 mean_over_views)
+        V = len(rv) + len(ev)
+        if mean_over_views:
+            return (vol_r * len(rv) + vol_e * len(ev)) / V
+        parts = [None] * V
+        for k, v in enumerate(rv):
+            parts[v] = vol_r[:, k]
+        for k, v in enumerate(ev):
+            parts[v] = vol_e[:, k]
+        return torch.stack(parts, 1)
+
+
+def make_mixed_volume_fn(plan: RectPlan, rect_views, impl: str = "kernel"):
+    """The mixed construction RAFT takes as ``volume_fn``."""
+    return MixedVolume(plan, rect_views, impl)

@@ -21,7 +21,8 @@ with per-view principal offsets that center the warped reference image.
 Two halves:
   * a host planner in numpy (float64): :func:`plan_rectification` decides
     whether a scene can use the rectified path and with which grid sizes
-    (:class:`RectPlan`);
+    (:class:`RectPlan`), :func:`plan_rectification_partial` plans the subset
+    of neighbours that can;
   * in-graph geometry and warps as torch ops in float32:
     :func:`rect_geometry`, :func:`warp_image` (quad bilinear),
     :func:`warp_image_twopass` (two 1-D hat resamples).
@@ -296,6 +297,48 @@ def plan_rectification(poses: np.ndarray, intrinsics: np.ndarray, h: int,
                     rate_lo=float(lo), rate_hi=float(hi),
                     view_rates=view_rates, view_s_max=view_s_max,
                     twopass=twopass)
+
+
+def plan_rectification_partial(poses: np.ndarray, intrinsics: np.ndarray,
+                               h: int, w: int, **kwargs
+                               ) -> Tuple[RectPlan, Tuple[int, ...]]:
+    """Plan over the subset of neighbours that pass the per-pair gates (the
+    mixed construction, ``corr_rectified.MixedVolume``).
+
+    The full planner rejects a scene when any pair fails; forward-motion
+    sequences usually keep several lateral neighbours. Returns ``(plan,
+    rect_views)``: ``rect_views`` are 0-based neighbour positions (indices
+    into jj), ascending, and ``plan``'s per-view entries follow that order.
+    No view passing gives a plan that is not ok and ``()``; all passing
+    gives :func:`plan_rectification`'s plan."""
+    poses = np.asarray(poses, np.float64)
+    intrinsics = np.asarray(intrinsics, np.float64)
+    if poses.ndim == 4:
+        if poses.shape[0] != 1:
+            return _reject("rectified path requires B==1"), ()
+        poses, intrinsics = poses[0], intrinsics[0]
+    N = poses.shape[0]
+    ok = [v - 1 for v in range(1, N)
+          if plan_rectification(poses[[0, v]], intrinsics[[0, v]], h, w,
+                                **kwargs).ok]
+    if not ok:
+        return _reject("no rectifiable view"), ()
+    sub = [0] + [v + 1 for v in ok]
+    return (plan_rectification(poses[sub], intrinsics[sub], h, w, **kwargs),
+            tuple(ok))
+
+
+def rect_cost_ratio(plan: RectPlan, h: int, w: int, n_views: int,
+                    d0: int = 64) -> float:
+    """Planned epiband work per unit of exact-construction work, at feature
+    resolution: the rectified rows swept (``h_r x (w_r + view_s_max)`` per
+    view) over the exact gathers' ``h x w x d0`` samples per view. The
+    optional gate ``InferenceRunner(rect_cost_ratio_max=)`` reads it."""
+    views = (plan.view_s_max if plan.view_s_max
+             else (plan.s_max,) * max(n_views, 1))
+    rect = plan.h_r * sum(plan.w_r + s for s in views)
+    exact = h * w * d0 * max(n_views, 1)
+    return rect / max(exact, 1)
 
 
 def plan_union(plans) -> RectPlan:

@@ -1,23 +1,36 @@
-"""Depth-map inference (one device, one reference view per forward).
+"""Depth-map inference on one device.
 
 ``InferenceRunner`` owns the model and picks the cost-volume construction
-per scene; ``inference()`` runs every reference view of a loader and writes
-``depths/{ref}_scale{rescale}_nf{num_frames}.pfm`` (plus optional per-view
-min-depth files).
+per batch; ``inference()`` runs every reference view of a loader as a
+software pipeline and writes ``depths/{ref}_scale{rescale}_nf{num_frames}.pfm``
+(plus optional per-view min-depth files).
 
-Construction routing:
+Construction routing, one reference view a forward:
   * "exact": the gather construction (``ops/corr.py``);
   * "rectified": the rectified construction (``ops/corr_rectified.py``) when
     the host planner accepts the scene and its warped features fit
-    ``rect_memory_budget``, else exact with a printed notice;
-  * "auto": the same decision, silently.
+    ``rect_memory_budget``; else the mixed construction
+    (``corr_rectified.MixedVolume``) when a subset of the neighbours can be
+    rectified; else exact, with a printed notice;
+  * "auto": the same decision, silently, plus the optional work gate
+    ``rect_cost_ratio_max``.
+A batch of several reference views runs exact under "auto"; under
+"rectified" the samples' plans are unioned (with a warning).
+
+The pipeline: a thread prepares items two ahead (scale, crop, pad, the bf16
+cast) and, with ``device_prefetch`` on a CUDA runner, casts into pinned
+memory and uploads on the runner's own stream; batch i is dispatched before
+batch i-1 is fetched and written.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 import time
+import warnings
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -27,12 +40,91 @@ from cermvs_torch.data.augment import (crop_operation, pad_to_multiple,
                                        scale_operation)
 from cermvs_torch.io.pfm import write_pfm
 from cermvs_torch.models.raft import RAFT
-from cermvs_torch.ops.corr_rectified import make_rectified_volume_fn
-from cermvs_torch.ops.rectify import RectPlan, plan_rectification
+from cermvs_torch.ops.corr_rectified import (make_mixed_volume_fn,
+                                             make_rectified_volume_fn)
+from cermvs_torch.ops.rectify import (PlanCache, RectPlan,
+                                      plan_rectification,
+                                      plan_rectification_partial, plan_union,
+                                      rect_cost_ratio)
+
+
+def _prefetched(iterable, fn, depth: int = 2):
+    """Apply ``fn`` to the items of ``iterable`` in one background thread,
+    ``depth`` items ahead, so host preparation overlaps the device.
+
+    Cancellation-safe: when the consumer abandons the generator (a break,
+    or an exception downstream closes it), the worker sees the stop event at
+    its next bounded put and exits instead of blocking on a full queue. An
+    exception in the worker is raised in the consumer."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    end = object()
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in iterable:
+                if not put(fn(item)):
+                    return
+        except BaseException as e:  # raised again in the consumer
+            if not put(e):
+                return
+        put(end)
+
+    threading.Thread(target=worker, name="inference-prep",
+                     daemon=True).start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+
+
+def to_bf16(images, pin: bool = False) -> torch.Tensor:
+    """Float frames (numpy) -> a bf16 tensor on the host, in pinned memory
+    when ``pin``. One pass in torch, which releases the GIL, so the cast
+    overlaps the forward's dispatch when it runs in the prep thread."""
+    src = torch.from_numpy(np.asarray(images, np.float32))
+    return torch.empty(src.shape, dtype=torch.bfloat16,
+                       pin_memory=pin).copy_(src)
+
+
+class Upload(NamedTuple):
+    """Frames copied to the device on the runner's upload stream; ``done``
+    is recorded on that stream after the copy."""
+
+    frames: torch.Tensor
+    done: "torch.cuda.Event"
+
+    @property
+    def shape(self):
+        return self.frames.shape
+
+
+class Fetch(NamedTuple):
+    """Disparities on their way to the host: ``disp`` is a pinned host
+    tensor and ``done`` an event after its copy, or ``disp`` is the tensor
+    itself and ``done`` None (CPU)."""
+
+    disp: torch.Tensor
+    done: Optional["torch.cuda.Event"]
 
 
 class InferenceRunner:
-    """Test-mode RAFT on one device with per-scene construction routing.
+    """Test-mode RAFT on one device with per-batch construction routing.
 
     ``model``: a port ``RAFT`` (its weights are used as they are); otherwise
     one is built from ``model_kwargs`` and, if given, loaded with the JAX
@@ -40,10 +132,25 @@ class InferenceRunner:
     """
 
     def __init__(self, model: Optional[RAFT] = None, params=None,
-                 construction: str = "auto",
+                 mesh=None, construction: str = "auto",
                  rect_lambda_max: float = 0.00375,
-                 rect_memory_budget: float = 6e9, device="cuda",
+                 rect_memory_budget: float = 6e9,
+                 rect_cost_ratio_max: Optional[float] = None,
+                 max_k_chunks: Optional[int] = None, device="cuda",
                  **model_kwargs):
+        """``rect_cost_ratio_max``: the optional "auto" work gate: a plan
+        whose epiband work per unit of exact work
+        (``rectify.rect_cost_ratio``, at feature resolution) exceeds it runs
+        exact. ``max_k_chunks`` is the JAX package's cap on its epiband
+        kernel's hypothesis chunks, one of its Mosaic VMEM gates; it is
+        accepted so that both packages take the same arguments, and changes
+        nothing: the port's kernel takes any window (ROADMAP North star).
+        ``mesh`` (views sharded over devices) is not ported: anything but
+        None raises."""
+        del max_k_chunks
+        if mesh is not None:
+            raise NotImplementedError("inference over a device mesh is not "
+                                      "ported yet (ROADMAP Queue 1 item 6)")
         if construction not in ("auto", "exact", "rectified"):
             raise ValueError(f"unknown construction {construction!r}")
         self.device = torch.device(device)
@@ -60,35 +167,80 @@ class InferenceRunner:
         # device-memory cap for the rectified path's warped feature rows
         # (shared across cascade stages): ~2*V*h_r*(w_r+ws_r)*C bytes
         self.rect_memory_budget = rect_memory_budget
-        self._volumes: Dict[RectPlan, object] = {}
+        self.rect_cost_ratio_max = rect_cost_ratio_max
+        self._volumes: Dict[object, object] = {}
+        # batched rectified dispatch keys its constructions through a
+        # PlanCache, so plans across batches stay few
+        self._plan_cache = PlanCache()
         self._warned_fallback = False
+        self._warned_batched_rect = False
         self.last_path = "exact"
+        # the stream inference()'s prep thread uploads frames on
+        self.upload_stream = (torch.cuda.Stream(self.device)
+                              if self.device.type == "cuda" else None)
+
+    def _feature_geometry(self, poses, intrinsics, scale, img_shape):
+        """Poses with scaled translations (RAFT scales them) and intrinsics
+        at the feature stride, float64, and the feature grid (h, w)."""
+        f = self.model.stride_factor
+        poses = np.asarray(poses, np.float64).copy()
+        poses[..., :3, 3] *= float(scale)
+        intr = np.asarray(intrinsics, np.float64).copy()
+        intr[..., :2, :] /= f
+        return poses, intr, img_shape[0] // f, img_shape[1] // f
+
+    def _rect_bytes(self, plan: RectPlan, n_views: int, batch: int = 1):
+        return (2 * batch * n_views * plan.h_r * (plan.w_r + plan.ws_r)
+                * self.model.dim_fmap)
 
     def plan_for(self, poses, intrinsics, scale, img_shape) -> RectPlan:
         """Host-side rectification plan on the scaled, feature-stride
-        geometry (not ok when the exact path must be used)."""
-        f = self.model.stride_factor
-        poses = np.asarray(poses, np.float64).copy()
-        poses[..., :3, 3] *= float(scale)  # RAFT scales translations
-        intr = np.asarray(intrinsics, np.float64).copy()
-        intr[..., :2, :] /= f
-        plan = plan_rectification(poses, intr, img_shape[0] // f,
-                                  img_shape[1] // f,
+        geometry (not ok when the rectified construction must not be
+        used)."""
+        poses, intr, h, w = self._feature_geometry(poses, intrinsics, scale,
+                                                   img_shape)
+        plan = plan_rectification(poses, intr, h, w,
                                   lambda_max=self.rect_lambda_max)
         if plan.ok:
             V = poses.shape[0] - 1
-            rect_bytes = (2 * V * plan.h_r * (plan.w_r + plan.ws_r)
-                          * self.model.dim_fmap)
+            rect_bytes = self._rect_bytes(plan, V)
             if rect_bytes > self.rect_memory_budget:
                 plan = RectPlan(0, 0, 0, 0, False,
                                 f"rect features ~{rect_bytes / 1e9:.1f} GB "
                                 f"exceed budget")
+            elif (self.construction == "auto"
+                  and self.rect_cost_ratio_max is not None):
+                ratio = rect_cost_ratio(plan, h, w, V,
+                                        d0=self.model.cascade[0][0])
+                if ratio > self.rect_cost_ratio_max:
+                    plan = RectPlan(0, 0, 0, 0, False,
+                                    f"planned epiband work ratio "
+                                    f"{ratio:.1f} > "
+                                    f"{self.rect_cost_ratio_max:.1f}")
         if (not plan.ok and self.construction == "rectified"
                 and not self._warned_fallback):
             print(f"[inference] rectified construction unavailable "
                   f"({plan.reason}); using exact path")
             self._warned_fallback = True
         return plan
+
+    def mixed_plan(self, poses, intrinsics, scale, img_shape):
+        """The mixed construction's ``(plan, rect_views)`` over the
+        neighbours that pass the per-pair gates, or ``(None, None)`` when
+        the exact path must be used: none or all of them pass, or their
+        warped features exceed ``rect_memory_budget``. The JAX package also
+        drops views whose windows exceed its Mosaic VMEM budget; the port's
+        kernel has no such budget (ROADMAP North star)."""
+        poses, intr, h, w = self._feature_geometry(poses, intrinsics, scale,
+                                                   img_shape)
+        plan, rect_views = plan_rectification_partial(
+            poses, intr, h, w, lambda_max=self.rect_lambda_max)
+        if (not plan.ok or not rect_views
+                or len(rect_views) == poses.shape[0] - 1
+                or (self._rect_bytes(plan, len(rect_views))
+                    > self.rect_memory_budget)):
+            return None, None
+        return plan, rect_views
 
     @staticmethod
     def neighbor_order(poses) -> np.ndarray:
@@ -100,43 +252,155 @@ class InferenceRunner:
             [[0], 1 + np.argsort(np.linalg.norm(centers, axis=-1),
                                  kind="stable")])
 
-    def submit(self, images, poses, intrinsics, scale) -> torch.Tensor:
-        """images (N, H, W, 3) in [0, 255] -> disparity (1, h, w) on device.
+    def _volume(self, key, make):
+        if key not in self._volumes:
+            self._volumes[key] = make()
+        return self._volumes[key]
 
-        Images cross to the device in bf16, as the model's encoders compute
-        in bf16 regardless."""
-        images = np.asarray(images, np.float32)
+    def _route_one(self, poses, intrinsics, scale, img_shape):
+        """One reference view: (volume construction or None, route)."""
+        plan = self.plan_for(poses, intrinsics, scale, img_shape)
+        if plan.ok:
+            return (self._volume(plan, lambda: make_rectified_volume_fn(plan)),
+                    "rectified")
+        pplan, rect_views = self.mixed_plan(poses, intrinsics, scale,
+                                            img_shape)
+        if pplan is None:
+            return None, "exact"
+        return (self._volume((pplan, rect_views),
+                             lambda: make_mixed_volume_fn(pplan, rect_views)),
+                "mixed")
+
+    def _route_batch(self, images, poses, intrinsics, scales):
+        """A batch under "rectified": each sample's neighbours in baseline
+        order, the union of the samples' plans under the B-scaled memory
+        budget, keyed through the PlanCache. Returns (volume construction
+        or None for exact, images, poses, intrinsics), the arrays reordered
+        either way."""
+        B = images.shape[0]
+        orders = [self.neighbor_order(poses[b]) for b in range(B)]
+        images = torch.stack([
+            images[b, torch.as_tensor(o, device=images.device)]
+            for b, o in enumerate(orders)])
+        poses = np.stack([poses[b][o] for b, o in enumerate(orders)])
+        intrinsics = np.stack([intrinsics[b][o]
+                               for b, o in enumerate(orders)])
+        plans = [self.plan_for(poses[b], intrinsics[b], scales[b],
+                               images.shape[2:4]) for b in range(B)]
+        plan = plan_union(plans)
+        if (not all(p.ok for p in plans) or not plan.ok
+                or (self._rect_bytes(plan, poses.shape[1] - 1, B)
+                    > self.rect_memory_budget)):
+            return None, images, poses, intrinsics
+        plan = self._plan_cache.key_for(plan)
+        return (self._volume(plan, lambda: make_rectified_volume_fn(plan)),
+                images, poses, intrinsics)
+
+    def upload(self, frames: torch.Tensor) -> Upload:
+        """Copy frames from pinned host memory to the device on the runner's
+        upload stream (callable from any thread). :meth:`submit_batch`
+        makes the forward's stream wait for the copy. Raises rather than
+        copy from pageable memory or on another stream."""
+        if self.upload_stream is None:
+            raise RuntimeError("upload needs a CUDA runner")
+        if not frames.is_pinned():
+            raise ValueError("upload copies from pinned host memory")
+        with torch.cuda.stream(self.upload_stream):
+            on_device = frames.to(self.device, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.upload_stream)
+        return Upload(on_device, done)
+
+    def _take(self, upload: Upload) -> torch.Tensor:
+        stream = torch.cuda.current_stream(self.device)
+        stream.wait_event(upload.done)
+        # the block was allocated on the upload stream: without this the
+        # allocator may hand it to the next upload while the forward reads it
+        upload.frames.record_stream(stream)
+        return upload.frames
+
+    def submit_batch(self, images, poses, intrinsics, scales) -> torch.Tensor:
+        """A batch of B reference views with their neighbours -> disparities
+        (B, h, w) on the device.
+
+        ``images`` (B, N, H, W, 3) in [0, 255]: a numpy array, a bf16 tensor
+        on the host, or an :class:`Upload`. Frames cross to the device in
+        bf16, as the encoders compute in bf16 regardless. Routing follows
+        the JAX package: one view goes through :meth:`plan_for` and
+        :meth:`mixed_plan` unless the construction is "exact"; a batch runs
+        exact unless the construction is "rectified"."""
         poses = np.asarray(poses, np.float32)
         intrinsics = np.asarray(intrinsics, np.float32)
-        vol_fn = None
-        self.last_path = "exact"
-        if self.construction != "exact":
+        scales = [float(s) for s in scales]
+        if isinstance(images, Upload):
+            images = self._take(images)
+        elif not torch.is_tensor(images):
+            images = to_bf16(images)
+        vol_fn, path = None, "exact"
+        if self.construction == "rectified" and images.shape[0] > 1:
+            if not self._warned_batched_rect:
+                warnings.warn(
+                    "construction='rectified' with view_batch > 1 unions the "
+                    "batch's plans, which widens every view's epiband "
+                    "windows, and builds the samples' volumes one after "
+                    "another; construction='auto' runs batches through the "
+                    "exact construction")
+                self._warned_batched_rect = True
+            vol_fn, images, poses, intrinsics = self._route_batch(
+                images, poses, intrinsics, scales)
+            path = "exact" if vol_fn is None else "rectified"
+        elif self.construction != "exact" and images.shape[0] == 1:
             # neighbour order by baseline: the view aggregation is
             # permutation-invariant, and a canonical order keeps per-view
             # plans comparable across reference views
-            order = self.neighbor_order(poses)
-            images, poses, intrinsics = (images[order], poses[order],
-                                         intrinsics[order])
-            plan = self.plan_for(poses, intrinsics, scale, images.shape[1:3])
-            if plan.ok:
-                if plan not in self._volumes:
-                    self._volumes[plan] = make_rectified_volume_fn(plan)
-                vol_fn = self._volumes[plan]
-                self.last_path = "rectified"
+            order = self.neighbor_order(poses[0])
+            images = images[:, torch.as_tensor(order, device=images.device)]
+            poses, intrinsics = poses[:, order], intrinsics[:, order]
+            vol_fn, path = self._route_one(poses[0], intrinsics[0], scales[0],
+                                           images.shape[2:4])
+        self.last_path = path
         dev = self.device
-        im = torch.from_numpy(images).to(torch.bfloat16).to(dev)[None]
-        po = torch.from_numpy(poses).to(dev)[None]
-        k = torch.from_numpy(intrinsics).to(dev)[None]
-        s = torch.tensor([float(scale)], dtype=torch.float32, device=dev)
+        im = images.to(dev)
+        po = torch.from_numpy(poses).to(dev)
+        k = torch.from_numpy(intrinsics).to(dev)
+        s = torch.tensor(scales, dtype=torch.float32, device=dev)
         with torch.no_grad():
             return self.model(im, po, k, s, volume_fn=vol_fn)
 
+    def submit(self, images, poses, intrinsics, scale) -> torch.Tensor:
+        """images (N, H, W, 3) in [0, 255] -> disparity (1, h, w) on device."""
+        return self.submit_batch(images[None], np.asarray(poses)[None],
+                                 np.asarray(intrinsics)[None], [scale])
+
     @staticmethod
-    def finalize(disp: torch.Tensor) -> np.ndarray:
-        """Disparity (1, h, w) -> depth map (h, w) float32 on the host."""
-        d = disp[0].float().cpu().numpy()
+    def fetch(disp: torch.Tensor) -> Fetch:
+        """Start copying disparities into pinned host memory behind the
+        forward that made them, so :meth:`finalize_batch` waits for that
+        copy alone and not for work dispatched after it."""
+        if disp.device.type != "cuda":
+            return Fetch(disp, None)
+        host = torch.empty(disp.shape, dtype=disp.dtype, pin_memory=True)
+        host.copy_(disp, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return Fetch(host, done)
+
+    @staticmethod
+    def finalize_batch(disp) -> np.ndarray:
+        """Disparities (B, h, w), a tensor or a :class:`Fetch` -> depth maps
+        (B, h, w) float32 on the host."""
+        if isinstance(disp, Fetch):
+            if disp.done is not None:
+                disp.done.synchronize()
+            disp = disp.disp
+        d = disp.float().cpu().numpy()
         return np.where(d == 0, 0, 1.0 / np.where(d == 0, 1, d)).astype(
             np.float32)
+
+    @classmethod
+    def finalize(cls, disp) -> np.ndarray:
+        """Disparity (1, h, w) -> depth map (h, w) float32 on the host."""
+        return cls.finalize_batch(disp)[0]
 
     def __call__(self, images, poses, intrinsics, scale) -> np.ndarray:
         """images (N,H,W,3) float32 [0,255] -> depth map (h, w) float32."""
@@ -157,22 +421,23 @@ def inference(test_loader, ckpt=None, output_folder="results",
     ``model`` (a port RAFT), ``params`` (a JAX parameter tree) or ``ckpt``:
     a reference ``.pth`` (with or without a ``module.`` prefix), or else a
     weights file of the port's own (``training.checkpoint.save_params``).
-    Returns one ``(name, seconds, construction)`` record per view.
 
-    ``mesh`` (views sharded over several devices) is not ported: anything
-    but None raises. ``device_prefetch`` is accepted and changes nothing:
-    in the JAX package it moves each view's upload into the thread that
-    prepares the next views, which changes when the upload happens, not
-    what the forward computes; the port uploads each view just before its
-    forward (that prefetch thread is ROADMAP Queue 1 item 1).
+    ``view_batch``: reference views per forward; consecutive items of one
+    shape are batched (a shape change flushes the batch). ``device_prefetch``
+    (with ``view_batch <= 1``, on a CUDA runner): the prep thread casts the
+    frames into pinned memory and uploads them on the runner's upload
+    stream, so the copy overlaps the previous forward; otherwise the
+    forward's dispatch uploads them. ``mesh`` (views sharded over several
+    devices) is not ported: anything but None raises.
+
+    Returns one ``(name, seconds, construction)`` record per view.
+    ``seconds`` is pipeline-inclusive, as the JAX package's report is: from
+    the return of the view's batch dispatch to the view's write, an interval
+    that covers the next batch's dispatch.
     """
-    del device_prefetch
     if mesh is not None:
         raise NotImplementedError("inference over a device mesh is not "
                                   "ported yet (ROADMAP Queue 1 item 6)")
-    if view_batch != 1:
-        raise NotImplementedError("the port runs one reference view per "
-                                  "forward (view_batch=1)")
     if model is None and params is None:
         if ckpt is None:
             raise ValueError("need model, params or a ckpt path")
@@ -198,24 +463,29 @@ def inference(test_loader, ckpt=None, output_folder="results",
     (output_folder / "depths").mkdir(exist_ok=True, parents=True)
     num_frames = test_loader.dataset.num_frames
     factor = runner.model.stride_factor
-
+    prefetch = (device_prefetch and view_batch <= 1
+                and runner.upload_stream is not None)
     records = []
-    for images, poses, intrinsics, image_names, scale in test_loader:
-        tic = time.perf_counter()
+
+    def prep(item):
+        images, poses, intrinsics, image_names, scale = item
         images, intrinsics = scale_operation(images, intrinsics, rescale)
         if crop is not None:
             images, intrinsics = crop_operation(images, intrinsics, *crop)
         images, intrinsics = pad_to_multiple(images, intrinsics, factor)
-        depth = runner(images, poses, intrinsics, scale)
-        name = image_names[0]
+        frames = to_bf16(images, pin=prefetch)
+        if prefetch:
+            frames = runner.upload(frames)
+        return frames, poses, intrinsics, image_names, scale
+
+    def emit(name, depth, tic, path):
         seconds = time.perf_counter() - tic
-        records.append((name, seconds, runner.last_path))
+        records.append((name, seconds, path))
         if do_report:
             peak = (torch.cuda.max_memory_allocated(runner.device) / 2**20
                     if runner.device.type == "cuda" else 0.0)
             print(f"per view time: {seconds:.3f}s  "
-                  f"peak device memory: {peak:.0f} MB ({name}, "
-                  f"{runner.last_path})")
+                  f"peak device memory: {peak:.0f} MB ({name}, {path})")
         write_pfm(output_folder / "depths"
                   / f"{name}_scale{rescale}_nf{num_frames}.pfm", depth)
         if write_min_depth is not None:
@@ -225,4 +495,50 @@ def inference(test_loader, ckpt=None, output_folder="results",
             min_depth = (float(np.quantile(valid, 0.1) / 2) if valid.size
                          else 0.0)
             (md_dir / f"{name}.txt").write_text(f"{min_depth}\n")
+
+    def flush(buf):
+        frames = [b[1] for b in buf]
+        if isinstance(frames[0], Upload):  # view_batch <= 1
+            images = Upload(frames[0].frames[None], frames[0].done)
+        else:
+            images = (frames[0][None] if len(frames) == 1
+                      else torch.stack(frames))
+        disp = runner.submit_batch(images, np.stack([b[2] for b in buf]),
+                                   np.stack([b[3] for b in buf]),
+                                   [b[4] for b in buf])
+        # each batch carries its own route: at drain time runner.last_path
+        # is already the next batch's
+        return ([b[0] for b in buf], runner.fetch(disp), time.perf_counter(),
+                runner.last_path)
+
+    def drain(pending):
+        names, fetched, tic, path = pending
+        for name, depth in zip(names, runner.finalize_batch(fetched)):
+            emit(name, depth, tic, path)
+
+    def rotate(pending, buf):
+        # dispatch batch i before fetching batch i-1: the fetch and the
+        # writes of i-1 overlap batch i's device work
+        nxt = flush(buf)
+        if pending is not None:
+            drain(pending)
+        return nxt
+
+    pending, buf = None, []
+    items = _prefetched(test_loader, prep)
+    try:
+        for frames, poses, intrinsics, image_names, scale in items:
+            if buf and buf[0][1].shape != frames.shape:
+                pending = rotate(pending, buf)
+                buf = []
+            buf.append((image_names[0], frames, poses, intrinsics, scale))
+            if len(buf) >= max(1, view_batch):
+                pending = rotate(pending, buf)
+                buf = []
+    finally:
+        items.close()  # an error here stops the prep thread at once
+    if buf:
+        pending = rotate(pending, buf)
+    if pending is not None:
+        drain(pending)
     return records

@@ -32,13 +32,24 @@ Phases (any failure raises, so the exit code is non-zero):
      timed forwards each), and check the result: finite (288, 400)
      disparities, the launch counts, and rectified-vs-exact, kernel-vs-plain
      and fused-vs-banded lookup agreement on a small lateral-motion scene,
-     where rectification is lossless; then the same forward of the fp32
+     where rectification is lossless; the mixed construction: the same
+     scene with two neighbours moved onto the reference's optical axis, so
+     the full planner rejects it and "auto" rectifies the other eight
+     (epiband and hat kernels held against their plain versions at that
+     partial plan, one warm-up and three timed forwards beside the
+     rectified and exact passes, the launches per rectified view), and on a
+     small scene with one forward neighbour, mixed against exact; then the
+     same forward of the fp32
      model, which the runner builds from the binding ``RAFT.dtype =
      "float32"`` as a ``-p`` flag gives it, rectified with TF32 off (one
      warm-up, three timed forwards, s/view, peak memory, the bf16 pass's
      launch counts, finite disparities);
   5. run ``inference()`` on a two-item in-memory loader and check the PFM
-     names;
+     names; then view batching: ``inference()`` over eight items of
+     384x512 with six neighbours at view_batch 1 and 4 under "auto" and 4
+     under "rectified" (which warns), maps/s over the items cycled eight
+     times (64 maps) and each record's route, and the fp32 model's depth
+     maps at view_batch 4 against 1 ("exact", with and without cuDNN);
   6. the demo contract: write a synthetic DTU test scan (11 imaged views of
      1200x1600, 49 cameras on an arc) and random weights; plan it at
      rescale 1 and 2 as inference does and hold the epiband forward and hat
@@ -47,9 +58,11 @@ Phases (any failure raises, so the exit code is non-zero):
      bf16), timing them at rescale 2, both ways, with ``grid_sample``
      timed both ways beside the hat kernel; then
      run the port's CLIs with ``inference_DTU.gin`` and
-     ``RAFT.lookup_impl="pallas"``: inference at rescale 1 and 2, multires,
-     fusion at rescale 2 with view_batch 8; check the construction, the
-     launches per forward and every file;
+     ``RAFT.lookup_impl="pallas"``: inference at rescale 1 (with the
+     pinned side-stream upload, then without it) and 2, with maps/s and
+     the pipeline-inclusive s/view, multires,
+     fusion at rescale 2 with view_batch 8; check every record's
+     construction, the launches per forward and every file;
   7. fuse the scan's true depth maps (a sphere) at 1152x1600 and check that
      every fused point lies on the sphere;
   8. write a synthetic DTU training tree (one scan, one light, 1200x1600
@@ -73,7 +86,9 @@ Phases (any failure raises, so the exit code is non-zero):
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Needs no network and one card.
 ``--profile`` adds a torch.profiler breakdown of one forward per
-construction, of one rescale-2 demo forward and of one train step (device
+construction, of one rescale-2 demo forward, of ``inference()`` over three
+rescale-2 demo views with and without the pinned side-stream upload (its
+host-to-device copy rows and busy share) and of one train step (device
 time per RAFT.forward range, top kernels, busy share; for the step also a
 line with its device-busy time, the dfr, dfs and hat_rows_bwd kernels'
 rows and its count of elementwise launches; for the demo forward a line
@@ -81,12 +96,14 @@ with the lookup_fused_fwd row; and a profile of one fused-lookup train
 step with its lookup_fused_fwd and lookup_fused_bwd rows).
 """
 
+import itertools
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -162,6 +179,16 @@ EARLIER_MS = {"epiband_fwd": {"stage0": 1.537, "stage1": 1.079,
               "lookup_fused_v2": {"inference_stage0": 0.064,
                                   "demo_rescale2_stage0": 0.232}}
 HAT_TIMED = ("feature_warp", "volume_back_warp")  # phase 8's timed hat shapes
+MIXED_FORWARD = (3, 7)     # phase 4's mixed scene: neighbours moved forward
+VB_HW = (384, 512)         # phase 5: the small-scene shape batching is for
+VB_FRAMES = 6              # its neighbours (nf6)
+VB_ITEMS = 8               # its loader's items
+VB_CYCLES = 8              # the timed runs cycle them: 64 maps, seconds
+VB_TOL = 1e-3              # vb-4 against vb-1 depth maps, relative (fp32,
+#                            batch-invariant convolutions: cuDNN off)
+VB_TOL_CUDNN = (1e-2, 2e-2)  # the same with cuDNN: max relative difference,
+#                            share of pixels over 1e-5 (read 1.263e-3 and
+#                            4.89e-3 on an H100: another summation order)
 
 
 def dtu_ring_poses(n):
@@ -201,6 +228,39 @@ def lateral_scene(h, w, n, seed=0):
     for i in range(n):
         poses[i, 0, 3] = -(0.6 * ((i + 1) // 2) * (1 if i % 2 else -1))
     return images, poses, np.tile(K, (n, 1, 1))
+
+
+def mixed_ring_scene(h, w, n, seed=0):
+    """:func:`dtu_scene` with the neighbours MIXED_FORWARD moved onto the
+    reference's optical axis, 50 and 80 mm in front of it: their pairs fail
+    the planner's baseline gate, so the full planner rejects the scene and
+    the other neighbours keep the rectified path (the mixed construction)."""
+    images, poses, intr = dtu_scene(h, w, n, seed)
+    for i, d in zip(MIXED_FORWARD, (50.0, 80.0)):
+        poses[i] = poses[0]
+        poses[i, 2, 3] -= d
+    return images, poses, intr
+
+
+def lateral_forward_scene(h, w, n, seed=0):
+    """:func:`lateral_scene` with its second neighbour moved along the
+    optical axis instead: the mixed construction, lossless on the lateral
+    views."""
+    images, poses, intr = lateral_scene(h, w, n, seed)
+    poses[2] = np.eye(4, dtype=np.float32)
+    poses[2, 2, 3] = -1.0
+    return images, poses, intr
+
+
+class ItemLoader:
+    """``inference()``'s loader interface over a list of items."""
+
+    def __init__(self, items, num_frames):
+        self.items = items
+        self.dataset = types.SimpleNamespace(num_frames=num_frames)
+
+    def __iter__(self):
+        return iter(self.items)
 
 
 def dtu_arc_poses(n=49, step=0.04, radius=600.0):
@@ -549,6 +609,8 @@ def profile_call(torch, fn, prefix="raft."):
         k in e.key for k in ("epiband", "hat_rows", "lookup_"))]
     elementwise = [e for e in kernels if "elementwise" in e.key]
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "memcpy_ms": [[e.key[:90], e.count, dev(e, own=True) / 1e3]
+                          for e in kernels if "Memcpy" in e.key],
             "elementwise_launches": sum(e.count for e in elementwise),
             "elementwise_ms": sum(dev(e, own=True)
                                   for e in elementwise) / 1e3,
@@ -1072,7 +1134,8 @@ def demo_plans(runner, root):
     return picked
 
 
-def hold_rect_kernels(torch, plan, h, w, label, timed=False):
+def hold_rect_kernels(torch, plan, h, w, label, timed=False,
+                      phase="phase 6"):
     """epiband_fwd and hat_rows_fwd against their plain versions at one
     inference plan's widest view, (h, w) features: epiband stage 0 (base ==
     0) and stage 1 (the main path's bases); both passes of the reference
@@ -1108,7 +1171,7 @@ def hold_rect_kernels(torch, plan, h, w, label, timed=False):
             err = float((out - ref).abs().max())
             errs["epiband_fwd"] = max(errs["epiband_fwd"], err)
             ok = bool(torch.allclose(out, ref, rtol=rtol, atol=atol))
-            print(f"phase 6: epiband_fwd {label} {shape} {stage} D={D} "
+            print(f"{phase}: epiband_fwd {label} {shape} {stage} D={D} "
                   f"{str(dtype)[6:]}: max|kernel-plain|={err:.3e} (|plain|max "
                   f"{float(ref.abs().max()):.2f}) ok={ok}", flush=True)
             if not ok:
@@ -1145,7 +1208,7 @@ def hold_rect_kernels(torch, plan, h, w, label, timed=False):
             err = float((out - ref).abs().max())
             errs["hat_rows_fwd"] = max(errs["hat_rows_fwd"], err)
             ok = bool(torch.allclose(out, ref, rtol=1e-5, atol=1e-5))
-            print(f"phase 6: hat_rows_fwd {label} {name} {(R, S, O, C)} "
+            print(f"{phase}: hat_rows_fwd {label} {name} {(R, S, O, C)} "
                   f"{str(dtype)[6:]}: max|kernel-plain|={err:.3e} ok={ok}",
                   flush=True)
             if not ok:
@@ -1174,7 +1237,7 @@ def hold_rect_kernels(torch, plan, h, w, label, timed=False):
                        (row["ms"], row["device_ms"]),
                        (row["library_ms"], row["library_device_ms"]))
                    + f"; grid_sample |diff| {row['library_diff']:.2e})")
-            print(f"phase 6: {name} {label} timing: kernel {row['ms']:.4f} "
+            print(f"{phase}: {name} {label} timing: kernel {row['ms']:.4f} "
                   f"ms (device {row['device_ms']:.4f})"
                   f"{earlier(name, 'demo_rescale2')}, plain "
                   f"{row['plain_ms']:.3f} ms{lib}, bound "
@@ -1187,10 +1250,11 @@ def phase_demo(torch, root):
     the fused lookup (``RAFT.lookup_impl="pallas"``) on a synthetic DTU
     test scan: first epiband_fwd and hat_rows_fwd held against their plain
     versions at the plans the scan gets at rescale 1 and 2, then inference
-    at rescale 1 and 2 over every imaged view, the multires merge, fusion at
-    rescale 2 with view_batch 8. Per scale: s/view, construction, peak
-    device memory, launches per forward (checked); the files (checked);
-    fusion's seconds and points."""
+    at rescale 1 (with ``device_prefetch`` on, then off) and 2 over every
+    imaged view, the multires merge, fusion at rescale 2 with view_batch
+    8. Per run: s/view (pipeline-inclusive), maps/s, each record's
+    construction (checked), peak device memory, launches per forward
+    (checked); the files (checked); fusion's seconds and points."""
     from cermvs_torch import config as pcfg
     from cermvs_torch import fusion as fusion_cli
     from cermvs_torch import inference as inference_cli
@@ -1235,30 +1299,37 @@ def phase_demo(torch, root):
           flush=True)
     out = root / "results" / "scan3"
     scales, demo_launches = {}, {k: 0 for k in KERNELS}
-    for rescale in (1, 2):
+    # rescale 1 twice, the second time without the pinned side-stream
+    # upload (the prep thread alone), then rescale 2
+    for rescale, prefetch in ((1, True), (1, False), (2, True)):
+        label = rescale if prefetch else f"{rescale}_device_prefetch_off"
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         cudalib.reset_launches()
         t0 = time.perf_counter()
         records = run_cli(inference_cli.main, common + [
             f'inference.ckpt = "{ckpt}"', f'inference.output_folder = "{out}"',
-            f"inference.rescale = {rescale}", "inference.do_report = True"])
+            f"inference.rescale = {rescale}", "inference.do_report = True",
+            f"inference.device_prefetch = {prefetch}"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: cudalib.launches.get(k, 0) for k in KERNELS}
         peak = torch.cuda.max_memory_allocated()
         n = len(records)
-        paths = sorted({r[2] for r in records})
+        paths = [r[2] for r in records]
         s_view = [r[1] for r in records]
-        print(f"phase 6: rescale {rescale}: {n} views in {wall:.1f} s, s/view "
-              f"{[round(t, 4) for t in s_view]}, construction {paths}, peak "
+        print(f"phase 6: rescale {rescale}, device_prefetch {prefetch}: {n} "
+              f"views in {wall:.1f} s, {n / wall:.3f} maps/s, s/view "
+              f"(pipeline-inclusive) {[round(t, 4) for t in s_view]}, "
+              f"construction {sorted(set(paths))}, peak "
               f"{peak / 2**30:.2f} GiB, launches {launches}", flush=True)
+        # demo_plans held every view to a two-pass rectified plan
+        if paths != ["rectified"] * DEMO_VIEWS:
+            raise RuntimeError(f"demo routes at rescale {rescale}: {paths}")
+        V = NUM_FRAMES
         per_forward = {"lookup_fused_fwd": n_iters, "lookup_fused_bwd": 0,
-                       "lookup_fused_v2": 0}
-        if paths == ["rectified"]:
-            V = NUM_FRAMES
-            per_forward.update(epiband_fwd=n_stages * V,
-                               hat_rows_fwd=(2 + n_stages) * 2 * V)
+                       "lookup_fused_v2": 0, "epiband_fwd": n_stages * V,
+                       "hat_rows_fwd": (2 + n_stages) * 2 * V}
         check_launches(launches, {k: n * v for k, v in per_forward.items()},
                        f"demo inference at rescale {rescale}")
         for name, _, _ in records:
@@ -1267,9 +1338,10 @@ def phase_demo(torch, root):
                 raise RuntimeError(f"missing {f}")
         for k, v in launches.items():
             demo_launches[k] += v
-        scales[rescale] = {"views": n, "s_per_view": s_view,
-                           "construction": paths, "peak_bytes": peak,
-                           "wall_s": wall}
+        scales[label] = {"views": n, "s_per_view": s_view,
+                         "maps_per_s": n / wall,
+                         "construction": sorted(set(paths)),
+                         "peak_bytes": peak, "wall_s": wall}
     if "--profile" in sys.argv:
         profile_demo_forward(torch, common, ckpt, rescale=2)
     t0 = time.perf_counter()
@@ -1310,12 +1382,14 @@ def phase_demo(torch, root):
 
 def profile_demo_forward(torch, bindings, ckpt, rescale):
     """torch.profiler breakdown of one warm forward of the demo's first
-    view at ``rescale``, as ``inference()`` prepares it."""
+    view at ``rescale``, as ``inference()`` prepares it; then of
+    ``inference()`` over the first three views, with and without
+    ``device_prefetch``."""
     from cermvs_torch import config as pcfg
     from cermvs_torch.data import get_test_data_loader
     from cermvs_torch.data.augment import pad_to_multiple, scale_operation
     from cermvs_torch.models.raft import RAFT
-    from cermvs_torch.pipeline.inference import InferenceRunner
+    from cermvs_torch.pipeline.inference import InferenceRunner, inference
     from cermvs_torch.training.checkpoint import load_params
 
     pcfg.clear_config()
@@ -1337,6 +1411,23 @@ def profile_demo_forward(torch, bindings, ckpt, rescale):
           f"{[r for r in prof['port_kernels_ms'] if 'lookup_tile' in r[0]]}",
           flush=True)
     print(json.dumps({f"profile_demo_rescale{rescale}": prof}), flush=True)
+    # the pipeline over the first views, with and without the pinned
+    # side-stream upload: its host-to-device rows and the busy share
+    loader = ItemLoader(list(itertools.islice(get_test_data_loader(
+        "DTUTest", num_frames=NUM_FRAMES, num_workers=0), 3)), NUM_FRAMES)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as out:
+        for prefetch in (True, False):
+            prof = profile_call(torch, lambda: inference(
+                loader, model=model, output_folder=out, rescale=rescale,
+                device_prefetch=prefetch))
+            print(f"phase 6: profile of inference() over {len(loader.items)} "
+                  f"rescale-{rescale} views, device_prefetch {prefetch}: "
+                  f"device busy {prof['device_busy_ms']:.1f} ms of "
+                  f"{prof['wall_ms']:.1f} ms wall "
+                  f"({prof['busy_share']:.3f}); copies "
+                  f"{prof['memcpy_ms']}", flush=True)
+            print(json.dumps({f"profile_pipeline_rescale{rescale}_prefetch_"
+                              f"{str(prefetch).lower()}": prof}), flush=True)
 
 
 def phase_true_fusion(torch, root):
@@ -1622,6 +1713,172 @@ def phase_fp32_forward(torch, images, poses, intr, expect):
     return dict(s_per_view=times, peak_bytes=peak, launches=launches)
 
 
+def phase_mixed(torch, model, passes):
+    """Phase 4's mixed pass: the full-width scene with the neighbours
+    MIXED_FORWARD moved onto the reference's optical axis, so the full
+    planner rejects it and "auto" takes the mixed construction; epiband_fwd
+    and hat_rows_fwd held against their plain versions at the partial plan;
+    one warm-up and three timed forwards (s/view and peak memory printed
+    beside ``passes``, the rectified and exact passes'), the launches
+    checked against the rectified views' count, finite disparities."""
+    from cermvs_torch.ops import cudalib
+    from cermvs_torch.pipeline.inference import InferenceRunner
+
+    images, poses, intr = mixed_ring_scene(H, W, NUM_FRAMES + 1)
+    runner = InferenceRunner(model=model, construction="auto", device="cuda")
+    order = runner.neighbor_order(poses)
+    full = runner.plan_for(poses[order], intr[order], 1.0, (H, W))
+    plan, rect_views = runner.mixed_plan(poses[order], intr[order], 1.0,
+                                         (H, W))
+    if full.ok or plan is None or not plan.twopass:
+        raise RuntimeError(f"mixed scene: full plan ok={full.ok}, partial "
+                           f"plan {plan}")
+    print(f"phase 4: mixed scene: full plan rejected ({full.reason}); "
+          f"rect_views {rect_views} of {NUM_FRAMES}, h_r={plan.h_r} "
+          f"w_r={plan.w_r} ws_r={plan.ws_r} view_s_max={plan.view_s_max}",
+          flush=True)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    errs, _ = hold_rect_kernels(torch, plan, H // 4, W // 4, "mixed",
+                                phase="phase 4")
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32
+    runner(images, poses, intr, 1.0)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cudalib.reset_launches()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        disp = runner.submit(images, poses, intr, 1.0)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {k: cudalib.launches.get(k, 0) for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    n_stages, n_rect = len(model.cascade), len(rect_views)
+    expect = {k: 0 for k in KERNELS}
+    expect.update(epiband_fwd=3 * n_stages * n_rect,
+                  hat_rows_fwd=3 * (2 + n_stages) * 2 * n_rect)
+    d = disp[0].float().cpu().numpy()
+    beside = ", ".join(f"{k} {[round(t, 4) for t in v['s_per_view']]} s/view "
+                       f"peak {v['peak_bytes'] / 2**30:.2f} GiB"
+                       for k, v in passes.items())
+    print(f"phase 4: mixed {[round(t, 4) for t in times]} s/view, path="
+          f"{runner.last_path}, peak {peak / 2**30:.2f} GiB ({beside}), "
+          f"launches={launches} (expected {expect}), disparity {d.shape} "
+          f"range [{d.min():.3e}, {d.max():.3e}]", flush=True)
+    if runner.last_path != "mixed":
+        raise RuntimeError("the mixed construction was not taken")
+    check_launches(launches, expect, "mixed forward")
+    if d.shape != (H // 4, W // 4) or not np.isfinite(d).all():
+        raise RuntimeError(f"bad mixed disparity: shape {d.shape}")
+    return dict(s_per_view=times, peak_bytes=peak, rect_views=rect_views,
+                launches=launches, kernel_errs=errs)
+
+
+def phase_view_batch(torch, small):
+    """Phase 5's view batching: ``inference()`` over VB_ITEMS items of
+    VB_HW with VB_FRAMES neighbours (reference views along a DTU-like
+    ring), with the bf16 model at view_batch 1 and 4 under "auto" and 4
+    under "rectified" (which warns): one warm-up run of half the items,
+    then maps/s over the items cycled VB_CYCLES times (a window of seconds:
+    the host-bound rate of a handful of maps does not repeat), and each
+    record's route. Then with the fp32 model ``small`` (TF32 off), "exact"
+    at view_batch 1 and 4: the largest relative difference of the depth
+    maps and the share of pixels over 1e-5, with cuDNN (held to
+    VB_TOL_CUDNN) and without it (held to VB_TOL)."""
+    import warnings
+
+    from cermvs_torch.io.pfm import read_pfm
+    from cermvs_torch.models.raft import RAFT
+    from cermvs_torch.pipeline.inference import inference
+
+    ring = dtu_ring_poses(VB_FRAMES + VB_ITEMS)
+    f = 2892.0 * VB_HW[1] / 1600
+    K = np.array([[f, 0, VB_HW[1] / 2], [0, f, VB_HW[0] / 2], [0, 0, 1]],
+                 np.float32)
+    rng = np.random.RandomState(5)
+    items = [((rng.rand(VB_FRAMES + 1, *VB_HW, 3) * 255).astype(np.float32),
+              ring[i:i + VB_FRAMES + 1],
+              np.tile(K, (VB_FRAMES + 1, 1, 1)), [f"{i:08d}"], 1.0)
+             for i in range(VB_ITEMS)]
+
+    model = RAFT(test_mode=True, generator=torch.Generator().manual_seed(0))
+    torch.backends.cudnn.allow_tf32 = True  # the bf16 model's own setting
+    runs = {}
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as out:
+        for label, vb, construction, route in (
+                ("vb1_auto", 1, "auto", "rectified"),
+                ("vb4_auto", 4, "auto", "exact"),
+                ("vb4_rectified", 4, "rectified", "rectified")):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                inference(ItemLoader(items[:VB_ITEMS // 2], VB_FRAMES),
+                          model=model, output_folder=out, view_batch=vb,
+                          construction=construction)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                records = inference(ItemLoader(items * VB_CYCLES,
+                                               VB_FRAMES),
+                                    model=model, output_folder=out,
+                                    view_batch=vb, construction=construction)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            warned = any("view_batch > 1" in str(w.message) for w in caught)
+            routes = [r[2] for r in records]
+            runs[label] = dict(maps_per_s=len(records) / wall, wall_s=wall,
+                               routes=sorted(set(routes)), warned=warned)
+            print(f"phase 5: {label}: {len(records)} maps in {wall:.3f} s, "
+                  f"{len(records) / wall:.2f} maps/s, routes "
+                  f"{sorted(set(routes))}, warned={warned}", flush=True)
+            if (routes != [route] * (VB_ITEMS * VB_CYCLES)
+                    or warned != (construction == "rectified")):
+                raise RuntimeError(f"phase 5 {label}: routes {routes}, "
+                                   f"warned {warned}")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        # with cuDNN the convolutions of a batch of 4N frames may take
+        # another algorithm (another summation order) than those of N, and
+        # the random weights' iterations amplify that on a few pixels;
+        # without it each frame's convolution is computed alike in both
+        for cudnn in (True, False):
+            maps = {}
+            with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
+                for vb in (1, 4):
+                    folder = Path(out) / f"exact_vb{vb}_cudnn{cudnn}"
+                    inference(ItemLoader(items, VB_FRAMES), model=small,
+                              output_folder=folder, view_batch=vb,
+                              construction="exact")
+                    maps[vb] = np.stack([
+                        read_pfm(folder / "depths" /
+                                 f"{i:08d}_scale1_nf{VB_FRAMES}.pfm")
+                        for i in range(VB_ITEMS)])
+            rel = (np.abs(maps[4] - maps[1])
+                   / np.maximum(np.abs(maps[1]), 1e-30))
+            max_rel, share = float(rel.max()), float((rel > 1e-5).mean())
+            runs[f"exact_vb4_vs_vb1_cudnn_{cudnn}"] = {
+                "max_rel": max_rel, "share_over_1e-5": share}
+            limit = VB_TOL_CUDNN if cudnn else (VB_TOL, 1.0)
+            print(f"phase 5: exact view_batch 4 against 1 (fp32, "
+                  f"{VB_ITEMS} maps {maps[1][0].shape}, cuDNN {cudnn}): "
+                  f"max relative difference {max_rel:.3e}, share of "
+                  f"pixels over 1e-5 {share:.2e} (limits {limit})",
+                  flush=True)
+            if not (max_rel <= limit[0] and share <= limit[1]):
+                raise RuntimeError(
+                    f"view_batch 4 depth maps differ from view_batch 1 by "
+                    f"{max_rel:.3e} (share over 1e-5 {share:.2e}) with "
+                    f"cuDNN {cudnn}, limits {limit}")
+    return runs
+
+
+def mark(ends, phase):
+    """Record and print the seconds since the start at which ``phase``
+    ended (where the run's time goes)."""
+    ends[phase] = time.perf_counter() - T_START
+    print(f"{phase}: ended at {ends[phase]:.1f} s", flush=True)
+
+
 def main():
     import torch
 
@@ -1652,6 +1909,8 @@ def main():
     build_s = time.perf_counter() - t0
     print(f"phase 1: epiband.cu, hatwarp.cu and lookup.cu built in "
           f"{build_s:.1f} s", flush=True)
+    ends = {}
+    mark(ends, "phase 1")
 
     # the slice's shapes come from the host plan of the full-size scene
     images, poses, intr = dtu_scene(H, W, NUM_FRAMES + 1)
@@ -1668,9 +1927,11 @@ def main():
           f"view_s_max={plan.view_s_max}", flush=True)
     # ---- phase 2: kernel vs plain on the card -----------------------------
     max_err, stages = phase_epiband_kernel(torch, plan, model)
+    mark(ends, "phase 2")
 
     # ---- phase 3: the lookup kernels vs plain on the card ------------------
     lookup_rows = phase_lookup_kernels(torch)
+    mark(ends, "phase 3")
 
     # ---- phase 4: the slice at full width ---------------------------------
     torch.backends.cudnn.allow_tf32 = True  # the bf16 model's own setting
@@ -1732,6 +1993,9 @@ def main():
             torch, lambda: exact.submit(images, poses, intr, 1.0))
         print(json.dumps({"profile_exact": prof}), flush=True)
     del runner, exact
+    mixed = phase_mixed(torch, model, {
+        "rectified": {"s_per_view": times, "peak_bytes": peak},
+        "exact": {"s_per_view": t_exact, "peak_bytes": peak_exact}})
 
     # correctness on a small lateral scene (fp32, no TF32): rectification is
     # lossless there, so rectified (kernel), rectified (plain epiband) and
@@ -1785,40 +2049,60 @@ def main():
                    {"lookup_fused_fwd": sum(s[2] for s in small.cascade)},
                    "fused-lookup forward")
     np.testing.assert_allclose(d_fused, a, rtol=1e-4, atol=1e-8)
+    # the mixed construction on a small scene with one forward neighbour:
+    # lossless on the lateral views, so it agrees with the exact one at the
+    # CPU tests' tolerance (tests/test_torch_pipeline.py)
+    im_m, po_m, k_m = lateral_forward_scene(128, 256, 5)
+    r_auto = InferenceRunner(model=small, construction="auto",
+                             rect_lambda_max=0.1, device="cuda")
+    cudalib.reset_launches()
+    d_mixed = r_auto.submit(im_m, po_m, k_m, 1.0)[0].cpu().numpy()
+    mixed_launches = cudalib.launches.get("epiband_fwd", 0)
+    d_exact = r_exact.submit(im_m, po_m, k_m, 1.0)[0].cpu().numpy()
+    e_me = float(np.abs(d_mixed - d_exact).max())
+    print(f"phase 4: small lateral-and-forward scene: |mixed-exact| "
+          f"{e_me:.3e}, |disp| max {np.abs(d_exact).max():.3e}, path="
+          f"{r_auto.last_path}, epiband launches {mixed_launches}",
+          flush=True)
+    if r_auto.last_path != "mixed" or mixed_launches == 0:
+        raise RuntimeError("small scene did not take the mixed path")
+    np.testing.assert_allclose(d_mixed, d_exact, rtol=1e-3, atol=1e-7)
     fp32 = phase_fp32_forward(torch, images, poses, intr, expect)
+    mark(ends, "phase 4")
 
     # ---- phase 5: inference() writes the PFM contract ----------------------
-    class _Loader:
-        class dataset:
-            num_frames = NUM_FRAMES
-
-        def __iter__(self):
-            for ref in range(2):
-                im, po, k = dtu_scene(96, 128, NUM_FRAMES + 1, seed=ref)
-                yield im, po, k, [f"{ref:08d}"], 1.0
-
+    loader = ItemLoader([(*dtu_scene(96, 128, NUM_FRAMES + 1, seed=ref),
+                          [f"{ref:08d}"], 1.0) for ref in range(2)],
+                        NUM_FRAMES)
     build = REPO / "build"
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as out_dir:
-        inference(_Loader(), model=RAFT(test_mode=True, generator=gen),
+        inference(loader, model=RAFT(test_mode=True, generator=gen),
                   output_folder=out_dir, device="cuda")
         names = sorted(p.name for p in (Path(out_dir) / "depths").iterdir())
     print(f"phase 5: wrote {names}", flush=True)
     if names != [f"{r:08d}_scale1_nf{NUM_FRAMES}.pfm" for r in range(2)]:
         raise RuntimeError(f"unexpected PFM names {names}")
+    view_batch = phase_view_batch(torch, small)
+    mark(ends, "phase 5")
 
-    del model, small, r_rect, r_exact
+    del model, small, r_rect, r_exact, r_auto
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=build) as root:
         demo = phase_demo(torch, Path(root))
+        mark(ends, "phase 6")
         true_fusion = phase_true_fusion(torch, Path(root))
+        mark(ends, "phase 7")
 
     with tempfile.TemporaryDirectory(dir=build) as tree:
         train_plan, train_batch = plan_training_batch(torch, tree)
         rows = phase_training_kernels(torch, train_plan, train_batch)
+        mark(ends, "phase 8")
         training = phase_train(torch, tree, train_plan, train_batch)
+        mark(ends, "phase 9")
         fused_training = phase_train_pallas(torch, tree, train_plan,
                                             train_batch)
+        mark(ends, "phase 10")
     rows.update(lookup_rows)
 
     s0 = stages["stage0"]
@@ -1826,13 +2110,15 @@ def main():
         "max_abs_err": max_err, "ms": s0["ms"], "plain_ms": s0["plain_ms"],
         "bound_ms": s0["bound_ms"], "bound_by": s0["bound_by"],
         "device_ms": s0["device_ms"], "library_ms": None, "stages": stages}
-    # the demo's plans: errors into each row, rescale 2's times beside
-    for name, err in demo.pop("kernel_errs").items():
-        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+    # the demo's and the mixed scene's plans: errors into each row, the
+    # demo's rescale-2 times beside
+    for errs in (demo.pop("kernel_errs"), mixed["kernel_errs"]):
+        for name, err in errs.items():
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
     for name, row in demo.pop("kernel_rows_rescale2").items():
         rows[name]["demo_rescale2"] = row
-    by_path = {"inference": infer_launches, "demo": demo["launches"],
-               "training": training["launches"],
+    by_path = {"inference": infer_launches, "mixed": mixed["launches"],
+               "demo": demo["launches"], "training": training["launches"],
                "training_fused_lookup": fused_training["launches"]}
     # launches: the main path's count of each kernel: the demo's for the
     # fused lookup forward, the fused-lookup training run's for its
@@ -1857,13 +2143,15 @@ def main():
         "rectified_peak_bytes": peak, "exact_peak_bytes": peak_exact,
         "rectified_fp32_s_per_view": fp32["s_per_view"],
         "rectified_fp32_peak_bytes": fp32["peak_bytes"],
+        "mixed": {k: v for k, v in mixed.items() if k != "kernel_errs"},
+        "view_batch": view_batch,
         "train_s_per_step": training["s_per_step"],
         "train_peak_bytes": training["peak_bytes"],
         "train_steps": training["steps"], "train_plan": training["plan"],
         "demo": demo, "true_fusion": true_fusion,
         "fused_lookup_training": {k: v for k, v in fused_training.items()
                                   if k != "launches"},
-        "build_s": build_s, "card": smi,
+        "build_s": build_s, "phase_end_s": ends, "card": smi,
         "total_s": time.perf_counter() - T_START}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -199,3 +199,34 @@ def test_float32_binding_matches_jax_on_the_slice(bindings):
     assert pr.last_path == jr._last_path == "rectified"
     assert np.abs(dj).max() > 1e-4
     np.testing.assert_allclose(dp, dj, **SLICE_TOL)
+
+
+def test_runner_takes_every_jax_parameter():
+    """``InferenceRunner`` is no configurable, so the registry check above
+    does not see it: the port's takes every parameter of JAX's by name.
+    ``mesh`` is accepted and refused, naming its queue item."""
+    assert _parameters(JRunner) - _parameters(InferenceRunner) == set()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        InferenceRunner(model=RAFT(cascade=CASCADE, device="cpu"),
+                        mesh="views", device="cpu")
+
+
+@pytest.mark.parametrize("with_model", [True, False])
+def test_runner_gate_arguments_reach_the_runner(with_model):
+    """``rect_cost_ratio_max`` and ``max_k_chunks`` by name, with or without
+    a model: they no longer fall into the model's keyword arguments (a
+    TypeError from RAFT without a model, dropped with one). The gate routes
+    a lateral scene, which "auto" otherwise rectifies, to exact."""
+    kwargs = (dict(model=RAFT(cascade=CASCADE, dtype=torch.float32,
+                              device="cpu"))
+              if with_model else dict(cascade=CASCADE, dtype=torch.float32))
+    images, poses, intr = _scene(H=32, W=96)
+    routes = {}
+    for gate in (None, 1e-3):
+        runner = InferenceRunner(construction="auto", rect_lambda_max=0.1,
+                                 rect_cost_ratio_max=gate, max_k_chunks=1,
+                                 device="cpu", **kwargs)
+        assert runner.rect_cost_ratio_max == gate
+        runner.submit(images, poses, intr, 1.0)
+        routes[gate] = runner.last_path
+    assert routes == {None: "rectified", 1e-3: "exact"}

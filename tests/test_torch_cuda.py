@@ -1095,3 +1095,96 @@ def test_lookup_launchers_refuse_a_layout_they_do_not_share(cuda_device):
     torch.testing.assert_close(
         lk.lookup_fused_backward(g, x0, 64),
         lk.lookup_fused_backward_reference(g, x0, 64), rtol=1e-5, atol=1e-5)
+
+
+def pipeline_items(n, H=66, W=194):
+    """``n`` loader items, each a reference and three neighbours with
+    frames of their own: lateral neighbours, and every third item a
+    forward-moving one (the mixed construction)."""
+    K = np.array([[80.0, 0, W / 2], [0, 80.0, H / 2], [0, 0, 1]], np.float32)
+    rng = np.random.RandomState(0)
+    items = []
+    for i in range(n):
+        poses = np.tile(np.eye(4, dtype=np.float32), (4, 1, 1))
+        poses[1, 0, 3] = -1.2
+        if i % 3 == 1:
+            poses[2, 2, 3] = -1.0
+        else:
+            poses[2, 0, 3] = 1.0
+        poses[3, 0, 3] = 1.6
+        images = rng.rand(4, H, W, 3).astype(np.float32) * 255
+        items.append((images, poses, np.tile(K, (4, 1, 1)), [f"{i:08d}"],
+                      1.0))
+    return items
+
+
+class PipelineLoader:
+    class dataset:
+        num_frames = 3
+
+    def __init__(self, items):
+        self.items = items
+
+    def __iter__(self):
+        return iter(self.items)
+
+
+def pipeline_model(device):
+    from cermvs_torch.models.raft import RAFT
+
+    return RAFT(test_mode=True, dtype=torch.float32, device=device,
+                cascade=((8, 64, 2), (-1, 320, 2)),
+                generator=torch.Generator().manual_seed(0))
+
+
+@pytest.mark.cuda
+def test_pipeline_device_prefetch_writes_identical_pfms(cuda_device,
+                                                        tmp_path):
+    """inference() with the pinned side-stream upload and without it: the
+    same routes and the same bytes in every PFM."""
+    from cermvs_torch.pipeline.inference import inference
+
+    model = pipeline_model(cuda_device)
+    items = pipeline_items(6)
+    runs = {}
+    for prefetch in (True, False):
+        out = tmp_path / str(prefetch)
+        records = inference(PipelineLoader(items), model=model,
+                            output_folder=out, device_prefetch=prefetch,
+                            device=cuda_device)
+        runs[prefetch] = ([(r[0], r[2]) for r in records],
+                          {p.name: p.read_bytes()
+                           for p in sorted((out / "depths").iterdir())})
+    assert runs[True] == runs[False]
+    assert [r[1] for r in runs[True][0]] == ["rectified", "mixed",
+                                             "rectified"] * 2
+
+
+@pytest.mark.cuda
+def test_side_stream_uploads_keep_their_frames(cuda_device, tmp_path):
+    """Many small items through the pinned side-stream upload: each depth
+    map equals the runner's on the same frames uploaded from pageable
+    memory on the compute stream, so no upload was read before its copy
+    ended or overwritten while a forward read it. Pageable frames are
+    refused."""
+    from cermvs_torch.data.augment import pad_to_multiple
+    from cermvs_torch.io.pfm import read_pfm
+    from cermvs_torch.pipeline.inference import (InferenceRunner, inference,
+                                                 to_bf16)
+
+    model = pipeline_model(cuda_device)
+    items = pipeline_items(16, H=34, W=98)
+    inference(PipelineLoader(items), model=model, output_folder=tmp_path,
+              construction="exact", device=cuda_device)
+    runner = InferenceRunner(model=model, construction="exact",
+                             device=cuda_device)
+    assert runner.upload_stream != torch.cuda.current_stream()
+    for images, poses, intr, names, scale in items:
+        images, intr = pad_to_multiple(images, intr, 4)
+        np.testing.assert_array_equal(
+            read_pfm(tmp_path / "depths" / f"{names[0]}_scale1_nf3.pfm"),
+            runner(images, poses, intr, scale))
+    with pytest.raises(ValueError, match="pinned"):
+        runner.upload(to_bf16(items[0][0]))
+    up = runner.upload(to_bf16(items[0][0], pin=True))
+    assert up.frames.device.type == "cuda" and up.frames.is_contiguous()
