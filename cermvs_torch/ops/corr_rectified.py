@@ -36,6 +36,16 @@ def _resample_rows_oracle(fr_rect, fs_rect, base, sigma, n_hyp, s_max):
                              sigma[None], n_hyp, s_max)[0]
 
 
+def column_shift(col0: int, device) -> torch.Tensor:
+    """The homography ``[[1, 0, col0], [0, 1, 0], [0, 0, 1]]`` (float32)
+    that starts a src band at column ``col0``, made on the device: no host
+    copy, so a CUDA graph can capture it (``shift[0, 2] = x`` would copy
+    ``x`` from the host)."""
+    shift = torch.eye(3, dtype=torch.float32, device=device)
+    shift[0, 2].fill_(float(col0))
+    return shift
+
+
 def rect_features(fmaps, poses, intrinsics, ii, jj, plan: RectPlan,
                   feature_dtype):
     """Stage-independent rectification work: ``(geo, warped)`` with
@@ -54,9 +64,7 @@ def rect_features(fmaps, poses, intrinsics, ii, jj, plan: RectPlan,
         _, _, s_max_v = plan.view_params(v)
         col0 = plan.s_max - s_max_v  # src band: columns [col0, ws_r)
         if plan.twopass:
-            shift = torch.tensor(
-                [[1.0, 0.0, float(col0)], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]],
-                dtype=torch.float32, device=fmaps.device)
+            shift = column_shift(col0, fmaps.device)
             fr_rect = rectify.warp_image_twopass(
                 f_ref, geo["H_ref_inv"][v], plan.h_r, plan.w_r)
             fs_rect = rectify.warp_image_twopass(
@@ -198,15 +206,25 @@ class MixedVolume:
         self.rect_views = tuple(int(v) for v in rect_views)
         self.rect = RectifiedVolume(plan, impl)
         self.exact = ExactVolume()
+        self._indices = {}
+
+    def view_indices(self, n_views: int, device):
+        """The rectified and the exact views' positions in jj, as index
+        tensors on ``device``, and the exact views as a list. Made once per
+        (view count, device), at the first :meth:`prepare`: a later one,
+        which a CUDA graph may capture, copies nothing from the host."""
+        key = (n_views, torch.device(device))
+        if key not in self._indices:
+            ev = [v for v in range(n_views) if v not in self.rect_views]
+            if not ev:
+                raise ValueError("all views rectifiable: use "
+                                 "make_rectified_volume_fn")
+            self._indices[key] = (torch.tensor(self.rect_views, device=device),
+                                  torch.tensor(ev, device=device), ev)
+        return self._indices[key]
 
     def prepare(self, fmaps, poses, intrinsics, ii, jj, feature_dtype):
-        V = int(jj.shape[0])
-        ev = [v for v in range(V) if v not in self.rect_views]
-        if not ev:
-            raise ValueError("all views rectifiable: use "
-                             "make_rectified_volume_fn")
-        rv_t = torch.tensor(self.rect_views, device=jj.device)
-        ev_t = torch.tensor(ev, device=jj.device)
+        rv_t, ev_t, ev = self.view_indices(int(jj.shape[0]), jj.device)
         ctx_r = self.rect.prepare(fmaps, poses, intrinsics,
                                   ii[:len(self.rect_views)], jj[rv_t],
                                   feature_dtype)

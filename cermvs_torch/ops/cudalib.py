@@ -8,7 +8,9 @@ edited source rebuilds) and loaded with ctypes. :func:`build_all` starts one
 
 ``launches`` counts kernel launches by kernel name since the last
 :func:`reset_launches`; a wrapper adds one where it launches its kernel and
-nowhere else.
+nowhere else. A CUDA graph's capture runs the wrappers without running the
+kernels: :func:`captured_launches` takes its counts out, and whoever
+replays the graph adds them back per replay (:func:`add_launches`).
 """
 
 from __future__ import annotations
@@ -41,6 +43,29 @@ def reset_launches() -> None:
 
 def count_launch(name: str) -> None:
     launches[name] = launches.get(name, 0) + 1
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count the launches of ``counts`` (a replay of a captured graph)."""
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Around a CUDA graph's capture: yields a dict that holds, after the
+    block, the launches the wrappers counted in it, and takes them out of
+    :data:`launches` (a captured kernel runs only when its graph is
+    replayed)."""
+    before = dict(launches)
+    seen: Dict[str, int] = {}
+    try:
+        yield seen
+    finally:
+        for name, n in launches.items():
+            if n != before.get(name, 0):
+                seen[name] = n - before.get(name, 0)
+                launches[name] = before.get(name, 0)
 
 
 def _nvcc() -> str:

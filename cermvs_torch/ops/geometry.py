@@ -57,8 +57,10 @@ def inv_pose(pose: torch.Tensor) -> torch.Tensor:
     t = pose[..., :3, 3:4]
     Rt = R.transpose(-1, -2)
     top = torch.cat([Rt, -Rt @ t], dim=-1)
-    bottom = pose.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(
-        pose.shape[:-2] + (1, 4))
+    # [0, 0, 0, 1] filled on the device (no host copy), so a CUDA graph can
+    # capture it
+    bottom = pose.new_zeros(pose.shape[:-2] + (1, 4))
+    bottom[..., 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
 
 

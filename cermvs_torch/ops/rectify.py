@@ -503,6 +503,17 @@ def homography_grid(H: torch.Tensor, out_h: int, out_w: int,
     return (qx / wz).clamp(-clamp, clamp), (qy / wz).clamp(-clamp, clamp)
 
 
+def image_corners(h: int, w: int, device) -> torch.Tensor:
+    """The homogeneous corners ``[[0, 0, 1], [w-1, 0, 1], [0, h-1, 1],
+    [w-1, h-1, 1]]`` of an (h, w) grid, (4, 3) float32, filled on the
+    device: no host copy, so a CUDA graph can capture them."""
+    corners = torch.zeros((4, 3), dtype=torch.float32, device=device)
+    corners[:, 2] = 1.0
+    corners[1::2, 0] = w - 1.0
+    corners[2:, 1] = h - 1.0
+    return corners
+
+
 def rect_geometry(poses, intrinsics, ii, jj, h: int, w: int, plan: RectPlan,
                   need_grids: bool = True):
     """Per-view rectification maps, float32.
@@ -531,10 +542,7 @@ def rect_geometry(poses, intrinsics, ii, jj, h: int, w: int, plan: RectPlan,
     fx_r, fy_r = Ki[0, 0], Ki[1, 1]
     zero = torch.zeros((), dtype=torch.float32, device=poses.device)
 
-    corners = torch.tensor(
-        [[0.0, 0.0, 1.0], [w - 1.0, 0.0, 1.0],
-         [0.0, h - 1.0, 1.0], [w - 1.0, h - 1.0, 1.0]],
-        dtype=torch.float32, device=poses.device)
+    corners = image_corners(h, w, poses.device)
     Kr0 = _K(fx_r, fy_r, zero, zero)
     Ki_inv = _K_inv(Ki[0, 0], Ki[1, 1], Ki[0, 2], Ki[1, 2])
     A = torch.einsum("ij,vjk,kl->vil", Kr0, R_ri, Ki_inv)

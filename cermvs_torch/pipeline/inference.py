@@ -17,10 +17,16 @@ Construction routing, one reference view a forward:
 A batch of several reference views runs exact under "auto"; under
 "rectified" the samples' plans are unioned (with a warning).
 
+The forward of each ``(shape, dtype, construction key)`` is the JAX
+package's compiled program's counterpart: on a CUDA runner the key's first
+dispatch runs eagerly and then captures the same forward in a CUDA graph,
+which every later dispatch of the key replays (:meth:`InferenceRunner._fn`).
+
 The pipeline: a thread prepares items two ahead (scale, crop, pad, the bf16
 cast) and, with ``device_prefetch`` on a CUDA runner, casts into pinned
 memory and uploads on the runner's own stream; batch i is dispatched before
-batch i-1 is fetched and written.
+batch i-1 is fetched and written. A record whose interval holds the next
+dispatch's capture says so, as the JAX package's report names a compile.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from cermvs_torch.data.augment import (crop_operation, pad_to_multiple,
                                        scale_operation)
 from cermvs_torch.io.pfm import write_pfm
 from cermvs_torch.models.raft import RAFT
+from cermvs_torch.ops import cudalib
 from cermvs_torch.ops.corr_rectified import (make_mixed_volume_fn,
                                              make_rectified_volume_fn)
 from cermvs_torch.ops.rectify import (PlanCache, RectPlan,
@@ -123,12 +130,59 @@ class Fetch(NamedTuple):
     done: Optional["torch.cuda.Event"]
 
 
+class Routed(NamedTuple):
+    """One dispatch as the forward takes it: the inputs on the device, the
+    neighbours in the routed order, and the volume construction (None for
+    exact) with its cache key and route name."""
+
+    images: torch.Tensor
+    poses: torch.Tensor
+    intrinsics: torch.Tensor
+    scales: torch.Tensor
+    volume_fn: object
+    key: object
+    path: str
+
+
+class GraphedForward:
+    """A forward captured in a CUDA graph: ``inputs`` are its static input
+    buffers, ``output`` its static output, ``launches`` the kernel launches
+    its capture counted. A call copies the inputs in, replays the graph and
+    returns a clone of the output, all on the current stream: the next
+    replay overwrites ``output``, and the driver dispatches a batch before
+    it fetches the one before.
+
+    The wrappers chose their launch geometry at capture from the pointers'
+    alignment (``cudalib.pointer_alignment``). That holds on every replay:
+    the static buffers and the graph's pool keep their addresses."""
+
+    def __init__(self, graph, inputs, output, launches):
+        self.graph = graph
+        self.inputs = inputs
+        self.output = output
+        self.launches = launches
+
+    def __call__(self, *args):
+        for dst, src in zip(self.inputs, args):
+            dst.copy_(src)
+        self.graph.replay()
+        cudalib.add_launches(self.launches)
+        return self.output.clone()
+
+
 class InferenceRunner:
     """Test-mode RAFT on one device with per-batch construction routing.
 
     ``model``: a port ``RAFT`` (its weights are used as they are); otherwise
     one is built from ``model_kwargs`` and, if given, loaded with the JAX
     parameter tree ``params`` (numpy leaves).
+
+    On a CUDA runner each ``(shape, dtype, construction key)`` is captured
+    in a CUDA graph at its first dispatch (:meth:`_fn`). A graph reads the
+    weights at their addresses, so a load in place (``load_state_dict``,
+    ``utils.weights``) reaches it; it keeps everything else as it was at
+    capture (the model's attributes, such as ``lookup_impl``, and the
+    ``torch.backends`` flags): change those on a new runner.
     """
 
     def __init__(self, model: Optional[RAFT] = None, params=None,
@@ -175,9 +229,26 @@ class InferenceRunner:
         self._warned_fallback = False
         self._warned_batched_rect = False
         self.last_path = "exact"
+        # the forward of each (shape, dtype, construction key): a
+        # GraphedForward on CUDA, the eager forward on the CPU
+        self._cache: Dict[tuple, object] = {}
+        # the first dispatch of a key runs eagerly and captures (CUDA):
+        # inference() reports that dispatch's seconds apart
+        self.last_dispatch_compiled = False
+        self.last_capture_s = 0.0
+        self._static_inputs: Dict[tuple, tuple] = {}
+        cuda = self.device.type == "cuda"
         # the stream inference()'s prep thread uploads frames on
-        self.upload_stream = (torch.cuda.Stream(self.device)
-                              if self.device.type == "cuda" else None)
+        self.upload_stream = torch.cuda.Stream(self.device) if cuda else None
+        # the graphs capture on a stream of their own and share one memory
+        # pool: their replays run one at a time on the forward's stream,
+        # each with its inputs copied in just before and its output cloned
+        # out just after, so no graph's memory is in use while another runs
+        self._capture_stream = (torch.cuda.Stream(self.device) if cuda
+                                else None)
+        if cuda:
+            with torch.cuda.device(self.device):
+                self._pool = torch.cuda.graph_pool_handle()
 
     def _feature_geometry(self, poses, intrinsics, scale, img_shape):
         """Poses with scaled translations (RAFT scales them) and intrinsics
@@ -258,24 +329,26 @@ class InferenceRunner:
         return self._volumes[key]
 
     def _route_one(self, poses, intrinsics, scale, img_shape):
-        """One reference view: (volume construction or None, route)."""
+        """One reference view: (construction key or None, route). The key
+        is the JAX package's: the plan, or the mixed ``(plan,
+        rect_views)``."""
         plan = self.plan_for(poses, intrinsics, scale, img_shape)
         if plan.ok:
-            return (self._volume(plan, lambda: make_rectified_volume_fn(plan)),
-                    "rectified")
+            self._volume(plan, lambda: make_rectified_volume_fn(plan))
+            return plan, "rectified"
         pplan, rect_views = self.mixed_plan(poses, intrinsics, scale,
                                             img_shape)
         if pplan is None:
             return None, "exact"
-        return (self._volume((pplan, rect_views),
-                             lambda: make_mixed_volume_fn(pplan, rect_views)),
-                "mixed")
+        key = (pplan, rect_views)
+        self._volume(key, lambda: make_mixed_volume_fn(pplan, rect_views))
+        return key, "mixed"
 
     def _route_batch(self, images, poses, intrinsics, scales):
         """A batch under "rectified": each sample's neighbours in baseline
         order, the union of the samples' plans under the B-scaled memory
-        budget, keyed through the PlanCache. Returns (volume construction
-        or None for exact, images, poses, intrinsics), the arrays reordered
+        budget, keyed through the PlanCache. Returns (the PlanCache key or
+        None for exact, images, poses, intrinsics), the arrays reordered
         either way."""
         B = images.shape[0]
         orders = [self.neighbor_order(poses[b]) for b in range(B)]
@@ -293,8 +366,8 @@ class InferenceRunner:
                     > self.rect_memory_budget)):
             return None, images, poses, intrinsics
         plan = self._plan_cache.key_for(plan)
-        return (self._volume(plan, lambda: make_rectified_volume_fn(plan)),
-                images, poses, intrinsics)
+        self._volume(plan, lambda: make_rectified_volume_fn(plan))
+        return plan, images, poses, intrinsics
 
     def upload(self, frames: torch.Tensor) -> Upload:
         """Copy frames from pinned host memory to the device on the runner's
@@ -319,6 +392,102 @@ class InferenceRunner:
         upload.frames.record_stream(stream)
         return upload.frames
 
+    def _fn(self, cache_key, volume_fn):
+        """The forward of ``cache_key`` = (shape of the images' first four
+        axes, their dtype, construction key), the counterpart of the JAX
+        package's compile cache. Sets :attr:`last_dispatch_compiled` when
+        the key is new.
+
+        On CUDA a new key's forward runs eagerly (which also makes the lazy
+        loads the capture must not make: cuBLAS and cuDNN plans, the
+        kernels' libraries, the mixed construction's view indices), returns
+        that result, and captures the same forward in a CUDA graph
+        (:attr:`last_capture_s` its seconds); every later dispatch of the
+        key replays the graph. A capture that fails raises. On the CPU the
+        key is kept the same way and the forward runs eagerly."""
+        self.last_dispatch_compiled = cache_key not in self._cache
+        if not self.last_dispatch_compiled:
+            return self._cache[cache_key]
+
+        def eager(*args):
+            with torch.no_grad():
+                return self.model(*args, volume_fn=volume_fn)
+
+        if self.device.type != "cuda":
+            self._cache[cache_key] = eager
+            return eager
+
+        def first(*args):
+            out = eager(*args)
+            t0 = time.perf_counter()
+            self._cache[cache_key] = self._capture(args, volume_fn)
+            self.last_capture_s = time.perf_counter() - t0
+            return out
+
+        return first
+
+    def _capture(self, args, volume_fn) -> GraphedForward:
+        """Capture the forward on static inputs shaped as ``args``, shared
+        by the keys of one shape.
+
+        ``capture_error_mode="thread_local"`` lets the prep thread go on
+        while this one captures: it casts into pinned memory and uploads on
+        the upload stream, none of which touches the capture stream, and
+        the allocator serves a stream that is not capturing from its own
+        pool."""
+        spec = tuple((tuple(a.shape), a.dtype) for a in args)
+        if spec not in self._static_inputs:
+            self._static_inputs[spec] = tuple(torch.empty_like(a)
+                                              for a in args)
+        static = self._static_inputs[spec]
+        graph = torch.cuda.CUDAGraph()
+        with cudalib.captured_launches() as launches, torch.no_grad(), \
+                torch.cuda.graph(graph, pool=self._pool,
+                                 stream=self._capture_stream,
+                                 capture_error_mode="thread_local"):
+            out = self.model(*static, volume_fn=volume_fn)
+        return GraphedForward(graph, static, out, launches)
+
+    def route(self, images, poses, intrinsics, scales) -> Routed:
+        """Route a batch as :meth:`submit_batch` does and return the
+        forward's inputs on the device, its construction and key
+        (``runner.model(*routed[:4], volume_fn=routed.volume_fn)`` is the
+        eager forward)."""
+        poses = np.asarray(poses, np.float32)
+        intrinsics = np.asarray(intrinsics, np.float32)
+        scales = [float(s) for s in scales]
+        if isinstance(images, Upload):
+            images = self._take(images)
+        elif not torch.is_tensor(images):
+            images = to_bf16(images)
+        key, path = None, "exact"
+        if self.construction == "rectified" and images.shape[0] > 1:
+            if not self._warned_batched_rect:
+                warnings.warn(
+                    "construction='rectified' with view_batch > 1 unions the "
+                    "batch's plans, which widens every view's epiband "
+                    "windows, and builds the samples' volumes one after "
+                    "another; construction='auto' runs batches through the "
+                    "exact construction")
+                self._warned_batched_rect = True
+            key, images, poses, intrinsics = self._route_batch(
+                images, poses, intrinsics, scales)
+            path = "exact" if key is None else "rectified"
+        elif self.construction != "exact" and images.shape[0] == 1:
+            # neighbour order by baseline: the view aggregation is
+            # permutation-invariant, and a canonical order keeps per-view
+            # plans comparable across reference views
+            order = self.neighbor_order(poses[0])
+            images = images[:, torch.as_tensor(order, device=images.device)]
+            poses, intrinsics = poses[:, order], intrinsics[:, order]
+            key, path = self._route_one(poses[0], intrinsics[0], scales[0],
+                                        images.shape[2:4])
+        dev = self.device
+        return Routed(images.to(dev), torch.from_numpy(poses).to(dev),
+                      torch.from_numpy(intrinsics).to(dev),
+                      torch.tensor(scales, dtype=torch.float32, device=dev),
+                      None if key is None else self._volumes[key], key, path)
+
     def submit_batch(self, images, poses, intrinsics, scales) -> torch.Tensor:
         """A batch of B reference views with their neighbours -> disparities
         (B, h, w) on the device.
@@ -329,43 +498,15 @@ class InferenceRunner:
         the JAX package: one view goes through :meth:`plan_for` and
         :meth:`mixed_plan` unless the construction is "exact"; a batch runs
         exact unless the construction is "rectified"."""
-        poses = np.asarray(poses, np.float32)
-        intrinsics = np.asarray(intrinsics, np.float32)
-        scales = [float(s) for s in scales]
-        if isinstance(images, Upload):
-            images = self._take(images)
-        elif not torch.is_tensor(images):
-            images = to_bf16(images)
-        vol_fn, path = None, "exact"
-        if self.construction == "rectified" and images.shape[0] > 1:
-            if not self._warned_batched_rect:
-                warnings.warn(
-                    "construction='rectified' with view_batch > 1 unions the "
-                    "batch's plans, which widens every view's epiband "
-                    "windows, and builds the samples' volumes one after "
-                    "another; construction='auto' runs batches through the "
-                    "exact construction")
-                self._warned_batched_rect = True
-            vol_fn, images, poses, intrinsics = self._route_batch(
-                images, poses, intrinsics, scales)
-            path = "exact" if vol_fn is None else "rectified"
-        elif self.construction != "exact" and images.shape[0] == 1:
-            # neighbour order by baseline: the view aggregation is
-            # permutation-invariant, and a canonical order keeps per-view
-            # plans comparable across reference views
-            order = self.neighbor_order(poses[0])
-            images = images[:, torch.as_tensor(order, device=images.device)]
-            poses, intrinsics = poses[:, order], intrinsics[:, order]
-            vol_fn, path = self._route_one(poses[0], intrinsics[0], scales[0],
-                                           images.shape[2:4])
-        self.last_path = path
-        dev = self.device
-        im = images.to(dev)
-        po = torch.from_numpy(poses).to(dev)
-        k = torch.from_numpy(intrinsics).to(dev)
-        s = torch.tensor(scales, dtype=torch.float32, device=dev)
-        with torch.no_grad():
-            return self.model(im, po, k, s, volume_fn=vol_fn)
+        r = self.route(images, poses, intrinsics, scales)
+        self.last_path = r.path
+        return self.forward(r)
+
+    def forward(self, r: Routed) -> torch.Tensor:
+        """The forward of a routed dispatch: its key's (:meth:`_fn`)."""
+        fn = self._fn((tuple(r.images.shape[:4]), r.images.dtype, r.key),
+                      r.volume_fn)
+        return fn(r.images, r.poses, r.intrinsics, r.scales)
 
     def submit(self, images, poses, intrinsics, scale) -> torch.Tensor:
         """images (N, H, W, 3) in [0, 255] -> disparity (1, h, w) on device."""
@@ -430,10 +571,15 @@ def inference(test_loader, ckpt=None, output_folder="results",
     forward's dispatch uploads them. ``mesh`` (views sharded over several
     devices) is not ported: anything but None raises.
 
-    Returns one ``(name, seconds, construction)`` record per view.
-    ``seconds`` is pipeline-inclusive, as the JAX package's report is: from
-    the return of the view's batch dispatch to the view's write, an interval
-    that covers the next batch's dispatch.
+    Returns one ``(name, seconds, construction, capture_s)`` record per
+    view. ``seconds`` is pipeline-inclusive, as the JAX package's report is:
+    from the return of the view's batch dispatch to the view's write, an
+    interval that covers the next batch's dispatch. ``capture_s`` is the
+    seconds of that next dispatch where it was the first of its key (an
+    eager forward and the graph capture on CUDA, the eager forward alone on
+    the CPU), else 0: the record JAX's report marks ``[incl. Xs jit
+    compile]``, printed here with ``[incl. Xs graph capture]``. The first
+    dispatch's lies in no record's interval.
     """
     if mesh is not None:
         raise NotImplementedError("inference over a device mesh is not "
@@ -478,14 +624,16 @@ def inference(test_loader, ckpt=None, output_folder="results",
             frames = runner.upload(frames)
         return frames, poses, intrinsics, image_names, scale
 
-    def emit(name, depth, tic, path):
+    def emit(name, depth, tic, path, capture_s):
         seconds = time.perf_counter() - tic
-        records.append((name, seconds, path))
+        records.append((name, seconds, path, capture_s))
         if do_report:
             peak = (torch.cuda.max_memory_allocated(runner.device) / 2**20
                     if runner.device.type == "cuda" else 0.0)
+            note = (f"  [incl. {capture_s:.1f}s graph capture]"
+                    if capture_s > 0 else "")
             print(f"per view time: {seconds:.3f}s  "
-                  f"peak device memory: {peak:.0f} MB ({name}, {path})")
+                  f"peak device memory: {peak:.0f} MB ({name}, {path}){note}")
         write_pfm(output_folder / "depths"
                   / f"{name}_scale{rescale}_nf{num_frames}.pfm", depth)
         if write_min_depth is not None:
@@ -503,25 +651,31 @@ def inference(test_loader, ckpt=None, output_folder="results",
         else:
             images = (frames[0][None] if len(frames) == 1
                       else torch.stack(frames))
+        t_sub = time.perf_counter()
         disp = runner.submit_batch(images, np.stack([b[2] for b in buf]),
                                    np.stack([b[3] for b in buf]),
                                    [b[4] for b in buf])
+        # the first dispatch of a key runs eagerly and captures its graph:
+        # the previous batch's records name those seconds
+        capture_s = (time.perf_counter() - t_sub
+                     if runner.last_dispatch_compiled else 0.0)
         # each batch carries its own route: at drain time runner.last_path
         # is already the next batch's
         return ([b[0] for b in buf], runner.fetch(disp), time.perf_counter(),
-                runner.last_path)
+                runner.last_path, capture_s)
 
-    def drain(pending):
-        names, fetched, tic, path = pending
+    def drain(pending, capture_s=0.0):
+        names, fetched, tic, path, _ = pending
         for name, depth in zip(names, runner.finalize_batch(fetched)):
-            emit(name, depth, tic, path)
+            emit(name, depth, tic, path, capture_s)
 
     def rotate(pending, buf):
         # dispatch batch i before fetching batch i-1: the fetch and the
-        # writes of i-1 overlap batch i's device work
+        # writes of i-1 overlap batch i's device work, and batch i's capture
+        # falls inside batch i-1's interval
         nxt = flush(buf)
         if pending is not None:
-            drain(pending)
+            drain(pending, capture_s=nxt[4])
         return nxt
 
     pending, buf = None, []

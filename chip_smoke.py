@@ -28,22 +28,26 @@ Phases (any failure raises, so the exit code is non-zero):
   4. drive the port's depth inference (``InferenceRunner``) at full DTU width
      — 1152x1600 images, 11 views, cascade (64,64,8)/(44,320,8), HR encoders,
      bf16, random weights from a seed — through the rectified construction
-     (epiband and hat kernels) and through the exact one (one warm-up, three
-     timed forwards each), and check the result: finite (288, 400)
+     (epiband and hat kernels) and through the exact one, each through the
+     runner's CUDA graphs: the first dispatch (eager, then the capture),
+     three timed dispatches, then on frames routed once three replays and
+     three eager forwards (``graphed_pass``: s/view, the route's seconds,
+     replay against eager bit for bit, launches per replay equal to an
+     eager forward's, peak memory allocated, reserved and in the graphs'
+     pool), and check the result: finite (288, 400)
      disparities, the launch counts, and rectified-vs-exact, kernel-vs-plain
      and fused-vs-banded lookup agreement on a small lateral-motion scene,
      where rectification is lossless; the mixed construction: the same
      scene with two neighbours moved onto the reference's optical axis, so
      the full planner rejects it and "auto" rectifies the other eight
      (epiband and hat kernels held against their plain versions at that
-     partial plan, one warm-up and three timed forwards beside the
-     rectified and exact passes, the launches per rectified view), and on a
-     small scene with one forward neighbour, mixed against exact; then the
-     same forward of the fp32
-     model, which the runner builds from the binding ``RAFT.dtype =
-     "float32"`` as a ``-p`` flag gives it, rectified with TF32 off (one
-     warm-up, three timed forwards, s/view, peak memory, the bf16 pass's
-     launch counts, finite disparities);
+     partial plan, the same graphed pass beside the rectified and exact
+     passes, the launches per rectified view), and on a small scene with
+     one forward neighbour, mixed against exact; then the same forward of
+     the fp32 model, which the runner builds from the binding ``RAFT.dtype
+     = "float32"`` as a ``-p`` flag gives it, rectified with TF32 off (the
+     same graphed pass, the bf16 pass's launch counts, finite
+     disparities);
   5. run ``inference()`` on a two-item in-memory loader and check the PFM
      names; then view batching: ``inference()`` over eight items of
      384x512 with six neighbours at view_batch 1 and 4 under "auto" and 4
@@ -59,10 +63,13 @@ Phases (any failure raises, so the exit code is non-zero):
      timed both ways beside the hat kernel; then
      run the port's CLIs with ``inference_DTU.gin`` and
      ``RAFT.lookup_impl="pallas"``: inference at rescale 1 (with the
-     pinned side-stream upload, then without it) and 2, with maps/s and
-     the pipeline-inclusive s/view, multires,
-     fusion at rescale 2 with view_batch 8; check every record's
-     construction, the launches per forward and every file;
+     pinned side-stream upload, then without it) and 2, with maps/s,
+     the pipeline-inclusive s/view, the seconds of each key's first
+     dispatch (eager and graph capture) and the views where the graph key
+     is new (checked against the scan's plans), peak memory allocated and
+     reserved; multires, fusion at rescale 2 with view_batch 8; check
+     every record's construction, the launches per forward and every
+     file;
   7. fuse the scan's true depth maps (a sphere) at 1152x1600 and check that
      every fused point lies on the sphere;
   8. write a synthetic DTU training tree (one scan, one light, 1200x1600
@@ -86,7 +93,8 @@ Phases (any failure raises, so the exit code is non-zero):
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Needs no network and one card.
 ``--profile`` adds a torch.profiler breakdown of one forward per
-construction, of one rescale-2 demo forward, of ``inference()`` over three
+construction (eager for the ranges, and a replay for the busy share), of
+one rescale-2 demo forward (the same two), of ``inference()`` over three
 rescale-2 demo views with and without the pinned side-stream upload (its
 host-to-device copy rows and busy share) and of one train step (device
 time per RAFT.forward range, top kernels, busy share; for the step also a
@@ -180,6 +188,8 @@ EARLIER_MS = {"epiband_fwd": {"stage0": 1.537, "stage1": 1.079,
                                   "demo_rescale2_stage0": 0.232}}
 HAT_TIMED = ("feature_warp", "volume_back_warp")  # phase 8's timed hat shapes
 MIXED_FORWARD = (3, 7)     # phase 4's mixed scene: neighbours moved forward
+GRAPH_TOL = 0.0            # a replay against the eager forward: the same
+#                            kernels on the same inputs, bit for bit
 VB_HW = (384, 512)         # phase 5: the small-scene shape batching is for
 VB_FRAMES = 6              # its neighbours (nf6)
 VB_ITEMS = 8               # its loader's items
@@ -350,6 +360,115 @@ def check_launches(got, expect, what):
     """Fail unless the kernels launched as often as ``expect`` says."""
     if any(got.get(k, 0) != v for k, v in expect.items()):
         raise RuntimeError(f"{what}: launches {got} != {expect}")
+
+
+def routed(runner, images, poses, intr, scale=1.0):
+    """One view routed as ``runner.submit`` routes it: the forward's
+    inputs on the device, its construction and key."""
+    return runner.route(images[None], np.asarray(poses)[None],
+                        np.asarray(intr)[None], [scale])
+
+
+def eager(torch, runner, r):
+    """The runner's forward of routed inputs ``r``, run eagerly."""
+    with torch.no_grad():
+        return runner.model(*r[:4], volume_fn=r.volume_fn)
+
+
+def synced_s(torch, fn):
+    """Host seconds of ``fn()`` to a device sync, and its result."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def graph_pool_bytes(torch, pool):
+    """Bytes the CUDA caching allocator holds in the graphs' memory pool
+    ``pool`` (``torch.cuda.max_memory_allocated`` does not see a replay's
+    transients: they live there)."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def graphed_pass(torch, runner, images, poses, intr, label, reps=3):
+    """One route of phase 4 through the runner's CUDA graphs: the first
+    dispatch (an eager forward, then the capture); ``reps`` timed
+    dispatches from numpy frames (``submit``: s/view, launches); then, on
+    the frames routed once (``route``: its seconds), ``reps`` replays
+    (``forward``) and ``reps`` eager forwards, each timed to a sync, with
+    their launches. Peak bytes over the replays: allocated, reserved and
+    in the graphs' pool. Fails unless the first dispatch captured and the
+    others replayed, a replay launched each kernel as often as an eager
+    forward, and replay and eager disparities agree to GRAPH_TOL. Returns
+    the last replay's disparities with the figures."""
+    from cermvs_torch.ops import cudalib
+
+    first_s, _ = synced_s(torch, lambda: runner.submit(images, poses, intr,
+                                                       1.0))
+    if not runner.last_dispatch_compiled:
+        raise RuntimeError(f"{label}: the first dispatch did not capture")
+    capture_s = runner.last_capture_s
+    torch.cuda.reset_peak_memory_stats()
+    cudalib.reset_launches()
+    submit_s = []
+    for _ in range(reps):
+        submit_s.append(synced_s(torch, lambda: runner.submit(
+            images, poses, intr, 1.0))[0])
+        if runner.last_dispatch_compiled:
+            raise RuntimeError(f"{label}: a repeated key captured again")
+    launches = {k: cudalib.launches.get(k, 0) for k in KERNELS}
+    route_s, r = synced_s(torch, lambda: routed(runner, images, poses,
+                                                intr))
+    outs, times, counts = [], ([], []), []
+    for fn, ts in zip((lambda: runner.forward(r),
+                       lambda: eager(torch, runner, r)), times):
+        cudalib.reset_launches()
+        for _ in range(reps):
+            t, out = synced_s(torch, fn)
+            ts.append(t)
+        outs.append(out)
+        counts.append({k: cudalib.launches.get(k, 0) for k in KERNELS})
+    (disp, de), (replay_s, eager_s) = outs, times
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    pool = graph_pool_bytes(torch, runner._pool)
+    err = float((disp.float() - de.float()).abs().max())
+    print(f"phase 4: {label}: first dispatch {first_s:.4f} s (capture "
+          f"{capture_s:.4f} s); submit {[round(t, 4) for t in submit_s]} "
+          f"s/view; route {route_s:.4f} s, then forward replayed "
+          f"{[round(t, 4) for t in replay_s]} s, eager "
+          f"{[round(t, 4) for t in eager_s]} s; max|replay - eager| "
+          f"{err:.3e} (limit {GRAPH_TOL}); peak {peak / 2**30:.2f} GiB "
+          f"allocated, {reserved / 2**30:.2f} GiB reserved, graph pool "
+          f"{pool / 2**30:.2f} GiB", flush=True)
+    check_launches(counts[0], counts[1], f"{label} replays")
+    if not err <= GRAPH_TOL:
+        raise RuntimeError(f"{label}: replay and eager disparities differ "
+                           f"by {err:.3e}")
+    return disp, dict(s_per_view=submit_s, route_s=route_s,
+                      forward_replay_s=replay_s, forward_eager_s=eager_s,
+                      first_dispatch_s=first_s, capture_s=capture_s,
+                      replay_vs_eager=err, peak_bytes=peak,
+                      peak_reserved_bytes=reserved, graph_pool_bytes=pool,
+                      launches=launches)
+
+
+def profile_graphed(torch, runner, images, poses, intr, label):
+    """``--profile``: one eager forward (the per-range breakdown: a replay
+    shows no ranges) and one replay (its device-busy share) of the same
+    routed inputs, printed; returns the two busy shares."""
+    r = routed(runner, images, poses, intr)
+    prof = profile_call(torch, lambda: eager(torch, runner, r))
+    replay = profile_call(torch, lambda: runner.forward(r))
+    print(f"phase 4: {label} profile: device busy {prof['device_busy_ms']:.1f}"
+          f" of {prof['wall_ms']:.1f} ms eager ({prof['busy_share']:.3f}), "
+          f"{replay['device_busy_ms']:.1f} of {replay['wall_ms']:.1f} ms "
+          f"replayed ({replay['busy_share']:.3f})", flush=True)
+    print(json.dumps({f"profile_{label}": prof,
+                      f"profile_{label}_replay": replay}), flush=True)
+    return {"eager": prof["busy_share"], "replay": replay["busy_share"]}
 
 
 def cuda_ms(fn, reps):
@@ -1098,8 +1217,10 @@ def demo_plans(runner, root):
     formed as ``inference()`` forms them (scale, crop to the stride,
     neighbour order, ``plan_for``) for every reference view of the test
     scan. Per rescale: the feature size and the distinct plans of the
-    widest band and of the largest rectified grid. Fails unless every plan
-    is two-pass and phase 3 held the lookups at these feature sizes."""
+    widest band and of the largest rectified grid; and every view's plan,
+    in the loader's order (the runner's graph keys). Fails unless every
+    plan is two-pass and phase 3 held the lookups at these feature
+    sizes."""
     from cermvs_torch.data import get_test_data_loader
     from cermvs_torch.data.augment import pad_to_multiple, scale_operation
 
@@ -1131,7 +1252,7 @@ def demo_plans(runner, root):
             {max(found, key=lambda p: (p.ws_r, p.h_r * p.w_r)),
              max(found, key=lambda p: (p.h_r * p.w_r, p.ws_r))},
             key=lambda p: p.ws_r, reverse=True))
-    return picked
+    return picked, plans
 
 
 def hold_rect_kernels(torch, plan, h, w, label, timed=False,
@@ -1282,7 +1403,7 @@ def phase_demo(torch, root):
           f"random weights written in {time.perf_counter() - t0:.1f} s",
           flush=True)
     t0 = time.perf_counter()
-    plans = demo_plans(InferenceRunner(
+    plans, view_plans = demo_plans(InferenceRunner(
         model=model, device=next(model.parameters()).device), root)
     del model
     errs, kernel_rows = {}, {}
@@ -1315,33 +1436,50 @@ def phase_demo(torch, root):
         wall = time.perf_counter() - t0
         launches = {k: cudalib.launches.get(k, 0) for k in KERNELS}
         peak = torch.cuda.max_memory_allocated()
+        reserved = torch.cuda.max_memory_reserved()
         n = len(records)
         paths = [r[2] for r in records]
         s_view = [r[1] for r in records]
+        capture_s = [r[3] for r in records]
+        # the graph keys: every view's plan at one image shape. The first
+        # view's capture lies in no record; record i names view i+1's
+        new_key = [i for i, p in enumerate(view_plans[rescale])
+                   if p not in view_plans[rescale][:i]]
+        marked = [i + 1 for i, c in enumerate(capture_s) if c > 0]
         print(f"phase 6: rescale {rescale}, device_prefetch {prefetch}: {n} "
               f"views in {wall:.1f} s, {n / wall:.3f} maps/s, s/view "
               f"(pipeline-inclusive) {[round(t, 4) for t in s_view]}, "
-              f"construction {sorted(set(paths))}, peak "
-              f"{peak / 2**30:.2f} GiB, launches {launches}", flush=True)
+              f"of which first dispatches of a key (eager forward and graph "
+              f"capture) {[round(t, 4) for t in capture_s]}; "
+              f"{len(new_key)} distinct keys of {n} views, new at views "
+              f"{new_key}; construction {sorted(set(paths))}, peak "
+              f"{peak / 2**30:.2f} GiB allocated, {reserved / 2**30:.2f} GiB "
+              f"reserved, launches {launches}", flush=True)
         # demo_plans held every view to a two-pass rectified plan
         if paths != ["rectified"] * DEMO_VIEWS:
             raise RuntimeError(f"demo routes at rescale {rescale}: {paths}")
+        if [0] + marked != new_key:
+            raise RuntimeError(f"captures at views {[0] + marked}, new keys "
+                               f"at views {new_key}")
         V = NUM_FRAMES
         per_forward = {"lookup_fused_fwd": n_iters, "lookup_fused_bwd": 0,
                        "lookup_fused_v2": 0, "epiband_fwd": n_stages * V,
                        "hat_rows_fwd": (2 + n_stages) * 2 * V}
         check_launches(launches, {k: n * v for k, v in per_forward.items()},
                        f"demo inference at rescale {rescale}")
-        for name, _, _ in records:
+        for name, *_ in records:
             f = out / "depths" / f"{name}_scale{rescale}_nf{NUM_FRAMES}.pfm"
             if not f.is_file():
                 raise RuntimeError(f"missing {f}")
         for k, v in launches.items():
             demo_launches[k] += v
         scales[label] = {"views": n, "s_per_view": s_view,
+                         "capture_s": capture_s, "distinct_keys":
+                         len(new_key), "new_key_views": new_key,
                          "maps_per_s": n / wall,
                          "construction": sorted(set(paths)),
-                         "peak_bytes": peak, "wall_s": wall}
+                         "peak_bytes": peak, "peak_reserved_bytes": reserved,
+                         "wall_s": wall}
     if "--profile" in sys.argv:
         profile_demo_forward(torch, common, ckpt, rescale=2)
     t0 = time.perf_counter()
@@ -1402,15 +1540,20 @@ def profile_demo_forward(torch, bindings, ckpt, rescale):
         "DTUTest", num_frames=NUM_FRAMES, num_workers=0).dataset[0]
     images, intr = scale_operation(images, intr, rescale)
     images, intr = pad_to_multiple(images, intr, model.stride_factor)
-    runner(images, poses, intr, scale)  # warm-up
-    prof = profile_call(torch, lambda: runner.submit(images, poses, intr,
-                                                     scale))
+    runner(images, poses, intr, scale)  # the capture
+    # eager for the ranges and the kernels' rows, a replay for the busy share
+    r = routed(runner, images, poses, intr, scale)
+    prof = profile_call(torch, lambda: eager(torch, runner, r))
+    replay = profile_call(torch, lambda: runner.forward(r))
     print(f"phase 6: profile of one rescale-{rescale} forward: device busy "
           f"{prof['device_busy_ms']:.1f} ms of {prof['wall_ms']:.1f} ms "
-          f"wall; lookup_fused_fwd row "
+          f"wall eager, {replay['device_busy_ms']:.1f} of "
+          f"{replay['wall_ms']:.1f} ms replayed; lookup_fused_fwd row "
           f"{[r for r in prof['port_kernels_ms'] if 'lookup_tile' in r[0]]}",
           flush=True)
-    print(json.dumps({f"profile_demo_rescale{rescale}": prof}), flush=True)
+    print(json.dumps({f"profile_demo_rescale{rescale}": prof,
+                      f"profile_demo_rescale{rescale}_replay": replay}),
+          flush=True)
     # the pipeline over the first views, with and without the pinned
     # side-stream upload: its host-to-device rows and the busy share
     loader = ItemLoader(list(itertools.islice(get_test_data_loader(
@@ -1659,17 +1802,18 @@ def phase_epiband_kernel(torch, plan, model):
     return max_err, stages
 
 
-def phase_fp32_forward(torch, images, poses, intr, expect):
+def phase_fp32_forward(torch, images, poses, intr, expect, busy):
     """Phase 4's last pass: the fp32 model, built by the InferenceRunner
     from the binding ``RAFT.dtype = "float32"`` as a ``-p`` flag gives it,
     through the rectified construction with TF32 off (cuDNN and matmul):
-    one warm-up, three timed forwards; the bf16 pass's launch counts
-    (``expect``), finite disparities at a quarter of the image size.
-    Returns s/view, peak bytes and launches."""
+    a capture, three timed replays and three eager forwards
+    (:func:`graphed_pass`); the bf16 pass's launch counts (``expect``),
+    finite disparities at a quarter of the image size. Returns the
+    figures of :func:`graphed_pass`; with ``--profile`` adds the busy
+    shares to ``busy``."""
     import argparse
 
     from cermvs_torch import config as pcfg
-    from cermvs_torch.ops import cudalib
     from cermvs_torch.pipeline.inference import InferenceRunner
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1685,18 +1829,10 @@ def phase_fp32_forward(torch, images, poses, intr, expect):
     if runner.model.dtype != torch.float32:
         raise RuntimeError(f"RAFT.dtype = \"float32\" built a "
                            f"{runner.model.dtype} model")
-    runner(images, poses, intr, 1.0)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    cudalib.reset_launches()
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        disp = runner.submit(images, poses, intr, 1.0)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    launches = {k: cudalib.launches.get(k, 0) for k in KERNELS}
-    peak = torch.cuda.max_memory_allocated()
+    disp, graphed = graphed_pass(torch, runner, images, poses, intr,
+                                 "rectified fp32")
+    times, peak = graphed["s_per_view"], graphed["peak_bytes"]
+    launches = graphed["launches"]
     d = disp[0].float().cpu().numpy()
     hw = tuple(n // runner.model.stride_factor for n in images.shape[1:3])
     print(f"phase 4: rectified fp32 (RAFT.dtype = \"float32\") "
@@ -1710,18 +1846,22 @@ def phase_fp32_forward(torch, images, poses, intr, expect):
     if d.shape != hw or not np.isfinite(d).all():
         raise RuntimeError(f"bad fp32 disparity: shape {d.shape}, finite "
                            f"{np.isfinite(d).all()}")
-    return dict(s_per_view=times, peak_bytes=peak, launches=launches)
+    if "--profile" in sys.argv:
+        busy["fp32"] = profile_graphed(torch, runner, images, poses, intr,
+                                       "rectified_fp32")
+    return graphed
 
 
-def phase_mixed(torch, model, passes):
+def phase_mixed(torch, model, passes, busy):
     """Phase 4's mixed pass: the full-width scene with the neighbours
     MIXED_FORWARD moved onto the reference's optical axis, so the full
     planner rejects it and "auto" takes the mixed construction; epiband_fwd
     and hat_rows_fwd held against their plain versions at the partial plan;
-    one warm-up and three timed forwards (s/view and peak memory printed
-    beside ``passes``, the rectified and exact passes'), the launches
-    checked against the rectified views' count, finite disparities."""
-    from cermvs_torch.ops import cudalib
+    a capture, three timed replays and three eager forwards
+    (:func:`graphed_pass`; s/view and peak memory printed beside
+    ``passes``, the rectified and exact passes'), the launches checked
+    against the rectified views' count, finite disparities; with
+    ``--profile`` the busy shares added to ``busy``."""
     from cermvs_torch.pipeline.inference import InferenceRunner
 
     images, poses, intr = mixed_ring_scene(H, W, NUM_FRAMES + 1)
@@ -1743,18 +1883,9 @@ def phase_mixed(torch, model, passes):
                                 phase="phase 4")
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = tf32
-    runner(images, poses, intr, 1.0)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    cudalib.reset_launches()
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        disp = runner.submit(images, poses, intr, 1.0)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    launches = {k: cudalib.launches.get(k, 0) for k in KERNELS}
-    peak = torch.cuda.max_memory_allocated()
+    disp, graphed = graphed_pass(torch, runner, images, poses, intr, "mixed")
+    times, peak = graphed["s_per_view"], graphed["peak_bytes"]
+    launches = graphed["launches"]
     n_stages, n_rect = len(model.cascade), len(rect_views)
     expect = {k: 0 for k in KERNELS}
     expect.update(epiband_fwd=3 * n_stages * n_rect,
@@ -1772,8 +1903,11 @@ def phase_mixed(torch, model, passes):
     check_launches(launches, expect, "mixed forward")
     if d.shape != (H // 4, W // 4) or not np.isfinite(d).all():
         raise RuntimeError(f"bad mixed disparity: shape {d.shape}")
+    if "--profile" in sys.argv:
+        busy["mixed"] = profile_graphed(torch, runner, images, poses, intr,
+                                        "mixed")
     return dict(s_per_view=times, peak_bytes=peak, rect_views=rect_views,
-                launches=launches, kernel_errs=errs)
+                launches=launches, kernel_errs=errs, graphed=graphed)
 
 
 def phase_view_batch(torch, small):
@@ -1934,19 +2068,13 @@ def main():
     mark(ends, "phase 3")
 
     # ---- phase 4: the slice at full width ---------------------------------
+    # each route through the runner's CUDA graphs (a capture, then
+    # replays), against its eager forward
     torch.backends.cudnn.allow_tf32 = True  # the bf16 model's own setting
-    runner(images, poses, intr, 1.0)  # warm-up (cuDNN autotune, allocator)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    cudalib.reset_launches()
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        disp = runner.submit(images, poses, intr, 1.0)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    infer_launches = {k: cudalib.launches.get(k, 0) for k in KERNELS}
-    peak = torch.cuda.max_memory_allocated()
+    disp, graphed = graphed_pass(torch, runner, images, poses, intr,
+                                 "rectified")
+    times, peak = graphed["s_per_view"], graphed["peak_bytes"]
+    infer_launches = graphed["launches"]
     V = NUM_FRAMES
     # per forward and view: an epiband launch per stage; two hat passes for
     # each of the two feature warps and each stage's volume back-warp
@@ -1965,23 +2093,16 @@ def main():
     if d.shape != (H // 4, W // 4) or not np.isfinite(d).all():
         raise RuntimeError(f"bad disparity: shape {d.shape}, finite "
                            f"{np.isfinite(d).all()}")
-
+    busy = {}
     if "--profile" in sys.argv:
-        prof = profile_call(
-            torch, lambda: runner.submit(images, poses, intr, 1.0))
-        print(json.dumps({"profile_rectified": prof}), flush=True)
+        busy["rectified"] = profile_graphed(torch, runner, images, poses,
+                                            intr, "rectified")
 
     exact = InferenceRunner(model=model, construction="exact", device="cuda")
-    exact(images, poses, intr, 1.0)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t_exact = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        de = exact.submit(images, poses, intr, 1.0)
-        torch.cuda.synchronize()
-        t_exact.append(time.perf_counter() - t0)
-    peak_exact = torch.cuda.max_memory_allocated()
+    de, graphed_exact = graphed_pass(torch, exact, images, poses, intr,
+                                     "exact")
+    t_exact, peak_exact = (graphed_exact["s_per_view"],
+                           graphed_exact["peak_bytes"])
     de = de[0].float().cpu().numpy()
     print(f"phase 4: exact {[round(t, 4) for t in t_exact]} s/view, path="
           f"{exact.last_path}, peak {peak_exact / 2**30:.2f} GiB, "
@@ -1989,13 +2110,12 @@ def main():
     if de.shape != d.shape or not np.isfinite(de).all():
         raise RuntimeError("bad exact-construction disparity")
     if "--profile" in sys.argv:
-        prof = profile_call(
-            torch, lambda: exact.submit(images, poses, intr, 1.0))
-        print(json.dumps({"profile_exact": prof}), flush=True)
+        busy["exact"] = profile_graphed(torch, exact, images, poses, intr,
+                                        "exact")
     del runner, exact
     mixed = phase_mixed(torch, model, {
         "rectified": {"s_per_view": times, "peak_bytes": peak},
-        "exact": {"s_per_view": t_exact, "peak_bytes": peak_exact}})
+        "exact": {"s_per_view": t_exact, "peak_bytes": peak_exact}}, busy)
 
     # correctness on a small lateral scene (fp32, no TF32): rectification is
     # lossless there, so rectified (kernel), rectified (plain epiband) and
@@ -2037,11 +2157,15 @@ def main():
     np.testing.assert_allclose(a, c, rtol=1e-3, atol=1e-7)
     # the whole forward with the fused lookup kernel against the banded
     # lookup of the materialized pyramid: the taps differ in rounding only
+    # a runner of its own: the first one's graph holds the banded lookup
     small.lookup_impl = "pallas"
+    r_fused = InferenceRunner(model=small, construction="rectified",
+                              rect_lambda_max=0.1, device="cuda")
     cudalib.reset_launches()
-    d_fused = r_rect.submit(im_s, po_s, k_s, 1.0)[0].cpu().numpy()
+    d_fused = r_fused.submit(im_s, po_s, k_s, 1.0)[0].cpu().numpy()
     fused_launches = cudalib.launches.get("lookup_fused_fwd", 0)
     small.lookup_impl = "banded"
+    del r_fused
     e_fb = float(np.abs(d_fused - a).max())
     print(f"phase 4: small lateral scene, fused lookup: |fused-banded| "
           f"{e_fb:.3e}, lookup launches {fused_launches}", flush=True)
@@ -2067,7 +2191,7 @@ def main():
     if r_auto.last_path != "mixed" or mixed_launches == 0:
         raise RuntimeError("small scene did not take the mixed path")
     np.testing.assert_allclose(d_mixed, d_exact, rtol=1e-3, atol=1e-7)
-    fp32 = phase_fp32_forward(torch, images, poses, intr, expect)
+    fp32 = phase_fp32_forward(torch, images, poses, intr, expect, busy)
     mark(ends, "phase 4")
 
     # ---- phase 5: inference() writes the PFM contract ----------------------
@@ -2143,6 +2267,9 @@ def main():
         "rectified_peak_bytes": peak, "exact_peak_bytes": peak_exact,
         "rectified_fp32_s_per_view": fp32["s_per_view"],
         "rectified_fp32_peak_bytes": fp32["peak_bytes"],
+        "graphs": {"rectified": graphed, "exact": graphed_exact,
+                   "mixed": mixed["graphed"], "fp32": fp32,
+                   "busy_share": busy},
         "mixed": {k: v for k, v in mixed.items() if k != "kernel_errs"},
         "view_batch": view_batch,
         "train_s_per_step": training["s_per_step"],

@@ -1188,3 +1188,137 @@ def test_side_stream_uploads_keep_their_frames(cuda_device, tmp_path):
         runner.upload(to_bf16(items[0][0]))
     up = runner.upload(to_bf16(items[0][0], pin=True))
     assert up.frames.device.type == "cuda" and up.frames.is_contiguous()
+
+
+def graph_scene(kind, seed=0, H=64, W=192):
+    """A reference and three neighbours, moved sideways ("lateral": the
+    rectified route) or one of them along the optical axis ("mixed")."""
+    K = np.array([[80.0, 0, W / 2], [0, 80.0, H / 2], [0, 0, 1]], np.float32)
+    poses = np.tile(np.eye(4, dtype=np.float32), (4, 1, 1))
+    poses[1, 0, 3] = -1.2
+    if kind == "mixed":
+        poses[2, 2, 3] = -1.0
+    else:
+        poses[2, 0, 3] = 1.0
+    poses[3, 0, 3] = 1.6
+    images = np.random.RandomState(seed).rand(4, H, W, 3).astype(np.float32)
+    return images * 255, poses, np.tile(K, (4, 1, 1))
+
+
+def eager(runner, images, poses, intr):
+    """The runner's forward without its graphs, routed as submit routes."""
+    r = runner.route(images[None], poses[None], intr[None], [1.0])
+    with torch.no_grad():
+        return runner.model(*r[:4], volume_fn=r.volume_fn)
+
+
+GRAPH_ROUTES = [("rectified", "lateral", "auto"), ("mixed", "mixed", "auto"),
+                ("exact", "lateral", "exact")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,kind,construction", GRAPH_ROUTES)
+def test_graph_replay_equals_eager(cuda_device, route, kind, construction):
+    """Each route's first dispatch captures and returns the eager result;
+    later dispatches replay, on new frames too, bit for bit the eager
+    forward's disparities."""
+    from cermvs_torch.pipeline.inference import InferenceRunner
+
+    runner = InferenceRunner(model=pipeline_model(cuda_device),
+                             construction=construction, rect_lambda_max=0.1,
+                             device=cuda_device)
+    for seed, compiled in ((0, True), (0, False), (1, False)):
+        images, poses, intr = graph_scene(kind, seed)
+        got = runner.submit(images, poses, intr, 1.0)
+        assert runner.last_dispatch_compiled == compiled
+        assert runner.last_path == route
+        assert torch.equal(got, eager(runner, images, poses, intr))
+    assert len(runner._cache) == 1
+
+
+@pytest.mark.cuda
+def test_two_keys_replay_alternately(cuda_device):
+    """Two keys of one shape share the static inputs and the memory pool:
+    replayed in turn after both captures, each gives its eager result."""
+    from cermvs_torch.pipeline.inference import InferenceRunner
+
+    runner = InferenceRunner(model=pipeline_model(cuda_device),
+                             rect_lambda_max=0.1, device=cuda_device)
+    for kind in ("lateral", "mixed"):
+        runner.submit(*graph_scene(kind), 1.0)
+        assert runner.last_dispatch_compiled
+    for seed in (1, 2, 3):
+        for kind, route in (("lateral", "rectified"), ("mixed", "mixed")):
+            images, poses, intr = graph_scene(kind, seed)
+            got = runner.submit(images, poses, intr, 1.0)
+            assert not runner.last_dispatch_compiled
+            assert runner.last_path == route
+            assert torch.equal(got, eager(runner, images, poses, intr))
+
+
+@pytest.mark.cuda
+def test_replays_dispatched_before_a_fetch_keep_their_output(cuda_device):
+    """Two views of one key dispatched before either is read, as
+    inference() dispatches a batch before it fetches the one before: each
+    keeps its own disparities (a replay returns a clone of the graph's
+    static output)."""
+    from cermvs_torch.pipeline.inference import InferenceRunner
+
+    runner = InferenceRunner(model=pipeline_model(cuda_device),
+                             rect_lambda_max=0.1, device=cuda_device)
+    runner.submit(*graph_scene("lateral"), 1.0)
+    scenes = [graph_scene("lateral", seed) for seed in (1, 2)]
+    outs = [runner.submit(*scene, 1.0) for scene in scenes]
+    fetched = [runner.fetch(d) for d in outs]
+    for scene, f in zip(scenes, fetched):
+        np.testing.assert_array_equal(
+            runner.finalize_batch(f),
+            runner.finalize_batch(eager(runner, *scene)))
+    assert not torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+def test_weights_loaded_in_place_reach_the_graph(cuda_device):
+    """A graph reads the weights at their addresses: after
+    load_state_dict of other weights its replay is the new weights'
+    eager forward."""
+    from cermvs_torch.models.raft import RAFT
+    from cermvs_torch.pipeline.inference import InferenceRunner
+
+    runner = InferenceRunner(model=pipeline_model(cuda_device),
+                             rect_lambda_max=0.1, device=cuda_device)
+    images, poses, intr = graph_scene("lateral")
+    before = runner.submit(images, poses, intr, 1.0)
+    other = RAFT(test_mode=True, dtype=torch.float32, device="cpu",
+                 cascade=((8, 64, 2), (-1, 320, 2)),
+                 generator=torch.Generator().manual_seed(1))
+    runner.model.load_state_dict(other.state_dict())
+    after = runner.submit(images, poses, intr, 1.0)
+    assert not runner.last_dispatch_compiled
+    assert not torch.equal(after, before)
+    assert torch.equal(after, eager(runner, images, poses, intr))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,kind,construction", GRAPH_ROUTES[:2])
+def test_replays_count_the_launches_of_the_eager_forward(
+        cuda_device, route, kind, construction):
+    """The capture's launch counts are taken out and added back per
+    replay: a replay counts what an eager forward counts."""
+    from cermvs_torch.pipeline.inference import InferenceRunner
+
+    runner = InferenceRunner(model=pipeline_model(cuda_device),
+                             construction=construction, rect_lambda_max=0.1,
+                             device=cuda_device)
+    images, poses, intr = graph_scene(kind)
+    cudalib.reset_launches()
+    runner.submit(images, poses, intr, 1.0)  # eager, then the capture
+    first = dict(cudalib.launches)
+    cudalib.reset_launches()
+    runner.submit(images, poses, intr, 1.0)
+    replay = dict(cudalib.launches)
+    cudalib.reset_launches()
+    eager(runner, images, poses, intr)
+    assert runner.last_path == route
+    assert replay == first == dict(cudalib.launches)
+    assert replay["epiband_fwd"] > 0 and replay["hat_rows_fwd"] > 0
