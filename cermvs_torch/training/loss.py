@@ -27,12 +27,16 @@ def sequence_loss(disp_est: torch.Tensor, disp_gt: torch.Tensor,
                   gamma: float = 0.9, depth_cut: float = 1e-3
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """disp_est: (T, B, h, w) predictions; disp_gt: (B, H, W), zeros mark
-    invalid pixels. Returns (scalar loss, metrics of the final iterate)."""
+    invalid pixels; ``gradual_weight`` a float or a 0-dim fp32 tensor (read
+    on the device, with no host sync: ``1 - gw`` is then fp32, as the JAX
+    package computes it from ``jnp.float32(gw)``). Returns (scalar loss,
+    metrics of the final iterate)."""
     T = disp_est.shape[0]
     H, W = disp_gt.shape[-2:]
     est = resize_bilinear_align_corners(disp_est.float(), H, W)
     disp_gt = disp_gt.float()
-    gw = float(gradual_weight)
+    gw = (gradual_weight if torch.is_tensor(gradual_weight)
+          else float(gradual_weight))
 
     valid = (disp_gt > 0.0).float()
     loss_disp = (est - disp_gt).abs()

@@ -51,12 +51,20 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 def clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
     """Scale every gradient by ``max_norm / norm`` when ``norm > max_norm``
     (no epsilon in the denominator, unlike ``clip_grad_norm_``); returns
-    the norm before clipping."""
+    the norm before clipping.
+
+    The decision is made on the device, with no host sync, so a CUDA graph
+    can capture it: each gradient is divided by ``norm`` and multiplied by
+    ``max_norm`` above the limit (optax's ``(t / g_norm) * max_norm``), and
+    divided and multiplied by 1 below it, which leaves it as it is."""
     grads = [g for g in grads if g is not None]
     norm = global_norm(grads)
-    if float(norm) > max_norm:
-        for g in grads:
-            g.div_(norm).mul_(max_norm)
+    over = norm > max_norm
+    one = torch.ones_like(norm)
+    div = torch.where(over, norm, one)
+    mul = torch.where(over, torch.full_like(norm, max_norm), one)
+    for g in grads:
+        g.div_(div).mul_(mul)
     return norm
 
 
@@ -65,16 +73,30 @@ def fetch_optimizer(params, num_steps: int, lr: float = 0.00025,
                     wdecay: float = 0.00005, epsilon: float = 1e-8,
                     pct_start: float = 0.001, clip_norm: float = 1.0
                     ) -> Tuple[torch.optim.AdamW,
-                               torch.optim.lr_scheduler.LambdaLR, float]:
+                               torch.optim.lr_scheduler.LambdaLR, float,
+                               Callable[[int], float]]:
     """AdamW over ``params``, a LambdaLR stepping it along
     :func:`one_cycle_linear` (the k-th ``optimizer.step()``, 0-based, runs
-    at ``schedule(k)`` when the scheduler steps once after each), and the
+    at ``schedule(k)`` when the scheduler steps once after each), the
     global norm the gradients are clipped to before each step
     (:func:`clip_by_global_norm`, as the JAX package chains optax's
-    ``clip_by_global_norm(clip_norm)`` ahead of AdamW)."""
+    ``clip_by_global_norm(clip_norm)`` ahead of AdamW), and the schedule
+    itself (the learning rate at a step, on the host, as the JAX package's
+    ``fetch_optimizer`` returns it).
+
+    On a CUDA device AdamW is ``capturable`` and its learning rate a 0-dim
+    tensor there, which the LambdaLR fills in place: a CUDA graph of the
+    step reads the schedule's value at each replay. On the CPU, where
+    ``capturable`` is refused, the learning rate is a float."""
+    params = list(params)
     schedule = one_cycle_linear(lr, num_steps + 100, pct_start)
-    opt = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=epsilon,
-                            weight_decay=wdecay)
+    capturable = bool(params) and params[0].device.type == "cuda"
+    opt = torch.optim.AdamW(
+        params, lr=(torch.tensor(lr, dtype=torch.float32,
+                                 device=params[0].device)
+                    if capturable else lr),
+        betas=(0.9, 0.999), eps=epsilon, weight_decay=wdecay,
+        capturable=capturable)
     sched = torch.optim.lr_scheduler.LambdaLR(
         opt, lambda count: schedule(count) / lr)
-    return opt, sched, float(clip_norm)
+    return opt, sched, float(clip_norm), schedule

@@ -1,5 +1,9 @@
 """The single-device train step: forward, sequence loss, backward,
-global-norm clip and the AdamW step, in place on a :class:`TrainState`.
+global-norm clip and the AdamW step, in place on a :class:`TrainState`,
+and :class:`StepRunner`, the step of each (batch shapes, construction key)
+as a CUDA graph: the counterpart of the JAX package's ``make_train_step``,
+which ``train()`` jits once for the exact construction and once per cached
+rectification plan.
 
 Batches are dicts of images (B, N, H, W, 3) in [0, 255], depths
 (B, N, H, W), poses (B, N, 4, 4) and intrinsics (B, N, 3, 3).
@@ -7,11 +11,15 @@ Batches are dicts of images (B, N, H, W, 3) in [0, 255], depths
 
 from __future__ import annotations
 
+import functools
+import gc
+import time
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from cermvs_torch.ops import cudalib
 from cermvs_torch.training.loss import sequence_loss
 from cermvs_torch.training.optim import clip_by_global_norm, fetch_optimizer
 
@@ -21,18 +29,22 @@ BATCH_KEYS = ("images", "depths", "poses", "intrinsics")
 @dataclass
 class TrainState:
     """``clip_norm``: the global norm each step clips the gradients to, as
-    the optimizer's configuration (``optimizer.clip_norm``) sets it."""
+    the optimizer's configuration (``optimizer.clip_norm``) sets it;
+    ``schedule``: the learning rate at a step, on the host; ``runner``: the
+    :class:`StepRunner` that ``train()`` steps this state with."""
     step: int
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     scheduler: Any
     clip_norm: float = 1.0
+    schedule: Optional[Callable[[int], float]] = None
+    runner: Optional["StepRunner"] = None
 
 
 def init_state(model: torch.nn.Module, num_steps: int) -> TrainState:
-    optimizer, scheduler, clip_norm = fetch_optimizer(model.parameters(),
-                                                      num_steps=num_steps)
-    return TrainState(0, model, optimizer, scheduler, clip_norm)
+    optimizer, scheduler, clip_norm, schedule = fetch_optimizer(
+        model.parameters(), num_steps=num_steps)
+    return TrainState(0, model, optimizer, scheduler, clip_norm, schedule)
 
 
 def disp_ground_truth(depths: torch.Tensor) -> torch.Tensor:
@@ -49,27 +61,196 @@ def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
             for k in BATCH_KEYS}
 
 
-def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
-               gradual_weight: float, volume_fn=None) -> Dict[str, float]:
-    """One step in place; returns the metrics of the final iterate with
-    ``loss`` and ``grad_norm`` (the gradients' global norm before clipping
-    to ``state.clip_norm``). ``volume_fn``: the construction for this batch
-    (default: the model's own)."""
-    model = state.model
+def step_body(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+              clip_norm: float, batch: Dict[str, torch.Tensor],
+              gradual_weight, volume_fn=None
+              ) -> Tuple[Tuple[str, ...], torch.Tensor]:
+    """Forward, sequence loss, backward, clip and the AdamW update, with no
+    host sync, so a CUDA graph can capture it. Returns the names of the
+    final iterate's metrics, ``loss`` and ``grad_norm`` (the gradients'
+    global norm before the clip) and their values stacked in one fp32
+    tensor on the device, so that they come back in one copy.
+
+    The gradients are zeroed in place, not freed: after a model's first
+    step they keep their addresses, outside any graph's memory pool, and a
+    captured step accumulates into them."""
     model.train()
     model.test_mode = False
     preds = model(batch["images"], batch["poses"], batch["intrinsics"],
                   volume_fn=volume_fn)
     loss, metrics = sequence_loss(preds, disp_ground_truth(batch["depths"]),
                                   gradual_weight)
-    state.optimizer.zero_grad(set_to_none=True)
+    optimizer.zero_grad(set_to_none=False)
     loss.backward()
     grad_norm = clip_by_global_norm(
-        [p.grad for p in model.parameters()], state.clip_norm)
-    state.optimizer.step()
+        [p.grad for p in model.parameters()], clip_norm)
+    optimizer.step()
+    names = tuple(metrics) + ("loss", "grad_norm")
+    return names, torch.stack(list(metrics.values())
+                              + [loss.detach(), grad_norm])
+
+
+def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+               gradual_weight, volume_fn=None) -> Dict[str, float]:
+    """One eager step in place; returns the metrics of the final iterate
+    with ``loss`` and ``grad_norm`` (the gradients' global norm before
+    clipping to ``state.clip_norm``). ``gradual_weight``: a float or a
+    0-dim tensor on the model's device. ``volume_fn``: the construction for
+    this batch (default: the model's own)."""
+    names, values = step_body(state.model, state.optimizer, state.clip_norm,
+                              batch, gradual_weight, volume_fn)
     state.scheduler.step()
     state.step += 1
-    out = {k: float(v) for k, v in metrics.items()}
-    out["loss"] = float(loss.detach())
-    out["grad_norm"] = float(grad_norm)
-    return out
+    return dict(zip(names, values.tolist()))
+
+
+def _volume_of(key):
+    """The construction of a step's key: None for exact, else the plan's
+    rectified one."""
+    if key is None:
+        return None
+    from cermvs_torch.ops.corr_rectified import RectifiedVolume
+
+    return RectifiedVolume(key)
+
+
+class GraphedStep:
+    """A train step captured in a CUDA graph: ``inputs`` its static batch
+    buffers, ``gw`` its static curriculum weight, ``names`` and ``values``
+    its static output, ``launches`` the kernel launches its capture
+    counted. A call copies the batch in, fills the weight, replays the
+    graph on the current stream and returns ``(names, values)``, which the
+    next replay of any graph of the runner may overwrite."""
+
+    def __init__(self, graph, inputs, gw, names, values, launches):
+        self.graph = graph
+        self.inputs = inputs
+        self.gw = gw
+        self.names = names
+        self.values = values
+        self.launches = launches
+
+    def __call__(self, batch, gradual_weight):
+        for k, dst in self.inputs.items():
+            dst.copy_(batch[k])
+        self.gw.fill_(gradual_weight)
+        self.graph.replay()
+        cudalib.add_launches(self.launches)
+        return self.names, self.values
+
+
+class StepRunner:
+    """The train step of a state's model, optimizer and scheduler, keyed by
+    ``(the batch's shapes and dtypes, construction key)``: the key is the
+    cached ``RectPlan`` of a rectified batch or None for the exact
+    construction, as the JAX package's ``train()`` keeps one jitted step
+    for the exact construction and one per ``PlanCache`` key.
+
+    On CUDA the first dispatch of a batch shape is an eager step (which
+    also makes the lazy loads that a capture must not make: the kernels'
+    libraries, cuDNN and cuBLAS plans, AdamW's moments, the gradients),
+    then the runner captures the same step in a CUDA graph; the first
+    dispatch of a new plan for a shape it has stepped captures first and
+    replays, because an eager step beside the graphs' pool would hold a
+    second step's transients (a train_DTU.gin step's are ~33 GiB).
+    Every later dispatch of the key copies the batch into the static
+    buffers, fills the static curriculum weight, replays the graph and
+    steps the scheduler, whose in-place fill of AdamW's learning-rate
+    tensor the next replay reads. A capture that fails raises. On the CPU
+    the keys are kept the same way and every step runs eagerly, with the
+    weight as given.
+
+    The graphs share one memory pool, which holds only a step's transients
+    and each graph's static output: the weights, gradients, AdamW's state
+    and the static inputs live outside it, and a dispatch copies the
+    metrics out before the next replay. They read the weights and the
+    optimizer's tensors at their addresses: load checkpoints in place
+    (``training.checkpoint.load_state``). The model's attributes and the
+    ``torch.backends`` flags stay as they were at capture: change those on
+    a new runner. ``state.step`` is the caller's to advance."""
+
+    def __init__(self, state: TrainState):
+        self.model = state.model
+        self.optimizer = state.optimizer
+        self.scheduler = state.scheduler
+        self.clip_norm = state.clip_norm
+        self.device = next(self.model.parameters()).device
+        self._steps: Dict[tuple, Callable] = {}
+        self._static: Dict[tuple, Dict[str, torch.Tensor]] = {}
+        # what the last dispatch did: its key, whether the key was new, and
+        # for a new key on CUDA the seconds of its eager step (0 where the
+        # shape was stepped before) and of its capture
+        self.last_key: Optional[tuple] = None
+        self.last_dispatch_compiled = False
+        self.last_eager_s = 0.0
+        self.last_capture_s = 0.0
+        self._pool = None
+        if self.device.type == "cuda":
+            self._gw = torch.zeros((), dtype=torch.float32,
+                                   device=self.device)
+            self._capture_stream = torch.cuda.Stream(self.device)
+            with torch.cuda.device(self.device):
+                self._pool = torch.cuda.graph_pool_handle()
+
+    def __call__(self, batch: Dict[str, torch.Tensor], gradual_weight,
+                 key=None) -> Dict[str, float]:
+        """One step on a batch on the runner's device, through the
+        construction of ``key`` (a ``RectPlan``, or None for exact):
+        forward to the scheduler's update. Returns the metrics (the final
+        iterate's, ``loss`` and ``grad_norm``) on the host, in one copy."""
+        cache_key = (tuple((tuple(batch[k].shape), batch[k].dtype)
+                           for k in BATCH_KEYS), key)
+        self.last_key = cache_key
+        self.last_dispatch_compiled = cache_key not in self._steps
+        self.last_eager_s = self.last_capture_s = 0.0
+        if not self.last_dispatch_compiled:
+            names, values = self._steps[cache_key](batch, gradual_weight)
+        elif self._pool is None:
+            self._steps[cache_key] = functools.partial(
+                step_body, self.model, self.optimizer, self.clip_norm,
+                volume_fn=_volume_of(key))
+            names, values = self._steps[cache_key](batch, gradual_weight)
+        else:
+            names, values = self._first(cache_key, batch, gradual_weight)
+        self.scheduler.step()
+        return dict(zip(names, values.tolist()))
+
+    def _first(self, cache_key, batch, gradual_weight):
+        """A new key on CUDA: the eager step where the batch shape is new,
+        then the capture; otherwise the capture, then its replay."""
+        volume_fn = _volume_of(cache_key[1])
+        spec = cache_key[0]
+        eager = spec not in self._static
+        t0 = time.perf_counter()
+        if eager:
+            self._gw.fill_(gradual_weight)
+            names, values = step_body(self.model, self.optimizer,
+                                      self.clip_norm, batch, self._gw,
+                                      volume_fn)
+            torch.cuda.synchronize(self.device)
+            self._static[spec] = {k: torch.empty_like(batch[k])
+                                  for k in BATCH_KEYS}
+        t1 = time.perf_counter()
+        static = self._static[spec]
+        # a graph that Python's collector frees during the capture would
+        # free memory there, which ends the capture: collect first; then
+        # the eager step's cached blocks go back to the card before the
+        # graph takes a step's transients into its pool
+        gc.collect()
+        torch.cuda.empty_cache()
+        graph = torch.cuda.CUDAGraph()
+        with cudalib.captured_launches() as launches, \
+                torch.cuda.graph(graph, pool=self._pool,
+                                 stream=self._capture_stream,
+                                 capture_error_mode="thread_local"):
+            g_names, g_values = step_body(self.model, self.optimizer,
+                                          self.clip_norm, static, self._gw,
+                                          volume_fn)
+        step = GraphedStep(graph, static, self._gw, g_names, g_values,
+                           launches)
+        self._steps[cache_key] = step
+        self.last_eager_s = t1 - t0
+        self.last_capture_s = time.perf_counter() - t1
+        if not eager:
+            names, values = step(batch, gradual_weight)
+        return names, values

@@ -11,6 +11,13 @@ overlaps host loading with device work.
 keeps a handful of plans, and the batch trains through a
 ``RectifiedVolume`` of its cached plan; a batch the planner rejects trains
 through the exact construction.
+
+Each step goes through the state's :class:`~cermvs_torch.training.step.
+StepRunner`, keyed by the batch's shapes and that plan (None for exact), as
+the JAX package's ``pick_step`` chooses a jitted step: on CUDA a key's first
+step runs eagerly and is captured in a CUDA graph that later steps of the
+key replay, so the ``PlanCache`` bounds the captures as it bounds JAX's
+compiles; on the CPU every step runs eagerly.
 """
 
 from __future__ import annotations
@@ -53,15 +60,16 @@ def train(name: str = "test", batch_size: int = 2, SAVE_FREQ: int = 5000,
     ``data_parallel`` does nothing on one device; training over several
     cards is ROADMAP Queue 1 item 6. ``on_step(state, metrics, plan)`` is
     called after every step, ``plan`` being the batch's cached RectPlan or
-    None for the exact construction.
+    None for the exact construction. The state's ``runner`` is the
+    :class:`~cermvs_torch.training.step.StepRunner` the steps went through;
+    its CUDA graphs live as long as it does.
     """
     from cermvs_torch import data as data_mod
     from cermvs_torch.models.raft import RAFT
-    from cermvs_torch.ops.corr_rectified import RectifiedVolume
     from cermvs_torch.ops.rectify import PlanCache
     from cermvs_torch.training.checkpoint import CheckpointManager
-    from cermvs_torch.training.step import (batch_to_device, init_state,
-                                            train_step)
+    from cermvs_torch.training.step import (StepRunner, batch_to_device,
+                                            init_state)
     from cermvs_torch.utils.logger import Logger
 
     if construction not in ("exact", "rectified"):
@@ -77,24 +85,20 @@ def train(name: str = "test", batch_size: int = 2, SAVE_FREQ: int = 5000,
     if resume and mgr.latest_step() is not None:
         state = mgr.restore(state)
         print(f"resumed from step {state.step}")
+    state.runner = StepRunner(state)
 
-    volumes = {}
     plan_cache = PlanCache()
 
-    def pick_volume(batch):
-        """(volume_fn, plan) for a host batch: None, None for exact."""
+    def pick_plan(batch):
+        """The construction key of a host batch: its cached RectPlan, or
+        None for the exact construction."""
         if construction != "rectified":
-            return None, None
+            return None
         plan = plan_batch(batch, model.stride_factor)
-        if not plan.ok:
-            return None, None
-        plan = plan_cache.key_for(plan)
-        if plan not in volumes:
-            volumes[plan] = RectifiedVolume(plan)
-        return volumes[plan], plan
+        return plan_cache.key_for(plan) if plan.ok else None
 
     logger = Logger(name, run_dir=run_dir, SUM_FREQ=log_every,
-                    lr_fn=lambda _: state.optimizer.param_groups[0]["lr"])
+                    lr_fn=state.schedule)
 
     total_steps = state.step
     initial_steps = total_steps
@@ -102,11 +106,11 @@ def train(name: str = "test", batch_size: int = 2, SAVE_FREQ: int = 5000,
     total_time = 0.0
     while total_steps <= num_steps:
         for batch in loader:
-            volume_fn, plan = pick_volume(batch)
+            plan = pick_plan(batch)
             gw = (fix_gradual_weight if fix_gradual_weight is not None
                   else total_steps / num_steps)
-            metrics = train_step(state, batch_to_device(batch, device), gw,
-                                 volume_fn=volume_fn)
+            metrics = state.runner(batch_to_device(batch, device), gw, plan)
+            state.step += 1
             total_steps += 1
             logger.push(metrics)
             mgr.maybe_save(state)

@@ -83,12 +83,28 @@ Phases (any failure raises, so the exit code is non-zero):
      device time at both stages; all beside the earlier designs'
      back-to-back times;
   9. train through ``train()`` with ``train_DTU.gin``'s bindings (rectified,
-     batch 2, nf10, crop 1056x1440) for four steps, time the last three, and
-     check the two-pass plan, finite loss and gradients, the kernels'
-     launch counts, and that the checkpoint restores its step;
- 10. train two steps the same way with the fused lookup, check its launches
-     (16 forward and 16 backward a step), and hold one step's loss from
-     fixed weights on phase 8's batch against the banded lookup's.
+     batch 2, nf10, crop 1056x1440) for twelve steps through the state's
+     StepRunner (a CUDA graph per batch shape and plan key: the first
+     step eager, then its capture; a new plan's first step captured, then
+     replayed; the others replayed): print each
+     key's first-dispatch seconds (eager and capture), s/step over the
+     replayed steps, peak memory allocated, reserved and in the graphs'
+     pool; check at least three replays, that every step took the
+     rectified construction and one at least its two-pass warps (a plan
+     that is not two-pass warps by quad gathers), finite loss and
+     gradients, the kernels' launch counts (a replay counts an eager
+     step's), and that the checkpoint restores its step; time the host's
+     plan and upload of phase 8's batch; from one snapshot of the state,
+     two eager steps and a replay on that batch (each restored in place),
+     the replay held to the eager steps' spread in loss, grad_norm,
+     weights and AdamW moments;
+ 10. train twelve steps the same way with the fused lookup, check its
+     launches (16 forward and 16 backward a step) and hold a replay
+     against eager steps alike, and hold one step's loss from fixed
+     weights on phase 8's batch against the banded lookup's.
+
+Each phase from 6 on first prints the device memory the phases before it
+left (their runners' graph pools released).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Needs no network and one card.
@@ -96,14 +112,17 @@ last ``{"ok": true, "device": {...}}``. Needs no network and one card.
 construction (eager for the ranges, and a replay for the busy share), of
 one rescale-2 demo forward (the same two), of ``inference()`` over three
 rescale-2 demo views with and without the pinned side-stream upload (its
-host-to-device copy rows and busy share) and of one train step (device
-time per RAFT.forward range, top kernels, busy share; for the step also a
-line with its device-busy time, the dfr, dfs and hat_rows_bwd kernels'
-rows and its count of elementwise launches; for the demo forward a line
-with the lookup_fused_fwd row; and a profile of one fused-lookup train
-step with its lookup_fused_fwd and lookup_fused_bwd rows).
+host-to-device copy rows and busy share) and of one train step, eager and
+replayed (device time per RAFT.forward range, top kernels, busy share; for
+the step also a line with the device-busy time of each, the eager step's
+dfr, dfs and hat_rows_bwd kernels' rows and its count of elementwise
+launches; for the demo forward a line with the lookup_fused_fwd row; and
+profiles of one fused-lookup train step, eager and replayed, with the
+eager step's lookup_fused_fwd and lookup_fused_bwd rows).
 """
 
+import copy
+import gc
 import itertools
 import json
 import os
@@ -123,8 +142,9 @@ NUM_FRAMES = 10            # neighbours; 11 views in all
 PEAK_BYTES_S = 3.35e12     # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, non-TF32 fp32
 DTU_HW = (1200, 1600)      # DTU training images and depths
-TRAIN_STEPS = 3            # train.num_steps: 4 steps, the first a warm-up
-PALLAS_STEPS = 2           # train.num_steps of the fused-lookup run: 3 steps
+TRAIN_STEPS = 11           # train.num_steps: 12 steps; the synthetic tree's
+PALLAS_STEPS = 11          # batches took 3-5 plan keys in 6-8 steps
+MIN_REPLAYS = 3            # replayed steps each training phase must take
 DEMO_VIEWS = 11            # imaged views of the synthetic DTU test scan
 SPHERE_R = 200.0           # its surface: a sphere about the origin (mm)
 TRUE_HW = (1152, 1600)     # true depth maps: the 1200x1600 images' crop
@@ -928,63 +948,214 @@ def phase_training_kernels(torch, plan, batch):
     return rows
 
 
-def phase_train(torch, tree, plan5, batch5):
-    """``train()`` through ``train_DTU.gin`` (rectified, batch 2, nf10,
-    crop 1056x1440) for TRAIN_STEPS + 1 steps on the synthetic tree; times
-    the steps after the first and checks the path, the values, the launch
-    counts and the checkpoint."""
-    from cermvs_torch.models.raft import RAFT
+def plan_label(plan):
+    """A training step's construction key, printable."""
+    if plan is None:
+        return "exact"
+    return (plan.h_r, plan.w_r, plan.ws_r, plan.view_s_max)
+
+
+def released(torch, label):
+    """Drop what the last phase left (its runners' graphs and pools) and
+    print what the allocator still holds."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{label}: device memory held before it: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved",
+          flush=True)
+
+
+def train_through_graphs(torch, tree, label, name):
+    """``train()`` with the configured bindings: every step goes through
+    the state's StepRunner (a key's first step eager, then its capture;
+    later steps of the key replayed). Prints each step and, after the run,
+    the distinct keys with their first dispatch's eager and capture
+    seconds, s/step over the replayed steps, the launches and the peaks of
+    allocated, reserved and graph-pool memory. Fails unless MIN_REPLAYS
+    steps replayed. Returns the state and the figures."""
     from cermvs_torch.ops import cudalib
-    from cermvs_torch.training.checkpoint import CheckpointManager
-    from cermvs_torch.training.step import init_state
     from cermvs_torch.training.train import train
 
-    configure_training(tree)
-    torch.backends.cudnn.allow_tf32 = True  # the bf16 model's own setting
     records = []
 
     def on_step(state, metrics, plan):
         torch.cuda.synchronize()
-        records.append((time.perf_counter(), metrics, plan))
-        print(f"phase 9: step {state.step}: loss {metrics['loss']:.5f} "
+        r = state.runner
+        records.append({"t": time.perf_counter(), "metrics": metrics,
+                        "plan": plan, "first": r.last_dispatch_compiled,
+                        "eager_s": r.last_eager_s,
+                        "capture_s": r.last_capture_s})
+        how = ("replayed" if not r.last_dispatch_compiled else
+               f"its key's first dispatch: eager {r.last_eager_s:.3f} s, "
+               f"capture {r.last_capture_s:.3f} s" if r.last_eager_s else
+               f"its key's first dispatch: capture {r.last_capture_s:.3f} "
+               f"s, then its replay")
+        print(f"{label}: step {state.step}: loss {metrics['loss']:.5f} "
               f"grad_norm {metrics['grad_norm']:.4f} plan "
-              f"{None if plan is None else (plan.h_r, plan.w_r, plan.ws_r)}",
-              flush=True)
+              f"{plan_label(plan)}; {how}", flush=True)
 
-    ckpt = Path(tree) / "checkpoints"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cudalib.reset_launches()
     t0 = time.perf_counter()
-    state = train(name="chip_smoke", checkpoint_dir=str(ckpt),
+    state = train(name=name, checkpoint_dir=str(Path(tree) / "checkpoints"),
                   run_dir=str(Path(tree) / "runs"), resume=False, log_every=1,
                   on_step=on_step, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: cudalib.launches.get(k, 0) for k in KERNELS}
     peak = torch.cuda.max_memory_allocated()
-    steps = len(records)
-    B, V, S = 2, NUM_FRAMES, len(state.model.cascade)
-    per_step = {"epiband_fwd": B * V * S, "epiband_bwd_dfr": B * V * S,
-                "epiband_bwd_dfs": B * V * S,
-                # two passes per feature warp (2 per view) and per stage's
-                # volume back-warp, forward and transposed
-                "hat_rows_fwd": B * V * (2 + S) * 2,
-                "hat_rows_bwd": B * V * (2 + S) * 2,
-                # the banded lookup of the materialized pyramid
-                "lookup_fused_fwd": 0, "lookup_fused_bwd": 0,
-                "lookup_fused_v2": 0}
-    expect = {k: steps * v for k, v in per_step.items()}
-    s_per_step = [b[0] - a[0] for a, b in zip(records, records[1:])]
-    print(f"phase 9: {steps} steps in {wall:.1f} s, s/step after the first "
-          f"{[round(t, 4) for t in s_per_step]}, peak "
-          f"{peak / 2**30:.2f} GiB, launches {launches} (expected {expect})",
+    reserved = torch.cuda.max_memory_reserved()
+    pool = graph_pool_bytes(torch, state.runner._pool)
+    keys = [{"key": str(plan_label(r["plan"])), "step": i + 1,
+             "eager_s": r["eager_s"], "capture_s": r["capture_s"]}
+            for i, r in enumerate(records) if r["first"]]
+    replay_s = [b["t"] - a["t"] for a, b in zip(records, records[1:])
+                if not b["first"]]
+    firsts = [(k["key"], round(k["eager_s"], 3), round(k["capture_s"], 3))
+              for k in keys]
+    print(f"{label}: {len(records)} steps in {wall:.1f} s; {len(keys)} "
+          f"distinct keys, first dispatches (eager s, capture s) "
+          f"{firsts} "
+          f"(eager 0: captured, then replayed); "
+          f"s/step over the {len(replay_s)} replayed steps "
+          f"{[round(t, 4) for t in replay_s]}; peak {peak / 2**30:.2f} GiB "
+          f"allocated, {reserved / 2**30:.2f} GiB reserved, graph pool "
+          f"{pool / 2**30:.2f} GiB; launches {launches}", flush=True)
+    if len(replay_s) < MIN_REPLAYS:
+        raise RuntimeError(f"{label}: {len(replay_s)} replayed steps, fewer "
+                           f"than {MIN_REPLAYS}")
+    return state, {"records": records, "launches": launches, "wall_s": wall,
+                   "keys": keys, "replay_s_per_step": replay_s,
+                   "steps": len(records), "peak_bytes": peak,
+                   "peak_reserved_bytes": reserved, "graph_pool_bytes": pool}
+
+
+def train_launches(records, model, fused_lookup=False):
+    """The launches a training run's steps make: per sample, view and stage
+    an epiband forward and its two gradients on each rectified step; two
+    hat passes per feature warp (2 per view) and per stage's volume
+    back-warp, forward and transposed, on each two-pass one (a plan that
+    is not two-pass warps by quad gathers, no kernel); with the fused
+    lookup, its taps and their gradient once per GRU iteration."""
+    B, V, S = 2, NUM_FRAMES, len(model.cascade)
+    rect = sum(r["plan"] is not None for r in records)
+    twopass = sum(r["plan"] is not None and r["plan"].twopass
+                  for r in records)
+    taps = len(records) * sum(s[2] for s in model.cascade) * fused_lookup
+    return {"epiband_fwd": rect * B * V * S,
+            "epiband_bwd_dfr": rect * B * V * S,
+            "epiband_bwd_dfs": rect * B * V * S,
+            "hat_rows_fwd": twopass * B * V * (2 + S) * 2,
+            "hat_rows_bwd": twopass * B * V * (2 + S) * 2,
+            "lookup_fused_fwd": taps, "lookup_fused_bwd": taps,
+            "lookup_fused_v2": 0}
+
+
+def replay_against_eager(torch, state, batch, plan, label):
+    """On phase 8's batch, from one snapshot of ``state``: two eager steps
+    (each from the snapshot, restored in place), then the replay of the
+    runner's graph for the batch's key (captured first if the key is new).
+    Prints max|difference| of loss, grad_norm, the weights and AdamW's
+    moments, eager against eager and replay against the nearer eager step,
+    and fails where the replay's exceeds the eager steps' spread."""
+    from cermvs_torch.ops.corr_rectified import RectifiedVolume
+    from cermvs_torch.training.checkpoint import load_state, state_dicts
+    from cermvs_torch.training.step import train_step
+
+    runner, gw = state.runner, 0.5
+    runner(batch, gw, plan)  # the key's graph exists from here on
+    snap = copy.deepcopy(state_dicts(state))
+
+    def parts():
+        params = list(state.model.parameters())
+        moments = [t for p in params for k, t in
+                   state.optimizer.state[p].items() if k != "step"]
+        return {"weights": torch.cat([p.detach().reshape(-1)
+                                      for p in params]),
+                "moments": torch.cat([t.reshape(-1) for t in moments])}
+
+    def run(step):
+        load_state(state, copy.deepcopy(snap))
+        m = step()
+        return dict(parts(), loss=torch.tensor(m["loss"]),
+                    grad_norm=torch.tensor(m["grad_norm"]))
+
+    eager = [run(lambda: train_step(
+        state, batch, torch.tensor(gw, device="cuda"),
+        volume_fn=RectifiedVolume(plan))) for _ in range(2)]
+    replay = run(lambda: runner(batch, gw, plan))
+    if runner.last_dispatch_compiled:
+        raise RuntimeError(f"{label}: the key captured again")
+
+    def diff(a, b):
+        return {k: float((a[k].cpu() - b[k].cpu()).abs().max()) for k in a}
+
+    spread = diff(*eager)
+    to_second = diff(replay, eager[1])
+    err = {k: min(v, to_second[k])
+           for k, v in diff(replay, eager[0]).items()}
+    print(f"{label}: replay against eager on phase 8's batch: max|replay - "
+          f"eager| {err}, eager against eager {spread} (the limit)",
           flush=True)
+    if any(err[k] > spread[k] for k in err):
+        raise RuntimeError(f"{label}: replay and eager steps differ beyond "
+                           f"the eager steps' spread: {err} > {spread}")
+    load_state(state, snap)
+    return {"replay_vs_eager": err, "eager_vs_eager": spread}
+
+
+def profile_train(torch, state, batch, plan, label):
+    """``--profile``: one eager train step (the ranges and kernels) and one
+    replayed step (its device-busy share), printed; returns both."""
+    from cermvs_torch.ops.corr_rectified import RectifiedVolume
+    from cermvs_torch.training.step import train_step
+
+    vol = RectifiedVolume(plan)
+    prof = profile_call(torch, lambda: train_step(state, batch, 0.5,
+                                                  volume_fn=vol))
+    replay = profile_call(torch, lambda: state.runner(batch, 0.5, plan))
+    print(f"{label}: profile of one train step: device busy "
+          f"{prof['device_busy_ms']:.1f} ms of {prof['wall_ms']:.1f} ms "
+          f"wall eager ({prof['busy_share']:.3f}), "
+          f"{replay['device_busy_ms']:.1f} ms of {replay['wall_ms']:.1f} ms "
+          f"replayed ({replay['busy_share']:.3f})", flush=True)
+    return prof, replay
+
+
+def phase_train(torch, tree, plan5, batch5):
+    """``train()`` through ``train_DTU.gin`` (rectified, batch 2, nf10,
+    crop 1056x1440) for TRAIN_STEPS + 1 steps on the synthetic tree,
+    through the runner's CUDA graphs; checks the path, the values, the
+    launch counts (a replay counts an eager step's) and the checkpoint;
+    times the host's plan and upload of phase 8's batch; holds a replay
+    against eager steps on that batch."""
+    from cermvs_torch.models.raft import RAFT
+    from cermvs_torch.ops.rectify import PlanCache
+    from cermvs_torch.training.checkpoint import CheckpointManager
+    from cermvs_torch.training.step import batch_to_device, init_state
+    from cermvs_torch.training.train import plan_batch
+
+    configure_training(tree)
+    torch.backends.cudnn.allow_tf32 = True  # the bf16 model's own setting
+    state, run = train_through_graphs(torch, tree, "phase 9", "chip_smoke")
+    records, launches = run["records"], run["launches"]
+    steps = run["steps"]
+    expect = train_launches(records, state.model)
+    twopass = sum(r["plan"] is not None and r["plan"].twopass
+                  for r in records)
+    print(f"phase 9: {twopass} two-pass steps, {steps - twopass} with quad "
+          f"warps; launches {launches} (expected {expect})", flush=True)
     if steps != TRAIN_STEPS + 1 or state.step != steps:
         raise RuntimeError(f"{steps} steps taken, state at {state.step}")
-    for _, m, plan in records:
-        if plan is None or not plan.twopass:
-            raise RuntimeError("a step did not take the rectified two-pass "
+    if not twopass:
+        raise RuntimeError("no step took the rectified two-pass "
+                           "construction")
+    for r in records:
+        m = r["metrics"]
+        if r["plan"] is None:
+            raise RuntimeError("a step did not take the rectified "
                                "construction")
         if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
                 and m["grad_norm"] > 0):
@@ -994,7 +1165,7 @@ def phase_train(torch, tree, plan5, batch5):
         raise RuntimeError("non-finite weights after training")
     if launches != expect:
         raise RuntimeError(f"launches {launches} != {expect}")
-    mgr = CheckpointManager(ckpt / "chip_smoke")
+    mgr = CheckpointManager(Path(tree) / "checkpoints" / "chip_smoke")
     fresh = init_state(RAFT(device="cuda"), TRAIN_STEPS)
     restored = mgr.restore(fresh)
     if mgr.all_steps() != [1, steps] or restored.step != steps:
@@ -1007,26 +1178,38 @@ def phase_train(torch, tree, plan5, batch5):
           f"step {restored.step}, weights equal {same}", flush=True)
     if not same:
         raise RuntimeError("restored weights differ")
+    del fresh, restored
+    # the host's work per step that the graphs leave: the plan, the upload
+    plan_s, upload_s = [], []
+    for _ in range(3):
+        t, _ = synced_s(torch, lambda: PlanCache().key_for(
+            plan_batch(batch5, state.model.stride_factor)))
+        plan_s.append(t)
+        t, batch = synced_s(torch, lambda: batch_to_device(batch5, "cuda"))
+        upload_s.append(t)
+    print(f"phase 9: host work per step: plan {[round(t, 4) for t in plan_s]}"
+          f" s, upload of the float32 batch "
+          f"{[round(t, 4) for t in upload_s]} s", flush=True)
+    check = replay_against_eager(torch, state, batch, plan5, "phase 9")
+    profile = None
     if "--profile" in sys.argv:
-        from cermvs_torch.ops.corr_rectified import RectifiedVolume
-        from cermvs_torch.training.step import batch_to_device, train_step
-
-        batch = batch_to_device(batch5, "cuda")
-        vol = RectifiedVolume(plan5)
-        prof = profile_call(torch, lambda: train_step(state, batch, 0.5,
-                                                      volume_fn=vol))
+        prof, replay = profile_train(torch, state, batch, plan5, "phase 9")
         grads = {g: [row for row in prof["port_kernels_ms"] if g in row[0]]
                  for g in ("dfr", "dfs", "hat_rows_bwd")}
-        print(f"phase 9: profile of one train step: device busy "
-              f"{prof['device_busy_ms']:.1f} ms of {prof['wall_ms']:.1f} ms "
-              f"wall; dfr row {grads['dfr']}; dfs row {grads['dfs']}; "
-              f"hat_rows_bwd row {grads['hat_rows_bwd']}; elementwise "
-              f"launches {prof['elementwise_launches']} "
+        print(f"phase 9: eager step's dfr row {grads['dfr']}; dfs row "
+              f"{grads['dfs']}; hat_rows_bwd row {grads['hat_rows_bwd']}; "
+              f"elementwise launches {prof['elementwise_launches']} "
               f"({prof['elementwise_ms']:.2f} ms)", flush=True)
-        print(json.dumps({"profile_train_step": prof}), flush=True)
-    plans = {(p.h_r, p.w_r, p.ws_r, p.view_s_max) for _, _, p in records}
-    return {"launches": launches, "s_per_step": s_per_step,
-            "peak_bytes": peak, "steps": steps,
+        print(json.dumps({"profile_train_step": prof,
+                          "profile_train_step_replay": replay}), flush=True)
+        profile = {"eager": prof["busy_share"], "replay": replay["busy_share"]}
+    plans = {plan_label(r["plan"]) for r in records}
+    return {"launches": launches, "s_per_step": run["replay_s_per_step"],
+            "keys": run["keys"], "peak_bytes": run["peak_bytes"],
+            "peak_reserved_bytes": run["peak_reserved_bytes"],
+            "graph_pool_bytes": run["graph_pool_bytes"], "steps": steps,
+            "plan_s": plan_s, "upload_s": upload_s, "busy_share": profile,
+            **check,
             "plan": [list(p[:3]) + [list(p[3])] for p in sorted(plans)]}
 
 
@@ -1620,81 +1803,49 @@ def phase_true_fusion(torch, root):
 
 def phase_train_pallas(torch, tree, plan5, batch5):
     """``train()`` with train_DTU.gin and ``RAFT.lookup_impl="pallas"`` for
-    PALLAS_STEPS + 1 steps (16 forward and 16 backward lookup launches a
-    step, the other kernels as the banded run), then one train step on
-    phase 8's batch from one set of weights, banded against fused."""
+    PALLAS_STEPS + 1 steps through the runner's CUDA graphs (16 forward and
+    16 backward lookup launches a step, the other kernels as the banded
+    run), a replay held against eager steps on phase 8's batch, then one
+    train step on that batch from one set of weights, banded against
+    fused."""
     from cermvs_torch import config as pcfg
     from cermvs_torch.models.raft import RAFT
-    from cermvs_torch.ops import cudalib
     from cermvs_torch.ops.corr_rectified import RectifiedVolume
     from cermvs_torch.training.step import (batch_to_device, init_state,
                                             train_step)
-    from cermvs_torch.training.train import train
 
     configure_training(tree)
     pcfg.bind_parameter("RAFT.lookup_impl", "pallas")
     pcfg.bind_parameter("train.num_steps", PALLAS_STEPS)
-    records = []
-
-    def on_step(state, metrics, plan):
-        torch.cuda.synchronize()
-        records.append((time.perf_counter(), metrics))
-        print(f"phase 10: step {state.step}: loss {metrics['loss']:.5f} "
-              f"grad_norm {metrics['grad_norm']:.4f}", flush=True)
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    cudalib.reset_launches()
-    t0 = time.perf_counter()
-    state = train(name="chip_smoke_pallas",
-                  checkpoint_dir=str(Path(tree) / "checkpoints"),
-                  run_dir=str(Path(tree) / "runs"), resume=False,
-                  log_every=1, on_step=on_step, device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: cudalib.launches.get(k, 0) for k in KERNELS}
-    peak = torch.cuda.max_memory_allocated()
-    steps = len(records)
-    s_per_step = [b[0] - a[0] for a, b in zip(records, records[1:])]
-    records = [m for _, m in records]
-    B, V, S = 2, NUM_FRAMES, len(state.model.cascade)
-    n_iters = sum(s[2] for s in state.model.cascade)
-    per_step = {"epiband_fwd": B * V * S, "epiband_bwd_dfr": B * V * S,
-                "epiband_bwd_dfs": B * V * S,
-                "hat_rows_fwd": B * V * (2 + S) * 2,
-                "hat_rows_bwd": B * V * (2 + S) * 2,
-                "lookup_fused_fwd": n_iters, "lookup_fused_bwd": n_iters,
-                "lookup_fused_v2": 0}
-    print(f"phase 10: {steps} fused-lookup steps in {wall:.1f} s, s/step "
-          f"after the first {[round(t, 4) for t in s_per_step]}, peak "
-          f"{peak / 2**30:.2f} GiB, launches {launches}", flush=True)
+    state, run = train_through_graphs(torch, tree, "phase 10",
+                                      "chip_smoke_pallas")
+    launches, steps = run["launches"], run["steps"]
+    records = [r["metrics"] for r in run["records"]]
     if steps != PALLAS_STEPS + 1 or not all(
             np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
             and m["grad_norm"] > 0 for m in records):
         raise RuntimeError(f"bad fused-lookup steps {records}")
-    check_launches(launches, {k: steps * v for k, v in per_step.items()},
+    check_launches(launches, train_launches(run["records"], state.model,
+                                            fused_lookup=True),
                    "fused-lookup training")
-    del state
     batch = batch_to_device(batch5, "cuda")
+    check = replay_against_eager(torch, state, batch, plan5, "phase 10")
+    if "--profile" in sys.argv:
+        prof, replay = profile_train(torch, state, batch, plan5, "phase 10")
+        rows = [r for r in prof["port_kernels_ms"] if "lookup_" in r[0]]
+        print(f"phase 10: eager fused-lookup step's lookup rows {rows}",
+              flush=True)
+        print(json.dumps({"profile_train_step_fused_lookup": prof,
+                          "profile_train_step_fused_lookup_replay": replay}),
+              flush=True)
+    del state
+    released(torch, "phase 10, first steps")
     first = {}
     for impl in ("banded", "pallas"):
         model = RAFT(generator=torch.Generator().manual_seed(1234),
                      lookup_impl=impl, device="cuda")
         first[impl] = train_step(init_state(model, 1000), batch, 0.0,
                                  volume_fn=RectifiedVolume(plan5))
-        if impl == "pallas" and "--profile" in sys.argv:
-            vol = RectifiedVolume(plan5)
-            state = init_state(model, 1000)
-            prof = profile_call(torch, lambda: train_step(
-                state, batch, 0.0, volume_fn=vol))
-            rows = [r for r in prof["port_kernels_ms"] if "lookup_" in r[0]]
-            print(f"phase 10: profile of one fused-lookup train step: "
-                  f"device busy {prof['device_busy_ms']:.1f} ms of "
-                  f"{prof['wall_ms']:.1f} ms wall; lookup rows {rows}",
-                  flush=True)
-            print(json.dumps({"profile_train_step_fused_lookup": prof}),
-                  flush=True)
-            del state
         del model
     rel = {k: abs(first["pallas"][k] - first["banded"][k])
            / abs(first["banded"][k]) for k in ("loss", "grad_norm")}
@@ -1707,9 +1858,13 @@ def phase_train_pallas(torch, tree, plan5, batch5):
           f"differently)", flush=True)
     if max(rel.values()) > 1e-3:
         raise RuntimeError("fused and banded first steps disagree")
-    return {"launches": launches, "steps": steps, "s_per_step": s_per_step,
-            "peak_bytes": peak, "wall_s": wall, "first_step": first,
-            "first_step_rel": rel}
+    return {"launches": launches, "steps": steps,
+            "s_per_step": run["replay_s_per_step"], "keys": run["keys"],
+            "peak_bytes": run["peak_bytes"],
+            "peak_reserved_bytes": run["peak_reserved_bytes"],
+            "graph_pool_bytes": run["graph_pool_bytes"],
+            "wall_s": run["wall_s"], "first_step": first,
+            "first_step_rel": rel, **check}
 
 
 def phase_epiband_kernel(torch, plan, model):
@@ -2211,7 +2366,7 @@ def main():
     mark(ends, "phase 5")
 
     del model, small, r_rect, r_exact, r_auto
-    torch.cuda.empty_cache()
+    released(torch, "phase 6")
     with tempfile.TemporaryDirectory(dir=build) as root:
         demo = phase_demo(torch, Path(root))
         mark(ends, "phase 6")
@@ -2219,11 +2374,14 @@ def main():
         mark(ends, "phase 7")
 
     with tempfile.TemporaryDirectory(dir=build) as tree:
+        released(torch, "phase 8")
         train_plan, train_batch = plan_training_batch(torch, tree)
         rows = phase_training_kernels(torch, train_plan, train_batch)
         mark(ends, "phase 8")
+        released(torch, "phase 9")
         training = phase_train(torch, tree, train_plan, train_batch)
         mark(ends, "phase 9")
+        released(torch, "phase 10")
         fused_training = phase_train_pallas(torch, tree, train_plan,
                                             train_batch)
         mark(ends, "phase 10")
@@ -2275,6 +2433,9 @@ def main():
         "train_s_per_step": training["s_per_step"],
         "train_peak_bytes": training["peak_bytes"],
         "train_steps": training["steps"], "train_plan": training["plan"],
+        "train_graphs": {k: training[k] for k in (
+            "keys", "peak_reserved_bytes", "graph_pool_bytes", "plan_s",
+            "upload_s", "busy_share", "replay_vs_eager", "eager_vs_eager")},
         "demo": demo, "true_fusion": true_fusion,
         "fused_lookup_training": {k: v for k, v in fused_training.items()
                                   if k != "launches"},

@@ -17,6 +17,8 @@ one bf16 rounding); with bf16 features they round where the plain version
 rounds, so under 1% of the elements may differ at all.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -1322,3 +1324,280 @@ def test_replays_count_the_launches_of_the_eager_forward(
     assert runner.last_path == route
     assert replay == first == dict(cudalib.launches)
     assert replay["epiband_fwd"] > 0 and replay["hat_rows_fwd"] > 0
+
+
+@pytest.fixture
+def deterministic():
+    """Deterministic algorithms: at these small shapes cuDNN's default
+    weight gradients, and the exact construction's gather gradients, sum
+    in a varying order, so two eager steps differ."""
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    yield
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+
+
+def train_model(device, seed=0):
+    from cermvs_torch.models.raft import RAFT
+
+    return RAFT(dtype=torch.float32, device=device,
+                cascade=((8, 64, 2), (-1, 320, 2)),
+                generator=torch.Generator().manual_seed(seed))
+
+
+def train_batch(seed, forward=False):
+    """A host batch of two samples of graph_scene's rig with depths: the
+    lateral rig (the planner keeps it, a rectified key) or one neighbour
+    moved along the optical axis (the planner rejects it: exact)."""
+    scenes = [graph_scene("mixed" if forward else "lateral", seed + b)
+              for b in range(2)]
+    images, poses, intr = (np.stack(a) for a in zip(*scenes))
+    depths = np.random.RandomState(seed).rand(*images.shape[:4]) * 20 + 20
+    return {"images": images, "depths": depths.astype(np.float32),
+            "poses": poses, "intrinsics": intr}
+
+
+def train_key(batch):
+    """``train()``'s construction key of a host batch."""
+    from cermvs_torch.ops.rectify import PlanCache
+    from cermvs_torch.training.train import plan_batch
+
+    plan = plan_batch(batch, 4)
+    return PlanCache().key_for(plan) if plan.ok else None
+
+
+def train_state(device, num_steps=10):
+    from cermvs_torch.training.step import StepRunner, init_state
+
+    state = init_state(train_model(device), num_steps)
+    state.runner = StepRunner(state)
+    return state
+
+
+def snapshot(state):
+    from cermvs_torch.training.checkpoint import state_dicts
+
+    return copy.deepcopy(state_dicts(state))
+
+
+def restore(state, snap):
+    from cermvs_torch.training.checkpoint import load_state
+
+    load_state(state, copy.deepcopy(snap))
+
+
+def flat_state(state):
+    """The weights, and AdamW's moments and step counts, each in one
+    vector."""
+    params = list(state.model.parameters())
+    return {"weights": torch.cat([p.detach().reshape(-1) for p in params]),
+            "optimizer": torch.cat([t.reshape(-1).float() for p in params
+                                    for t in state.optimizer.state[p]
+                                    .values()])}
+
+
+def eager_run(state, snap, steps):
+    """From ``snap``: eager train steps over ``steps`` ((device batch, gw,
+    key) each; gw as a device tensor, as the runner gives it). Returns the
+    metrics of each step and the flat state after, by name."""
+    from cermvs_torch.ops.corr_rectified import RectifiedVolume
+    from cermvs_torch.training.step import train_step
+
+    restore(state, snap)
+    dev = state.runner.device
+    metrics = [train_step(state, b, torch.tensor(gw, device=dev),
+                          volume_fn=None if key is None
+                          else RectifiedVolume(key))
+               for b, gw, key in steps]
+    return run_values(metrics, state)
+
+
+def run_values(metrics, state):
+    """A run's loss and grad_norm by step and its flat state. The depth
+    metrics are left out: the <3/<10/<25 fractions count pixels on either
+    side of a threshold and the mean depth error sums 1 / disparity, so a
+    last-bit difference in one disparity (the exact construction's gathers
+    sum their gradients in a varying order) moves them by a whole pixel or
+    by a large inverse."""
+    out = {f"{k}_{i}": torch.tensor(m[k]) for i, m in enumerate(metrics)
+           for k in ("loss", "grad_norm")}
+    out.update(flat_state(state))
+    return out
+
+
+def max_diff(a, b):
+    return {k: float((a[k].cpu() - b[k].cpu()).abs().max()) for k in a}
+
+
+EAGER_RUNS = 3
+
+
+def replay_against_eager(state, snap, steps, replayed):
+    """The replayed run (its metrics; the state after) against EAGER_RUNS
+    eager runs of the same steps from ``snap``, by quantity: the replay's
+    distance to the nearest eager run, and the eager runs' spread (their
+    largest pairwise distance)."""
+    replay = run_values(replayed, state)
+    eager = [eager_run(state, snap, steps) for _ in range(EAGER_RUNS)]
+    to_each = [max_diff(replay, e) for e in eager]
+    pairs = [max_diff(a, b) for i, a in enumerate(eager)
+             for b in eager[i + 1:]]
+    return ({k: min(d[k] for d in to_each) for k in replay},
+            {k: max(d[k] for d in pairs) for k in replay})
+
+
+def assert_within_spread(err, spread):
+    """Replay against eager to the eager runs' spread: bit for bit where
+    the eager runs agree bit for bit, else within twice their spread
+    (one more sample of the same nondeterministic sums)."""
+    bad = {k: (err[k], spread[k]) for k in err if err[k] > 2 * spread[k]}
+    assert not bad, bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forward", [False, True], ids=["rectified", "exact"])
+def test_train_replay_equals_eager(cuda_device, deterministic,
+                                   forward):
+    """A key's first dispatch steps eagerly and captures; three replays on
+    new batches, with the curriculum weight and the learning rate moving,
+    leave the weights, AdamW's moments and the metrics of eager steps, to
+    the eager-vs-eager spread (bit for bit where that is 0)."""
+    from cermvs_torch.training.step import batch_to_device
+
+    state = train_state(cuda_device)
+    batches = [train_batch(s, forward) for s in (0, 2, 4, 6)]
+    key = train_key(batches[0])
+    assert (key is None) == forward
+    steps = [(batch_to_device(b, cuda_device), gw, key)
+             for b, gw in zip(batches, (0.0, 0.4, 0.7, 1.0))]
+    snap = snapshot(state)
+    replayed = []
+    for i, (b, gw, k) in enumerate(steps):
+        replayed.append(state.runner(b, gw, k))
+        assert state.runner.last_dispatch_compiled == (i == 0)
+    assert len(state.runner._steps) == 1
+    assert_within_spread(*replay_against_eager(state, snap, steps,
+                                               replayed))
+
+
+@pytest.mark.cuda
+def test_train_keys_alternate_on_one_pool(cuda_device, deterministic):
+    """A rectified plan and the exact construction, captured one after the
+    other into the runner's one pool, then replayed in turn: each replay
+    gives the eager step's values (to the eager-vs-eager spread)."""
+    from cermvs_torch.training.step import batch_to_device
+
+    state = train_state(cuda_device)
+    steps = []
+    for s in range(3):
+        for forward in (False, True):
+            b = train_batch(2 * s, forward)
+            steps.append((batch_to_device(b, cuda_device),
+                          0.25 * len(steps) / 2, train_key(b)))
+    assert steps[0][2] is not None and steps[1][2] is None
+    snap = snapshot(state)
+    replayed = []
+    for i, (b, gw, k) in enumerate(steps):
+        replayed.append(state.runner(b, gw, k))
+        assert state.runner.last_dispatch_compiled == (i < 2)
+    assert len(state.runner._steps) == 2
+    assert_within_spread(*replay_against_eager(state, snap, steps,
+                                               replayed))
+
+
+@pytest.mark.cuda
+def test_schedule_and_curriculum_weight_reach_a_replay(
+        cuda_device, deterministic):
+    """After the capture (at gw 0 and the first step's learning rate) a
+    replay at gw 1 and a learning rate 50 steps on equals the eager step at
+    those values, and differs from the eager step at the captured ones."""
+    from cermvs_torch.ops.corr_rectified import RectifiedVolume
+    from cermvs_torch.training.step import batch_to_device, train_step
+
+    state = train_state(cuda_device)
+    b = train_batch(0)
+    key = train_key(b)
+    batch = batch_to_device(b, cuda_device)
+    state.runner(batch, 0.0, key)  # eager, then the capture
+    lr0 = float(state.optimizer.param_groups[0]["lr"])
+    for _ in range(49):
+        state.scheduler.step()
+    lr = float(state.optimizer.param_groups[0]["lr"])
+    assert lr == pytest.approx(state.schedule(50), rel=1e-6)
+    assert abs(lr - lr0) > 0.3 * lr0
+    snap = snapshot(state)
+    replayed = [state.runner(batch, 1.0, key)]
+    assert not state.runner.last_dispatch_compiled
+    err, spread = replay_against_eager(state, snap, [(batch, 1.0, key)],
+                                       replayed)
+    assert_within_spread(err, spread)
+    at = eager_run(state, snap, [(batch, 1.0, key)])["weights"]
+    gw0 = eager_run(state, snap, [(batch, 0.0, key)])["weights"]
+    restore(state, snap)
+    state.optimizer.param_groups[0]["lr"].fill_(lr0)
+    train_step(state, batch, torch.tensor(1.0, device=cuda_device),
+               volume_fn=RectifiedVolume(key))
+    for other in (gw0, flat_state(state)["weights"]):
+        moved = float((other - at).abs().max())
+        assert moved > 100 * max(spread["weights"], 1e-9), moved
+
+
+@pytest.mark.cuda
+def test_checkpoint_restored_into_a_state_with_graphs(
+        cuda_device, deterministic, tmp_path):
+    """A checkpoint saved from the run (its learning rate a device tensor)
+    and one saved on the CPU (a float) restore in place into a state whose
+    runner holds a graph: the next replay is the eager step from the
+    checkpoint."""
+    from cermvs_torch.training.checkpoint import CheckpointManager
+    from cermvs_torch.training.step import (batch_to_device, init_state,
+                                            train_step)
+
+    state = train_state(cuda_device)
+    b = train_batch(0)
+    key = train_key(b)
+    batch = batch_to_device(b, cuda_device)
+    mgr = CheckpointManager(tmp_path / "gpu", save_interval=1)
+    for gw in (0.0, 0.5):
+        state.runner(batch, gw, key)
+        state.step += 1
+    assert mgr.maybe_save(state)
+    cpu = init_state(train_model("cpu", seed=3), 10)
+    train_step(cpu, batch_to_device(b, "cpu"), 0.3)
+    cpu_mgr = CheckpointManager(tmp_path / "cpu", save_interval=1)
+    assert cpu_mgr.maybe_save(cpu)
+    for m in (mgr, cpu_mgr):
+        state.runner(batch, 0.9, key)  # the graph's state moves on
+        m.restore(state)
+        snap = snapshot(state)
+        replayed = [state.runner(batch, 0.7, key)]
+        assert not state.runner.last_dispatch_compiled
+        assert_within_spread(*replay_against_eager(
+            state, snap, [(batch, 0.7, key)], replayed))
+
+
+@pytest.mark.cuda
+def test_train_replays_count_the_launches_of_the_eager_step(cuda_device):
+    """The capture's launch counts come out and go back per replay: a
+    replayed step counts what an eager step counts."""
+    from cermvs_torch.ops.corr_rectified import RectifiedVolume
+    from cermvs_torch.training.step import batch_to_device, train_step
+
+    state = train_state(cuda_device)
+    b = train_batch(0)
+    key = train_key(b)
+    batch = batch_to_device(b, cuda_device)
+    counts = []
+    for run in ("first", "replay", "eager"):
+        cudalib.reset_launches()
+        if run == "eager":
+            train_step(state, batch, 0.5, volume_fn=None if key is None
+                       else RectifiedVolume(key))
+        else:
+            state.runner(batch, 0.5, key)
+        counts.append({k: v for k, v in cudalib.launches.items() if v})
+    assert counts[0] == counts[1] == counts[2]
+    assert set(counts[0]) == {"epiband_fwd", "epiband_bwd_dfr",
+                              "epiband_bwd_dfs", "hat_rows_fwd",
+                              "hat_rows_bwd"}

@@ -115,8 +115,8 @@ def test_adamw_with_clip_matches_optax(rng, clip_norm):
     if clip_norm is not None:
         pcfg.parse_config([f"optimizer.clip_norm = {clip_norm}"])
     try:
-        opt, sched, clip = fetch_optimizer(list(params.values()),
-                                           num_steps=40)
+        opt, sched, clip, schedule = fetch_optimizer(list(params.values()),
+                                                     num_steps=40)
     finally:
         pcfg.clear_config()
     assert clip == (clip_norm or 1.0)
@@ -131,6 +131,9 @@ def test_adamw_with_clip_matches_optax(rng, clip_norm):
             float(norm), float(optax.global_norm(g)), rtol=1e-6)
         opt.step()
         sched.step()
+        # the host schedule train()'s logger reads is the scheduler's
+        assert opt.param_groups[0]["lr"] == pytest.approx(
+            schedule(sched.last_epoch), rel=1e-12)
     for k in p0:
         np.testing.assert_allclose(params[k].detach().numpy(),
                                    np.asarray(pj[k]), rtol=1e-5, atol=1e-7)
