@@ -1,24 +1,31 @@
 """Dataset registry and loader factories: ``get_test_data_loader``
 (un-batched, ordered, optional (start, end, step) subset) and
 ``get_train_data_loader`` (shuffled, drop_last) over the registered
-datasets. DTU and DTUTest are ported; the others are ROADMAP Queue 1 item 2.
+datasets: DTU, DTUTest, Blended, TNT and Custom.
 """
 
 from __future__ import annotations
 
 from cermvs_torch.config import configurable
+from cermvs_torch.data.blended import Blended
+from cermvs_torch.data.custom import Custom
 from cermvs_torch.data.dtu import DTU, DTUTest
 from cermvs_torch.data.loader import DataLoader
+from cermvs_torch.data.tnt import TNT
 
-dataset_dict = {"DTU": DTU, "DTUTest": DTUTest}
-NOT_PORTED = ("Blended", "TNT", "Custom")
+dataset_dict = {
+    "DTU": DTU,
+    "DTUTest": DTUTest,
+    "Blended": Blended,
+    "TNT": TNT,
+    "Custom": Custom,
+}
 
 
 def _dataset(name):
     if name not in dataset_dict:
-        why = ("not ported yet (ROADMAP Queue 1 item 2)" if name in NOT_PORTED
-               else "unknown")
-        raise KeyError(f"dataset {name!r}: {why}")
+        raise KeyError(f"unknown dataset {name!r}; known: "
+                       f"{sorted(dataset_dict)}")
     return dataset_dict[name]
 
 

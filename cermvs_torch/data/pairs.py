@@ -2,7 +2,8 @@
 
 ``pair.txt``: the view count, then for each view its id and a line
 ``n id_1 score_1 ... id_n score_n``. When a view's list runs short,
-:func:`backfill_neighbors` walks its neighbours' own lists breadth-first.
+:func:`backfill_neighbors` walks its neighbours' own lists breadth-first;
+when it is empty, :func:`window_neighbors` takes a sliding window.
 """
 
 from __future__ import annotations
@@ -56,3 +57,15 @@ def backfill_neighbors(pair_list: Dict, ref_id: int,
         head += 1
     return neighbors
 
+
+
+def window_neighbors(id_list: List[int], index: int,
+                     num_frames: int) -> List[int]:
+    """For a view whose pair list is empty: the views of a sliding window
+    around position ``index`` of ``id_list``."""
+    min_ind = max(0, index - num_frames // 2)
+    return [
+        id_list[x]
+        for x in range(min_ind, min(min_ind + num_frames + 1, len(id_list)))
+        if x != index
+    ]

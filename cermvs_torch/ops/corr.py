@@ -10,6 +10,14 @@ This is the exact construction, the one the rectified path falls back to:
     ``gather_dtype`` and accumulated in fp32,
   * lookup index ``max((zinv - origin)/incre + D//2, 0)``.
 
+Memory: views and hypothesis chunks are looped, each chunk's gathered
+transients (the gather, its fp32 copy and the products) held under
+``GATHER_BUDGET_BYTES`` by shrinking the chunk below ``hyp_chunk`` where
+they would not fit; under autograd each chunk is recomputed in the backward
+pass instead of keeping them (the JAX package's exact construction
+rematerializes each view, ``jax.checkpoint``, for the same reason). Neither
+changes a value: hypotheses are independent.
+
 Layout is hypothesis-minor: the volume is (B, V, H, W, D). With mean
 aggregation the view average is folded into the volume (``mean_over_views``):
 the lookup is linear in the volume and its index depends only on the shared
@@ -23,10 +31,17 @@ import math
 from typing import List, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from cermvs_torch.ops.geometry import apply_projection, relative_projection
 from cermvs_torch.ops.lookup import lookup_fused
 from cermvs_torch.ops.sampling import interp1d
+
+
+# the bytes one gathered chunk may take: a bf16 gather, its fp32 copy and
+# the fp32 products, 10 bytes per gathered element
+GATHER_BUDGET_BYTES = 4 << 30
+GATHER_BYTES_PER_ELEMENT = 10
 
 
 class CorrPyramid(NamedTuple):
@@ -109,13 +124,19 @@ def build_corr_volume_from(f_ref, f_src, Pij, origin, n_hyp: int,
 
     f_ref/f_src: (B, V, H, W, C) already scaled by 1/8; Pij: (B, V, 4, 4);
     origin: (B, 1, H, W). Views and hypothesis chunks are looped so the
-    gathered transients stay at one view x ``hyp_chunk`` hypotheses.
+    gathered transients stay at one view x ``hyp_chunk`` hypotheses, fewer
+    where those would exceed GATHER_BUDGET_BYTES; with autograd recording,
+    each chunk is recomputed in the backward pass.
     Returns (B, V, H, W, D), or (B, 1, H, W, D) with ``mean_over_views``.
     """
     B, V, H, W, C = f_ref.shape
     Hs, Ws = f_src.shape[2:4]
     gd = gather_dtype or f_src.dtype
+    per_hyp = B * H * W * 4 * C * GATHER_BYTES_PER_ELEMENT
+    hyp_chunk = max(1, min(hyp_chunk, GATHER_BUDGET_BYTES // per_hyp))
     n_chunks = max(1, math.ceil(n_hyp / hyp_chunk))
+    recompute = torch.is_grad_enabled() and (f_ref.requires_grad
+                                             or f_src.requires_grad)
     offsets = ((torch.arange(n_hyp, device=origin.device) - n_hyp // 2)
                .to(torch.float32) * incre)
 
@@ -127,7 +148,12 @@ def build_corr_volume_from(f_ref, f_src, Pij, origin, n_hyp: int,
             offs = offsets[c * hyp_chunk:(c + 1) * hyp_chunk]
             disps = origin[:, :, None] + offs[None, None, :, None, None]
             coords = apply_projection(Pij[:, v:v + 1], disps)[:, 0]
-            chunks.append(_gather_corr_chunk(fr, quads, coords, Hs, Ws))
+            if recompute:
+                chunks.append(checkpoint(
+                    _gather_corr_chunk, fr, quads, coords, Hs, Ws,
+                    use_reentrant=False, preserve_rng_state=False))
+            else:
+                chunks.append(_gather_corr_chunk(fr, quads, coords, Hs, Ws))
         return torch.cat(chunks, dim=1).permute(0, 2, 3, 1)  # (B, H, W, D)
 
     if mean_over_views:

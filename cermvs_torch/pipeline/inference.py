@@ -31,6 +31,7 @@ dispatch's capture says so, as the JAX package's report names a compile.
 
 from __future__ import annotations
 
+import gc
 import queue
 import threading
 import time
@@ -440,6 +441,13 @@ class InferenceRunner:
             self._static_inputs[spec] = tuple(torch.empty_like(a)
                                               for a in args)
         static = self._static_inputs[spec]
+        # a graph that Python's collector frees during the capture (another
+        # runner's, dropped) would free memory there, which ends the
+        # capture: collect first; then the eager forward's cached blocks go
+        # back to the card before the graph takes its transients into the
+        # pool (the train step's capture does the same)
+        gc.collect()
+        torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
         with cudalib.captured_launches() as launches, torch.no_grad(), \
                 torch.cuda.graph(graph, pool=self._pool,

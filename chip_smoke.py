@@ -101,7 +101,30 @@ Phases (any failure raises, so the exit code is non-zero):
  10. train twelve steps the same way with the fused lookup, check its
      launches (16 forward and 16 backward a step) and hold a replay
      against eager steps alike, and hold one step's loss from fixed
-     weights on phase 8's batch against the banded lookup's.
+     weights on phase 8's batch against the banded lookup's;
+ 11. the demo's Tanks and Temples half: synthetic Ignatius (an orbit about
+     an object) and Meetingroom (a forward walk with sideways sway) scans
+     of 30 JPEGs of 1920x1056, camera files with an aux row, ``pair.txt``
+     with 10 neighbours a view and one empty list; ``demo.run_tnt_depths``
+     (rescale 1 nf15, rescale 2 nf25, multires) over views 0, 12 and 24
+     of each (``get_test_data_loader.subset``) with each record's route,
+     s/view, first-dispatch seconds and the peaks; each scan's fusion
+     (``demo.run_tnt_fusion``) of those maps beside the other views' true
+     depths, the cloud held to the true surface; one rescale-2 key
+     through a runner's graph (replay against eager bit for bit); a
+     runner's reserved memory, graph pool and host RSS as it captures six
+     keys;
+ 12. ``demo_custom``'s three passes (0.5x nf10 writing the min-depth
+     files, 1x nf15 and 2x nf25 reading them), multires and fusion on a
+     TUM directory of 27 frames of 480x640: routes, s/view, the files;
+ 13. ``train()`` with ``train_BlendedMVS.gin`` (batch 2, nf10, crop
+     1376x1824, rectified) for twelve steps through the step graphs on a
+     synthetic BlendedMVS scene (1536x2048 JPEGs and PFM depths; orbit and
+     sweep cameras and one forward-walk reference): each step's route,
+     each key's first dispatch with the peaks after it, s/step, the
+     launches; the walk's batch alone exact; a replay against eager steps;
+     the epiband forward and both gradients against their plain versions
+     at the widest plan the run took (fp32 and bf16, both stages).
 
 Each phase from 6 on first prints the device memory the phases before it
 left (their runners' graph pools released).
@@ -219,6 +242,30 @@ VB_TOL = 1e-3              # vb-4 against vb-1 depth maps, relative (fp32,
 VB_TOL_CUDNN = (1e-2, 2e-2)  # the same with cuDNN: max relative difference,
 #                            share of pixels over 1e-5 (read 1.263e-3 and
 #                            4.89e-3 on an H100: another summation order)
+TNT_HW = (1056, 1920)      # phase 11: the MVSNet-preprocessed Tanks and
+#                            Temples images the demo reads
+TNT_SCANS = ("Ignatius", "Meetingroom")
+TNT_VIEWS = 30             # imaged views of each scan
+TNT_PAIRS = 10             # pair.txt neighbours (backfill reaches 15, 25)
+TNT_EMPTY = 12             # the view whose pair list is empty (a window)
+TNT_SUBSET = (0, TNT_VIEWS, 12)  # get_test_data_loader.subset: views 0,
+#                            12, 24 of each scan
+TNT_F = 1165.0             # focal (px) at 1920 wide
+TNT_AUX = {"Ignatius": [0.7, 0.005, 256, 3.2],  # depth_min, interval, ...
+           "Meetingroom": [2.5, 0.01, 256, 6.5]}
+TNT_WALL_Z = 6.0           # Meetingroom's wall: the world plane z = 6 (m)
+TNT_OBJECT_R = 2.2         # Ignatius's object: a sphere at the origin that
+#                            fills every view (no silhouette to fuse across)
+TNT_TOL = 5e-3             # fused true depths: distance to the surface (m)
+TNT_GRAPHS = 6             # keys one runner captures while memory is read
+CUSTOM_HW = (480, 640)     # phase 12: TUM frames
+CUSTOM_FRAMES = 27         # demo_custom's rescale-2 window needs 26
+BL_HW = (1536, 2048)       # phase 13: BlendedMVS full-res images, depths
+BL_ORBIT, BL_SWEEP, BL_WALK = 12, 11, 3  # cameras of each capture style
+BL_STEPS = 11              # train.num_steps: 12 steps, one epoch of its
+#                            24 references (the walk's first view the only
+#                            walk reference)
+BL_F = 2200.0              # focal (px) at 2048 wide
 
 
 def dtu_ring_poses(n):
@@ -412,7 +459,8 @@ def graph_pool_bytes(torch, pool):
                if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
 
 
-def graphed_pass(torch, runner, images, poses, intr, label, reps=3):
+def graphed_pass(torch, runner, images, poses, intr, label, reps=3,
+                 scale=1.0, phase="phase 4"):
     """One route of phase 4 through the runner's CUDA graphs: the first
     dispatch (an eager forward, then the capture); ``reps`` timed
     dispatches from numpy frames (``submit``: s/view, launches); then, on
@@ -426,7 +474,7 @@ def graphed_pass(torch, runner, images, poses, intr, label, reps=3):
     from cermvs_torch.ops import cudalib
 
     first_s, _ = synced_s(torch, lambda: runner.submit(images, poses, intr,
-                                                       1.0))
+                                                       scale))
     if not runner.last_dispatch_compiled:
         raise RuntimeError(f"{label}: the first dispatch did not capture")
     capture_s = runner.last_capture_s
@@ -435,12 +483,12 @@ def graphed_pass(torch, runner, images, poses, intr, label, reps=3):
     submit_s = []
     for _ in range(reps):
         submit_s.append(synced_s(torch, lambda: runner.submit(
-            images, poses, intr, 1.0))[0])
+            images, poses, intr, scale))[0])
         if runner.last_dispatch_compiled:
             raise RuntimeError(f"{label}: a repeated key captured again")
     launches = {k: cudalib.launches.get(k, 0) for k in KERNELS}
     route_s, r = synced_s(torch, lambda: routed(runner, images, poses,
-                                                intr))
+                                                intr, scale))
     outs, times, counts = [], ([], []), []
     for fn, ts in zip((lambda: runner.forward(r),
                        lambda: eager(torch, runner, r)), times):
@@ -455,7 +503,7 @@ def graphed_pass(torch, runner, images, poses, intr, label, reps=3):
     reserved = torch.cuda.max_memory_reserved()
     pool = graph_pool_bytes(torch, runner._pool)
     err = float((disp.float() - de.float()).abs().max())
-    print(f"phase 4: {label}: first dispatch {first_s:.4f} s (capture "
+    print(f"{phase}: {label}: first dispatch {first_s:.4f} s (capture "
           f"{capture_s:.4f} s); submit {[round(t, 4) for t in submit_s]} "
           f"s/view; route {route_s:.4f} s, then forward replayed "
           f"{[round(t, 4) for t in replay_s]} s, eager "
@@ -991,6 +1039,13 @@ def train_through_graphs(torch, tree, label, name):
                f"capture {r.last_capture_s:.3f} s" if r.last_eager_s else
                f"its key's first dispatch: capture {r.last_capture_s:.3f} "
                f"s, then its replay")
+        if r.last_dispatch_compiled:
+            how += (f"; since the run's start peak "
+                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+                    f"allocated, "
+                    f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB "
+                    f"reserved, graph pool "
+                    f"{graph_pool_bytes(torch, r._pool) / 2**30:.2f} GiB")
         print(f"{label}: step {state.step}: loss {metrics['loss']:.5f} "
               f"grad_norm {metrics['grad_norm']:.4f} plan "
               f"{plan_label(plan)}; {how}", flush=True)
@@ -1053,10 +1108,13 @@ def train_launches(records, model, fused_lookup=False):
             "lookup_fused_v2": 0}
 
 
-def replay_against_eager(torch, state, batch, plan, label):
-    """On phase 8's batch, from one snapshot of ``state``: two eager steps
+def replay_against_eager(torch, state, batch, plan, label,
+                         batch_name="phase 8's batch", graph_first=True):
+    """On ``batch``, from one snapshot of ``state``: two eager steps
     (each from the snapshot, restored in place), then the replay of the
-    runner's graph for the batch's key (captured first if the key is new).
+    runner's graph for the batch's key (captured first if the key is new:
+    before the snapshot, or with ``graph_first=False`` after the eager
+    steps, so that they run before the graphs' pool holds memory).
     Prints max|difference| of loss, grad_norm, the weights and AdamW's
     moments, eager against eager and replay against the nearer eager step,
     and fails where the replay's exceeds the eager steps' spread."""
@@ -1065,7 +1123,8 @@ def replay_against_eager(torch, state, batch, plan, label):
     from cermvs_torch.training.step import train_step
 
     runner, gw = state.runner, 0.5
-    runner(batch, gw, plan)  # the key's graph exists from here on
+    if graph_first:
+        runner(batch, gw, plan)  # the key's graph exists from here on
     snap = copy.deepcopy(state_dicts(state))
 
     def parts():
@@ -1085,6 +1144,10 @@ def replay_against_eager(torch, state, batch, plan, label):
     eager = [run(lambda: train_step(
         state, batch, torch.tensor(gw, device="cuda"),
         volume_fn=RectifiedVolume(plan))) for _ in range(2)]
+    if not graph_first:
+        gc.collect()
+        torch.cuda.empty_cache()
+        run(lambda: runner(batch, gw, plan))  # the key's first dispatch
     replay = run(lambda: runner(batch, gw, plan))
     if runner.last_dispatch_compiled:
         raise RuntimeError(f"{label}: the key captured again")
@@ -1096,7 +1159,7 @@ def replay_against_eager(torch, state, batch, plan, label):
     to_second = diff(replay, eager[1])
     err = {k: min(v, to_second[k])
            for k, v in diff(replay, eager[0]).items()}
-    print(f"{label}: replay against eager on phase 8's batch: max|replay - "
+    print(f"{label}: replay against eager on {batch_name}: max|replay - "
           f"eager| {err}, eager against eager {spread} (the limit)",
           flush=True)
     if any(err[k] > spread[k] for k in err):
@@ -1351,17 +1414,17 @@ def phase_lookup_kernels(torch):
     return rows
 
 
-def sphere_depth(P, K, h, w):
-    """Depth (camera z) of the sphere of radius SPHERE_R about the origin
-    seen from world-to-camera pose P with intrinsics K, (h, w) fp32; 0
-    where a ray misses it."""
+def sphere_depth(P, K, h, w, radius=SPHERE_R):
+    """Depth (camera z) of the sphere of ``radius`` about the origin seen
+    from world-to-camera pose P with intrinsics K, (h, w) fp32; 0 where a
+    ray misses it."""
     u, v = np.meshgrid(np.arange(w, dtype=np.float64),
                        np.arange(h, dtype=np.float64))
     d = np.linalg.inv(K) @ np.stack([u.ravel(), v.ravel(), np.ones(u.size)])
     c = np.asarray(P, np.float64)[:3, 3]  # the centre in camera coordinates
     a = (d * d).sum(0)
     b = c @ d
-    disc = b * b - a * (c @ c - SPHERE_R ** 2)
+    disc = b * b - a * (c @ c - radius ** 2)
     s = (b - np.sqrt(np.maximum(disc, 0.0))) / a
     return np.where(disc > 0, s, 0.0).reshape(h, w).astype(np.float32)
 
@@ -2161,6 +2224,631 @@ def phase_view_batch(torch, small):
     return runs
 
 
+def look_at(eye, target, up=(0.0, 1.0, 0.0)):
+    """World-to-camera pose of a camera at ``eye`` looking at ``target``
+    (camera x: ``fwd x up``; y: ``fwd x x``)."""
+    eye = np.asarray(eye, np.float64)
+    fwd = np.asarray(target, np.float64) - eye
+    fwd /= np.linalg.norm(fwd)
+    right = np.cross(fwd, np.asarray(up, np.float64))
+    right /= np.linalg.norm(right)
+    R = np.stack([right, np.cross(fwd, right), fwd])
+    P = np.eye(4)
+    P[:3, :3] = R
+    P[:3, 3] = -R @ eye
+    return P
+
+
+def world_rays(P, K, h, w):
+    """Each pixel's ray in world coordinates (camera z = 1) and the camera
+    centre, for world-to-camera pose P."""
+    u, v = np.meshgrid(np.arange(w, dtype=np.float64),
+                       np.arange(h, dtype=np.float64))
+    d = np.linalg.inv(K) @ np.stack([u.ravel(), v.ravel(), np.ones(u.size)])
+    R, t = np.asarray(P, np.float64)[:3, :3], np.asarray(P, np.float64)[:3, 3]
+    return R.T @ d, -R.T @ t
+
+
+def plane_depth(P, K, h, w, axis, value):
+    """Depth (camera z) of the world plane ``x[axis] = value`` seen from P,
+    (h, w) fp32; 0 where a ray runs away from it."""
+    dw, c = world_rays(P, K, h, w)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        s = (value - c[axis]) / dw[axis]
+    return np.where(np.isfinite(s) & (s > 0), s, 0.0).reshape(h, w).astype(
+        np.float32)
+
+
+def pair_lines(centers, num, empty=(), short=()):
+    """``pair.txt`` listing each view's ``num`` nearest by camera centre
+    (none for the views in ``empty``, five for those in ``short``)."""
+    dist = np.linalg.norm(centers[:, None] - centers[None], axis=-1)
+    lines = [f"{len(centers)}\n"]
+    for i in range(len(centers)):
+        k = 0 if i in empty else 5 if i in short else num
+        near = [int(j) for j in np.argsort(dist[i], kind="stable")
+                if j != i][:k]
+        lines += [f"{i}\n", f"{len(near)} " + " ".join(
+            f"{j} {100.0 - r:.1f}" for r, j in enumerate(near)) + "\n"]
+    return "".join(lines)
+
+
+def texture(rng, h, w):
+    """An (h, w, 3) uint8 image of smooth random texture: noise an eighth
+    of the size, resized up (closer to a photo's JPEG than full-size
+    noise)."""
+    import cv2
+
+    small = rng.randint(0, 256, (max(1, h // 8), max(1, w // 8), 3),
+                        dtype=np.uint8)
+    return cv2.resize(small, (w, h), interpolation=cv2.INTER_CUBIC)
+
+
+def tnt_intrinsics(scale=1.0):
+    h, w = TNT_HW
+    return np.array([[TNT_F, 0, w / 2], [0, TNT_F, h / 2], [0, 0, 1]]) * [
+        [scale], [scale], [1.0]]
+
+
+def tnt_poses(scan):
+    """World-to-camera poses (m) of a scan's TNT_VIEWS cameras. Ignatius:
+    an orbit 3 m about an object at the origin, 4 degrees apart.
+    Meetingroom: an indoor walk toward the wall at z = TNT_WALL_Z, 0.1 m
+    forward a frame, swaying up to 0.3 m sideways with a little yaw, so
+    that neighbours a few frames apart lie ahead of the reference."""
+    poses = []
+    for i in range(TNT_VIEWS):
+        if scan == "Ignatius":
+            az = np.deg2rad(4.0 * (i - (TNT_VIEWS - 1) / 2))
+            eye = 3.0 * np.array([np.sin(az), -0.1, -np.cos(az)])
+            poses.append(look_at(eye, [0.0, 0.0, 0.0]))
+        else:
+            eye = np.array([0.3 * np.sin(0.9 * i), 0.02 * (i % 2), 0.1 * i])
+            yaw = np.deg2rad(2.0 * np.sin(0.5 * i))
+            poses.append(look_at(eye, eye + [np.sin(yaw), 0.0, np.cos(yaw)]))
+    return np.stack(poses)
+
+
+def tnt_true_depth(scan, P, K, h, w):
+    if scan == "Ignatius":
+        return sphere_depth(P, K, h, w, radius=TNT_OBJECT_R)
+    return plane_depth(P, K, h, w, 2, TNT_WALL_Z)
+
+
+def write_tnt_scan(root, scan, seed):
+    """``training_input/<scan>`` as the TNT dataset reads it: TNT_VIEWS
+    JPEGs of smooth random texture of TNT_HW, camera files with the scan's
+    aux row, and ``pair.txt`` with TNT_PAIRS nearest views each, none for
+    view TNT_EMPTY."""
+    import cv2
+
+    from cermvs_torch.data.cams import write_cam_file
+
+    d = Path(root) / "training_input" / scan
+    (d / "images").mkdir(parents=True)
+    (d / "cams").mkdir()
+    poses = tnt_poses(scan)
+    rng = np.random.RandomState(seed)
+    for i, P in enumerate(poses):
+        write_cam_file(d / "cams" / f"{i:08d}_cam.txt", P, tnt_intrinsics(),
+                       aux=TNT_AUX[scan])
+        cv2.imwrite(str(d / "images" / f"{i:08d}.jpg"),
+                    texture(rng, *TNT_HW), [cv2.IMWRITE_JPEG_QUALITY, 90])
+    centers = np.stack([-P[:3, :3].T @ P[:3, 3] for P in poses])
+    (d / "pair.txt").write_text(pair_lines(centers, TNT_PAIRS,
+                                           empty=(TNT_EMPTY,)))
+
+
+def rss_gib():
+    """The process's resident host memory (GiB)."""
+    with open("/proc/self/status") as f:
+        kib = next(int(line.split()[1]) for line in f
+                   if line.startswith("VmRSS:"))
+    return kib / 2**20
+
+
+def tnt_item(root, scan, index, num_frames, rescale):
+    """One TNT item prepared as ``inference()`` prepares it (scale, crop to
+    the stride): numpy frames, poses, intrinsics, the item's scale."""
+    from cermvs_torch.data.augment import pad_to_multiple, scale_operation
+    from cermvs_torch.data.tnt import TNT
+
+    images, poses, intr, names, scale = TNT(
+        dataset_path=str(root), scan=scan, num_frames=num_frames)[index]
+    images, intr = scale_operation(images, intr, rescale)
+    images, intr = pad_to_multiple(images, intr, 4)
+    return images, poses, intr, names, scale
+
+
+def phase_tnt_demo(torch, root):
+    """The demo's Tanks and Temples half on synthetic Ignatius (an orbit)
+    and Meetingroom (a forward walk) scans of TNT_HW, with random weights:
+    ``demo.run_tnt_depths`` (inference at rescale 1 with 15 neighbours and
+    at rescale 2 with 25, multires) over views 0, 12 and 24 of each scan
+    (``get_test_data_loader.subset``); then each scan's fusion
+    (``demo.run_tnt_fusion``, rescale 1) of those views' merged maps beside
+    the true depths of the other views, whose points must lie on the true
+    surface. Then one rescale-2 key through a runner's graph (replay
+    against eager, bit for bit), and a runner capturing TNT_GRAPHS keys
+    with its reserved memory and the host's RSS after each."""
+    from cermvs_torch import config as pcfg
+    from cermvs_torch import demo
+    from cermvs_torch.io.pfm import read_pfm, write_pfm
+    from cermvs_torch.io.ply import read_ply
+    from cermvs_torch.models.raft import RAFT
+    from cermvs_torch.ops import cudalib
+    from cermvs_torch.pipeline.inference import InferenceRunner
+    from cermvs_torch.training.checkpoint import save_params
+
+    os.chdir(REPO)
+    t0 = time.perf_counter()
+    for k, scan in enumerate(TNT_SCANS):
+        write_tnt_scan(root / "TNT", scan, seed=20 + k)
+    model = RAFT(test_mode=True, generator=torch.Generator().manual_seed(2))
+    ckpt = root / "pretrained" / "train_BlendedMVS"
+    save_params(ckpt, model)
+    common = [f'TNT.dataset_path = "{root / "TNT"}"']
+    refs = [f"{i:08d}" for i in range(*TNT_SUBSET)]
+    print(f"phase 11: TNT scans {TNT_SCANS} ({TNT_VIEWS} views of {TNT_HW}, "
+          f"view {TNT_EMPTY}'s pair list empty) and random weights written "
+          f"in {time.perf_counter() - t0:.1f} s; references {refs}",
+          flush=True)
+    out = root / "results"
+    runs = {}
+    for scan in TNT_SCANS:
+        pcfg.clear_config()
+        pcfg.parse_config(common + [
+            f"get_test_data_loader.subset = {TNT_SUBSET}"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cudalib.reset_launches()
+        t0 = time.perf_counter()
+        records = demo.run_tnt_depths(scan, str(ckpt), out)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run = {"wall_s": wall, "launches": {k: cudalib.launches.get(k, 0)
+                                            for k in KERNELS},
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "peak_reserved_bytes": torch.cuda.max_memory_reserved()}
+        for rescale, nf in ((1, 15), (2, 25)):
+            recs = records[rescale]
+            run[f"rescale{rescale}"] = {
+                "routes": [r[2] for r in recs],
+                "s_per_view": [r[1] for r in recs],
+                "capture_s": [r[3] for r in recs]}
+            print(f"phase 11: {scan} rescale {rescale} nf{nf}: views "
+                  f"{[r[0] for r in recs]}, routes {[r[2] for r in recs]}, "
+                  f"s/view (pipeline-inclusive) "
+                  f"{[round(r[1], 3) for r in recs]}, of which the next "
+                  f"key's first dispatch (eager and capture) "
+                  f"{[round(r[3], 3) for r in recs]}", flush=True)
+            if [r[0] for r in recs] != refs:
+                raise RuntimeError(f"{scan}: records {recs}")
+            for name in refs:
+                d = read_pfm(out / scan / "depths"
+                             / f"{name}_scale{rescale}_nf{nf}.pfm")
+                if not np.isfinite(d).all():
+                    raise RuntimeError(f"{scan} {name}: non-finite depths")
+        for name in refs:
+            m = read_pfm(out / scan / "depths"
+                         / f"{name}_nf15_nf25_th0.02.pfm")
+            if m.shape != (TNT_HW[0] // 2, TNT_HW[1] // 2) or not np.isfinite(
+                    m).all():
+                raise RuntimeError(f"{scan} {name}: merged map {m.shape}")
+        print(f"phase 11: {scan}: both passes and multires in {wall:.1f} s, "
+              f"peak {run['peak_bytes'] / 2**30:.2f} GiB allocated, "
+              f"{run['peak_reserved_bytes'] / 2**30:.2f} GiB reserved, "
+              f"launches {run['launches']}", flush=True)
+        runs[scan] = run
+    routes = sorted({r for run in runs.values() for k in ("rescale1",
+                                                          "rescale2")
+                     for r in run[k]["routes"]})
+    print(f"phase 11: routes taken {routes}", flush=True)
+    # fusion needs every view's map: the other views' true depths
+    pcfg.clear_config()
+    pcfg.parse_config(common)
+    h, w = TNT_HW[0] // 2, TNT_HW[1] // 2
+    fused = {}
+    for scan in TNT_SCANS:
+        for i, P in enumerate(tnt_poses(scan)):
+            f = out / scan / "depths" / f"{i:08d}_nf15_nf25_th0.02.pfm"
+            if not f.exists():
+                write_pfm(f, tnt_true_depth(scan, P, tnt_intrinsics(0.5),
+                                            h, w))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ply = demo.run_tnt_fusion(scan, out)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        xyz, _ = read_ply(ply)
+        xyz = xyz.astype(np.float64)
+        err = (np.abs(np.linalg.norm(xyz, axis=1) - TNT_OBJECT_R)
+               if scan == "Ignatius" else np.abs(xyz[:, 2] - TNT_WALL_Z))
+        on = float((err <= TNT_TOL).mean()) if len(xyz) else 0.0
+        print(f"phase 11: {scan} fusion (rescale 1) in {secs:.2f} s: "
+              f"{len(xyz)} points, {on:.4f} within {TNT_TOL} m of the true "
+              f"surface (median {np.median(err):.2e} m)", flush=True)
+        if Path(ply) != out / scan / "result.ply" or on < 0.98 or len(
+                xyz) < 0.02 * (TNT_VIEWS - 3) * h * w:
+            raise RuntimeError(f"{scan}: fused cloud off the surface")
+        fused[scan] = {"seconds": secs, "points": len(xyz), "on_surface": on}
+    # one rescale-2 key through a runner's graph, and a runner's memory
+    # as it holds more graphs
+    images, poses, intr, names, scale = tnt_item(root / "TNT", "Ignatius", 0,
+                                                 25, 2)
+    runner = InferenceRunner(model=model, device="cuda")
+    _, graphed = graphed_pass(torch, runner, images, poses, intr,
+                              f"Ignatius {names[0]} rescale 2 nf25", reps=1,
+                              scale=scale, phase="phase 11")
+    graphed["route"] = runner.last_path
+    del runner, images
+    released(torch, "phase 11, graph growth")
+    runner = InferenceRunner(model=model, device="cuda")
+    growth = []
+    for i in range(TNT_GRAPHS):
+        item = tnt_item(root / "TNT", "Meetingroom", i, 15, 1)
+        runner.submit(*item[:3], item[4])
+        torch.cuda.synchronize()
+        growth.append({"graphs": len(runner._cache), "route":
+                       runner.last_path, "capture_s": runner.last_capture_s,
+                       "reserved_bytes": torch.cuda.memory_reserved(),
+                       "pool_bytes": graph_pool_bytes(torch, runner._pool),
+                       "rss_gib": rss_gib()})
+    print(f"phase 11: one runner at rescale 1 nf15 holding 1..{TNT_GRAPHS} "
+          f"graphs: reserved GiB "
+          f"{[round(g['reserved_bytes'] / 2**30, 2) for g in growth]}, pool "
+          f"GiB {[round(g['pool_bytes'] / 2**30, 2) for g in growth]}, host "
+          f"RSS GiB {[round(g['rss_gib'], 2) for g in growth]}, routes "
+          f"{[g['route'] for g in growth]}, captures s "
+          f"{[round(g['capture_s'], 3) for g in growth]}", flush=True)
+    if [g["graphs"] for g in growth] != list(range(1, TNT_GRAPHS + 1)):
+        raise RuntimeError(f"graphs held {growth}")
+    return {"scans": runs, "routes": routes, "fusion": fused,
+            "graphed_rescale2": {k: v for k, v in graphed.items()
+                                 if k != "launches"},
+            "graph_growth": growth,
+            "launches": {k: sum(r["launches"][k] for r in runs.values())
+                         for k in KERNELS}}
+
+
+def write_custom(root, seed=0):
+    """A TUM directory of CUSTOM_FRAMES smooth-texture JPEGs of CUSTOM_HW:
+    a hand-held sideways walk, 5 cm a frame with a little forward sway,
+    facing +z; one intrinsic matrix (525 px)."""
+    import cv2
+
+    root = Path(root)
+    (root / "images").mkdir(parents=True)
+    rng = np.random.RandomState(seed)
+    rows = []
+    for i in range(CUSTOM_FRAMES):
+        cv2.imwrite(str(root / "images" / f"{i:06d}.jpg"),
+                    texture(rng, *CUSTOM_HW))
+        rows.append([0.1 * i, 0.05 * i, 0.01 * np.sin(i), 0.02 * np.cos(i),
+                     0.0, 0.0, 0.0, 1.0])
+    np.savetxt(root / "cams.txt", np.asarray(rows))
+    h, w = CUSTOM_HW
+    np.savetxt(root / "intrinsic.txt",
+               [[525.0, 0, w / 2], [0, 525.0, h / 2], [0, 0, 1]])
+
+
+def phase_custom_demo(torch, root):
+    """``demo_custom``'s three passes (0.5x with 10 neighbours writing the
+    min-depth files, then 1x with 15 and 2x with 25 reading them), multires
+    and fusion at rescale 1, on a TUM directory of CUSTOM_FRAMES frames of
+    CUSTOM_HW, with random weights. Checks every pass's files, the
+    min-depth files and the fused cloud."""
+    from cermvs_torch import config as pcfg
+    from cermvs_torch import demo_custom
+    from cermvs_torch.io.pfm import read_pfm
+    from cermvs_torch.io.ply import read_ply
+    from cermvs_torch.models.raft import RAFT
+    from cermvs_torch.ops import cudalib
+    from cermvs_torch.training.checkpoint import save_params
+
+    data, out = root / "custom", root / "results" / "custom"
+    write_custom(data)
+    ckpt = root / "pretrained" / "custom"
+    save_params(ckpt, RAFT(test_mode=True,
+                           generator=torch.Generator().manual_seed(3)))
+    pcfg.clear_config()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cudalib.reset_launches()
+    t0 = time.perf_counter()
+    records, ply = demo_custom.run_custom(str(data), str(ckpt), out)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    names = [f"{i:06d}" for i in range(CUSTOM_FRAMES)]
+    passes = {}
+    for (rescale, nf), recs in zip(demo_custom.PASSES, records):
+        passes[f"{rescale}_nf{nf}"] = {
+            "routes": sorted({r[2] for r in recs}),
+            "s_per_view": [r[1] for r in recs],
+            "capture_s": [r[3] for r in recs]}
+        print(f"phase 12: pass rescale {rescale} nf{nf}: {len(recs)} views, "
+              f"routes {sorted({r[2] for r in recs})}, s/view median "
+              f"{np.median([r[1] for r in recs]):.3f} max "
+              f"{max(r[1] for r in recs):.3f}, keys first dispatched "
+              f"{sum(r[3] > 0 for r in recs) + 1}", flush=True)
+        if [r[0] for r in recs] != names:
+            raise RuntimeError(f"pass {rescale}: records {recs}")
+        for name in names:
+            d = read_pfm(out / "depths" / f"{name}_scale{rescale}_nf{nf}.pfm")
+            if not np.isfinite(d).all():
+                raise RuntimeError(f"{name} at {rescale}: non-finite depths")
+    md = [float(np.loadtxt(data / "min_depth" / f"{n}.txt")) for n in names]
+    merged = [read_pfm(out / "depths" / f"{n}_nf15_nf25_th0.02.pfm")
+              for n in names]
+    xyz, _ = read_ply(ply)
+    print(f"phase 12: demo_custom ({CUSTOM_FRAMES} frames of {CUSTOM_HW}) in "
+          f"{wall:.1f} s; min-depth files {len(md)}, range "
+          f"[{min(md):.3e}, {max(md):.3e}]; {len(merged)} merged maps; "
+          f"fused {len(xyz)} points; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved",
+          flush=True)
+    if not (all(np.isfinite(md)) and min(md) > 0 and all(
+            np.isfinite(m).all() for m in merged)):
+        raise RuntimeError("bad min-depth files or merged maps")
+    if Path(ply) != out / "result.ply" or not np.isfinite(xyz).all():
+        raise RuntimeError(f"bad fused cloud {ply}")
+    return {"wall_s": wall, "passes": passes, "min_depth": [min(md),
+                                                            max(md)],
+            "fusion_points": len(xyz),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+            "launches": {k: cudalib.launches.get(k, 0) for k in KERNELS}}
+
+
+def blended_poses():
+    """World-to-camera poses of the BlendedMVS scene: BL_ORBIT cameras of a
+    drone orbit 600 units about a building at the origin (4 degrees apart,
+    looking down a little), BL_SWEEP of a lawnmower sweep 600 units above
+    the ground (40 apart, looking down), and BL_WALK walking toward the
+    building along the optical axis (60 apart), as
+    tests/test_blended_construction.py builds them."""
+    poses = []
+    for i in range(BL_ORBIT):
+        a = np.deg2rad(4.0 * ((i + 1) // 2) * (1 if i % 2 else -1))
+        poses.append(look_at(600.0 * np.array([np.sin(a), -0.3, -np.cos(a)]),
+                             [0.0, 0.0, 0.0]))
+    for i in range(BL_SWEEP):
+        eye = np.array([40.0 * ((i + 1) // 2) * (1 if i % 2 else -1), -600.0,
+                        10.0 * (i % 2)])
+        poses.append(look_at(eye, [eye[0] * 0.8, 0.0, eye[2] * 0.8],
+                             up=(0.0, 0.0, 1.0)))
+    for i in range(BL_WALK):
+        poses.append(look_at([1.0 * (i % 2), 0.0, -900.0 + 60.0 * i],
+                             [0.0, 0.0, 100.0]))
+    return np.stack(poses)
+
+
+def blended_depth(P, K, h, w):
+    """Depth of the scene (a building of radius 200 at the origin on the
+    ground plane y = 200) from P, (h, w) fp32."""
+    dw, c = world_rays(P, K, h, w)
+    a = (dw * dw).sum(0)
+    b = c @ dw
+    disc = b * b - a * (c @ c - 200.0 ** 2)
+    s_sphere = np.where(disc > 0, (-b - np.sqrt(np.maximum(disc, 0))) / a,
+                        np.inf)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        s_ground = (200.0 - c[1]) / dw[1]
+    s_ground = np.where(np.isfinite(s_ground) & (s_ground > 0), s_ground,
+                        np.inf)
+    s = np.minimum(np.where(s_sphere > 0, s_sphere, np.inf), s_ground)
+    return np.where(np.isfinite(s), s, 0.0).reshape(h, w).astype(np.float32)
+
+
+def write_blended_tree(root, seed=0):
+    """One BlendedMVS scene as the Blended dataset reads it:
+    ``dataset_full_res_0-29/<hash>/<hash>/<hash>/`` with smooth-texture
+    JPEGs of BL_HW, its true depths as PFMs, camera files and ``pair.txt``
+    (each view's 10 nearest; five for the walk's later views, so the walk
+    gives one reference). Returns the scene's directory."""
+    import cv2
+
+    from cermvs_torch.data.blended import TRAINING_SET
+    from cermvs_torch.data.cams import write_cam_file
+    from cermvs_torch.io.pfm import write_pfm
+
+    scene = TRAINING_SET[0]
+    d = Path(root) / "dataset_full_res_0-29" / scene / scene / scene
+    for sub in ("blended_images", "rendered_depth_maps", "cams"):
+        (d / sub).mkdir(parents=True)
+    h, w = BL_HW
+    K = np.array([[BL_F, 0, w / 2], [0, BL_F, h / 2], [0, 0, 1]])
+    poses = blended_poses()
+    rng = np.random.RandomState(seed)
+    for i, P in enumerate(poses):
+        depth = blended_depth(P, K, h, w)
+        valid = depth[depth > 0]
+        write_cam_file(d / "cams" / f"{i:08d}_cam.txt", P, K,
+                       aux=[float(valid.min()), 1.0, 128,
+                            float(valid.max())])
+        write_pfm(d / "rendered_depth_maps" / f"{i:08d}.pfm", depth)
+        cv2.imwrite(str(d / "blended_images" / f"{i:08d}.jpg"),
+                    texture(rng, h, w), [cv2.IMWRITE_JPEG_QUALITY, 90])
+    centers = np.stack([-P[:3, :3].T @ P[:3, 3] for P in poses])
+    walk = BL_ORBIT + BL_SWEEP
+    (d / "cams" / "pair.txt").write_text(pair_lines(
+        centers, NUM_FRAMES, short=range(walk + 1, walk + BL_WALK)))
+    return d
+
+
+def hold_epiband_at_plan(torch, plan, phase):
+    """epiband_fwd and both gradients against their plain versions at one
+    training plan's widest view: stage 0 (base == 0) and stage 1 (the main
+    path's bases), fp32 and bf16, at phase 2's and phase 8's tolerances.
+    Prints the widest run of source columns one 64-pixel tile's stage-1
+    taps reach (the bf16 kernel stages 128-column chunks). Returns each
+    kernel's largest error."""
+    from cermvs_torch.ops import epiband as eb
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(13)
+    rates = np.asarray(plan.view_rates)
+    vmax = int(np.argmax(plan.view_s_max))
+    s_v = plan.view_s_max[vmax]
+    ws_v = plan.ws_r - (plan.s_max - s_v)
+    (d0, inc0), (d1, inc1) = STAGES
+    errs = {"epiband_fwd": 0.0, "epiband_bwd_dfr": 0.0, "epiband_bwd_dfs": 0.0}
+    shape = f"h_r={plan.h_r} w_r={plan.w_r} ws={ws_v} s_max={s_v}"
+    band = None
+    for dtype, ftol, btol in ((torch.float32, (1e-4, 1e-3), (1e-4, 1e-3)),
+                              (torch.bfloat16, (1e-3, 1e-2), (1e-2, 1e-2))):
+        for stage, D, base_kind, inc in (("stage0", d0, None, inc0),
+                                         ("stage1", d1, "main", inc1)):
+            fr, fs, base, sigma = epiband_case(
+                torch, rng, plan.h_r, plan.w_r, ws_v, C_FEAT, D, base_kind,
+                tuple(rates[vmax] * inc), dtype, (d0, inc0 / inc1))
+            if stage == "stage1" and band is None:
+                x = torch.arange(plan.w_r, device="cuda", dtype=torch.float32)
+                k = torch.arange(D, device="cuda", dtype=torch.float32)
+                pos = (x + float(s_v))[None, None, :, None] - (
+                    base[..., None] + sigma[..., None] * k)
+                pos = pos.clamp(-1, ws_v)
+                pad = -plan.w_r % 64
+                lo = torch.nn.functional.pad(pos.amin(-1), (0, pad),
+                                             value=float(ws_v))
+                hi = torch.nn.functional.pad(pos.amax(-1), (0, pad),
+                                             value=-1.0)
+                band = int((hi.reshape(-1, 64).amax(-1)
+                            - lo.reshape(-1, 64).amin(-1)).max()) + 2
+            out = eb.epiband(fr, fs, base, sigma, D, s_v)
+            torch.cuda.synchronize()
+            ref = eb.epiband_reference(fr, fs, base, sigma, D, s_v)
+            e = float((out - ref).abs().max())
+            ok = bool(torch.allclose(out, ref, rtol=ftol[0], atol=ftol[1]))
+            errs["epiband_fwd"] = max(errs["epiband_fwd"], e)
+            print(f"{phase}: epiband_fwd {shape} {stage} D={D} "
+                  f"{str(dtype)[6:]}: max|kernel-plain|={e:.3e} ok={ok}",
+                  flush=True)
+            if not ok:
+                raise RuntimeError(f"epiband_fwd disagrees with its plain "
+                                   f"version ({phase}, {stage}, {dtype})")
+            del out, ref
+            dout = torch.randn((1, plan.h_r, plan.w_r, D), device="cuda",
+                               generator=torch.Generator(device="cuda")
+                               .manual_seed(int(rng.randint(2**31))))
+            args = (fr, fs, base, sigma, dout, s_v)
+            got = (eb.backward_dfr(*args), eb.backward_dfs(*args))
+            torch.cuda.synchronize()
+            ref = eb.epiband_backward_reference(*args)
+            for name, a, b in zip(("epiband_bwd_dfr", "epiband_bwd_dfs"),
+                                  got, ref):
+                e = float((a.float() - b.float()).abs().max())
+                differ = float((a != b).float().mean())
+                ok = bool(torch.allclose(a.float(), b.float(), rtol=btol[0],
+                                         atol=btol[1])) and (
+                    dtype != torch.bfloat16 or differ < 0.01)
+                errs[name] = max(errs[name], e)
+                print(f"{phase}: {name} {shape} {stage} D={D} "
+                      f"{str(dtype)[6:]}: max|kernel-plain|={e:.3e}, share "
+                      f"differing {differ:.4f}, ok={ok}", flush=True)
+                if not ok:
+                    raise RuntimeError(f"{name} disagrees with its plain "
+                                       f"version ({phase}, {stage}, {dtype})")
+            del got, ref, fr, fs
+    print(f"{phase}: widest stage-1 band of a 64-pixel tile: {band} source "
+          f"columns (the bf16 kernel's chunk: 128)", flush=True)
+    return errs, {"shape": [1, plan.h_r, plan.w_r, ws_v, C_FEAT],
+                  "s_max": s_v, "stage1_tile_band": band}
+
+
+def phase_blended_train(torch, tree):
+    """``train()`` with ``train_BlendedMVS.gin`` (batch 2, nf10, crop
+    1376x1824, rectified) for BL_STEPS + 1 steps through the step graphs
+    on a synthetic BlendedMVS scene (orbit, sweep and one forward-walk
+    reference): each step's route and plan key, each key's first dispatch
+    and the memory after it, replayed s/step, peaks. Checks that every
+    batch but the walk's took the rectified construction and the walk's
+    the exact one, the values and the launches; holds a replay against
+    eager steps on the first batch; holds the epiband forward and both
+    gradients against their plain versions at the widest plan the run
+    took."""
+    from cermvs_torch import config as pcfg
+    from cermvs_torch import data
+    from cermvs_torch.models.raft import RAFT
+    from cermvs_torch.ops.rectify import PlanCache
+    from cermvs_torch.training.step import (StepRunner, batch_to_device,
+                                            init_state)
+    from cermvs_torch.training.train import plan_batch
+
+    t0 = time.perf_counter()
+    write_blended_tree(tree)
+    pcfg.clear_config()
+    pcfg.parse_config_file(str(REPO / "configs" / "train_BlendedMVS.gin"))
+    pcfg.bind_parameter("Blended.dataset_path", str(tree))
+    pcfg.bind_parameter("train.num_steps", BL_STEPS)
+    crop = pcfg.query_parameter("random_scale_and_crop.crop_size")
+    print(f"phase 13: BlendedMVS scene ({BL_ORBIT} orbit, {BL_SWEEP} sweep, "
+          f"{BL_WALK} walk cameras, {BL_HW} JPEGs and PFM depths) written in "
+          f"{time.perf_counter() - t0:.1f} s; crop {crop}", flush=True)
+    torch.backends.cudnn.allow_tf32 = True  # the bf16 model's own setting
+    state, run = train_through_graphs(torch, tree, "phase 13",
+                                      "chip_smoke_blended")
+    records, launches, steps = run["records"], run["launches"], run["steps"]
+    routes = ["exact" if r["plan"] is None else "rectified" for r in records]
+    expect = train_launches(records, state.model)
+    print(f"phase 13: routes per step {routes}; launches {launches} "
+          f"(expected {expect})", flush=True)
+    if steps != BL_STEPS + 1 or routes.count("exact") != 1:
+        raise RuntimeError(f"{steps} steps, routes {routes}: the walk's "
+                           f"batch alone must take the exact construction")
+    for r in records:
+        m = r["metrics"]
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+                and m["grad_norm"] > 0):
+            raise RuntimeError(f"bad step metrics {m}")
+    if launches != expect:
+        raise RuntimeError(f"launches {launches} != {expect}")
+    widest = max((r["plan"] for r in records if r["plan"] is not None),
+                 key=lambda p: (p.ws_r, p.h_r * p.w_r))
+    # replay against eager steps: an eager step beside the run's graph pool
+    # (64 GiB) does not fit the card, so a fresh state steps eagerly first,
+    # then captures and replays, on the first batch of a fresh loader that
+    # plans (the walk's does not)
+    del state
+    released(torch, "phase 13, replay against eager")
+    load_s = []
+    t0 = time.perf_counter()
+    for batch in data.get_train_data_loader(batch_size=2, num_workers=0):
+        load_s.append(time.perf_counter() - t0)
+        plan = plan_batch(batch, 4)
+        if plan.ok:
+            break
+        t0 = time.perf_counter()
+    plan = PlanCache().key_for(plan)
+    fresh = init_state(RAFT(device="cuda"), BL_STEPS)
+    fresh.runner = StepRunner(fresh)
+    check = replay_against_eager(torch, fresh, batch_to_device(batch, "cuda"),
+                                 plan, "phase 13", "the first planned batch",
+                                 graph_first=False)
+    # a replayed step on a batch already on the card: the step without the
+    # loader, the plan and the upload
+    resident = batch_to_device(batch, "cuda")
+    replay_s = [synced_s(torch, lambda: fresh.runner(resident, 0.5, plan))[0]
+                for _ in range(3)]
+    print(f"phase 13: a batch loaded in one thread in "
+          f"{[round(t, 3) for t in load_s]} s; replayed steps on a resident "
+          f"batch {[round(t, 4) for t in replay_s]} s", flush=True)
+    del fresh, resident
+    released(torch, "phase 13, kernels at the widest plan")
+    errs, at = hold_epiband_at_plan(torch, widest, "phase 13")
+    plans = {plan_label(r["plan"]) for r in records}
+    return {"launches": launches, "s_per_step": run["replay_s_per_step"],
+            "keys": run["keys"], "routes": routes,
+            "peak_bytes": run["peak_bytes"],
+            "peak_reserved_bytes": run["peak_reserved_bytes"],
+            "graph_pool_bytes": run["graph_pool_bytes"], "steps": steps,
+            "wall_s": run["wall_s"], "kernel_errs": errs, "widest_plan": at,
+            "load_s_one_thread": load_s, "resident_replay_s": replay_s,
+            "plans": [str(p) for p in sorted(plans, key=str)], **check}
+
+
 def mark(ends, phase):
     """Record and print the seconds since the start at which ``phase``
     ended (where the run's time goes)."""
@@ -2385,6 +3073,17 @@ def main():
         fused_training = phase_train_pallas(torch, tree, train_plan,
                                             train_batch)
         mark(ends, "phase 10")
+    with tempfile.TemporaryDirectory(dir=build) as root:
+        released(torch, "phase 11")
+        tnt = phase_tnt_demo(torch, Path(root))
+        mark(ends, "phase 11")
+        released(torch, "phase 12")
+        custom = phase_custom_demo(torch, Path(root))
+        mark(ends, "phase 12")
+    with tempfile.TemporaryDirectory(dir=build) as tree:
+        released(torch, "phase 13")
+        blended = phase_blended_train(torch, Path(tree))
+        mark(ends, "phase 13")
     rows.update(lookup_rows)
 
     s0 = stages["stage0"]
@@ -2394,14 +3093,18 @@ def main():
         "device_ms": s0["device_ms"], "library_ms": None, "stages": stages}
     # the demo's and the mixed scene's plans: errors into each row, the
     # demo's rescale-2 times beside
-    for errs in (demo.pop("kernel_errs"), mixed["kernel_errs"]):
+    for errs in (demo.pop("kernel_errs"), mixed["kernel_errs"],
+                 blended.pop("kernel_errs")):
         for name, err in errs.items():
             rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
     for name, row in demo.pop("kernel_rows_rescale2").items():
         rows[name]["demo_rescale2"] = row
     by_path = {"inference": infer_launches, "mixed": mixed["launches"],
                "demo": demo["launches"], "training": training["launches"],
-               "training_fused_lookup": fused_training["launches"]}
+               "training_fused_lookup": fused_training["launches"],
+               "tnt_demo": tnt.pop("launches"),
+               "custom_demo": custom.pop("launches"),
+               "training_blended": blended.pop("launches")}
     # launches: the main path's count of each kernel: the demo's for the
     # fused lookup forward, the fused-lookup training run's for its
     # gradient (the prefix-sum variant is on no path), training's for the
@@ -2439,6 +3142,7 @@ def main():
         "demo": demo, "true_fusion": true_fusion,
         "fused_lookup_training": {k: v for k, v in fused_training.items()
                                   if k != "launches"},
+        "tnt_demo": tnt, "custom_demo": custom, "blended_training": blended,
         "build_s": build_s, "phase_end_s": ends, "card": smi,
         "total_s": time.perf_counter() - T_START}}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -33,7 +33,6 @@ from test_torch_slice import _Loader, _scene
 
 CASCADE = ((8, 64, 1), (-1, 320, 1))
 FLAX_FIELDS = {"name", "parent"}  # every flax module has them
-NOT_PORTED = {"Blended", "Custom", "TNT"}  # datasets: ROADMAP Queue 1 item 2
 
 
 @pytest.fixture
@@ -74,7 +73,7 @@ def _configurables(config, pkg):
 def test_port_configurables_take_every_jax_binding():
     jax_side = _configurables(jcfg, cermvs_tpu)
     port = _configurables(pcfg, cermvs_torch)
-    assert set(jax_side) - set(port) == NOT_PORTED
+    assert set(jax_side) - set(port) == set()
     missing = {name: sorted(_parameters(fn) - _parameters(port[name]))
                for name, fn in jax_side.items() if name in port}
     assert {k: v for k, v in missing.items() if v} == {}

@@ -1239,6 +1239,38 @@ def test_graph_replay_equals_eager(cuda_device, route, kind, construction):
 
 
 @pytest.mark.cuda
+def test_capture_after_a_dropped_runner(cuda_device):
+    """A runner whose graphs only the garbage collector frees (a reference
+    cycle), dropped; then another runner captures a new key with the
+    collector set to run at every allocation. A graph freed during a
+    capture would end it: the capture collects first."""
+    import gc
+
+    from cermvs_torch.pipeline.inference import InferenceRunner
+
+    model = pipeline_model(cuda_device)
+    dropped = InferenceRunner(model=model, rect_lambda_max=0.1,
+                              device=cuda_device)
+    dropped.submit(*graph_scene("lateral"), 1.0)
+    assert dropped.last_dispatch_compiled and len(dropped._cache) == 1
+    dropped.cycle = dropped
+    del dropped
+    runner = InferenceRunner(model=model, rect_lambda_max=0.1,
+                             device=cuda_device)
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        images, poses, intr = graph_scene("mixed")
+        runner.submit(images, poses, intr, 1.0)
+        assert runner.last_dispatch_compiled and runner.last_path == "mixed"
+    finally:
+        gc.set_threshold(*threshold)
+    got = runner.submit(images, poses, intr, 1.0)
+    assert not runner.last_dispatch_compiled
+    assert torch.equal(got, eager(runner, images, poses, intr))
+
+
+@pytest.mark.cuda
 def test_two_keys_replay_alternately(cuda_device):
     """Two keys of one shape share the static inputs and the memory pool:
     replayed in turn after both captures, each gives its eager result."""

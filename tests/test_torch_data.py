@@ -162,8 +162,11 @@ def kw_no_frames(kw):
     return {k: v for k, v in kw.items() if k != "num_frames"}
 
 
-def test_registry_names_what_is_not_ported():
-    with pytest.raises(KeyError, match="Queue 1 item 2"):
-        pdata.get_train_data_loader(datasetname="TNT")
-    with pytest.raises(KeyError, match="unknown"):
-        pdata.get_train_data_loader(datasetname="NoSuchSet")
+def test_registry_holds_the_jax_datasets():
+    from cermvs_tpu.data import dataset_dict as jax_datasets
+
+    assert sorted(pdata.dataset_dict) == sorted(jax_datasets)
+    assert len(pdata.dataset_dict) == 5
+    for loader in (pdata.get_train_data_loader, pdata.get_test_data_loader):
+        with pytest.raises(KeyError, match="unknown"):
+            loader(datasetname="NoSuchSet")

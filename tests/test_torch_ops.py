@@ -188,6 +188,44 @@ def test_exact_volume_bf16_gather(rng):
     np.testing.assert_allclose(p, j, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("mean", [False, True])
+def test_exact_volume_budget_and_recompute_change_no_value(rng, monkeypatch,
+                                                          mean):
+    """The backward's recomputation of each chunk gives the volume and the
+    features' gradients of the recorded construction bit for bit; a gather
+    budget that shrinks the chunk to one hypothesis gives the same volume
+    bit for bit and the same gradients but for the order in which the
+    chunks' contributions add up (fp32 rounding)."""
+    poses, intr, ii, jj = _scene(rng, N=3, h=10, w=16)
+    fm = rng.randn(1, 3, 10, 16, 8).astype(np.float32)
+    origin = (rng.rand(1, 1, 10, 16) * 0.02 + 0.01).astype(np.float32)
+    weights = _t(rng.randn(1, 1 if mean else 2, 10, 16, 7).astype(np.float32))
+
+    def run(budget, recompute):
+        monkeypatch.setattr(pcorr, "GATHER_BUDGET_BYTES", budget)
+        if not recompute:
+            monkeypatch.setattr(pcorr, "checkpoint",
+                                lambda fn, *a, **k: fn(*a))
+        f = _t(fm).requires_grad_()
+        vol = pcorr.build_corr_volume(
+            f, _t(poses), _t(intr), _t(ii).long(), _t(jj).long(),
+            _t(origin), 7, 0.004, hyp_chunk=16, mean_over_views=mean)
+        (vol * weights).sum().backward()
+        monkeypatch.undo()
+        return vol.detach(), f.grad
+
+    want = run(1 << 40, recompute=False)
+    got = run(1 << 40, recompute=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    one = run(1, recompute=True)
+    assert torch.equal(one[0], want[0])
+    torch.testing.assert_close(one[1], want[1], rtol=1e-6, atol=1e-7)
+    with torch.no_grad():
+        assert torch.equal(pcorr.build_corr_volume(
+            _t(fm), _t(poses), _t(intr), _t(ii).long(), _t(jj).long(),
+            _t(origin), 7, 0.004, mean_over_views=mean), want[0])
+
+
 def test_build_pyramid(rng):
     vol = rng.randn(1, 2, 3, 4, 64).astype(np.float32)
     for a, b in zip(pcorr.build_pyramid(_t(vol)),
