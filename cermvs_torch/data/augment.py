@@ -11,6 +11,7 @@ import cv2
 import numpy as np
 
 from cermvs_torch.config import configurable
+from cermvs_torch.io import native
 
 
 def _resize_stack(frames: np.ndarray, ht: int, wd: int, interp) -> np.ndarray:
@@ -24,21 +25,15 @@ def random_scale_and_crop(images: np.ndarray, depths: np.ndarray,
                           crop_size: Sequence[int] = (1056, 1440),
                           smin: float = -0.15, smax: float = 0.5,
                           rng: Optional[np.random.RandomState] = None,
-                          use_native: bool = False
+                          use_native: bool = True
                           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Scale by 2^U(smin, smax) (images bilinear, depths nearest), crop a
     random ``crop_size`` window, and fix the intrinsics to match.
 
-    The resize is cv2's, the JAX package's with ``use_native=False``. Its
-    ``use_native=True`` resizes with its C++ data runtime
-    (``native/dataio.cpp``), whose images and depths differ from cv2's
-    (tests/test_torch_data.py), so the port refuses it until it binds that
-    runtime (ROADMAP Queue 1 item 4)."""
-    if use_native:
-        raise NotImplementedError(
-            "random_scale_and_crop(use_native=True): the native resize is "
-            "not ported yet (ROADMAP Queue 1 item 4); bind use_native=False "
-            "for cv2's resize")
+    ``use_native`` (the default, as in the JAX package) resizes and crops
+    with the host data runtime (``io/native.py``), whose arrays are the JAX
+    package's bit for bit; ``False`` with cv2, the JAX package's
+    ``use_native=False``. The two differ by float rounding."""
     rng = rng or np.random
     s = 2.0 ** rng.uniform(smin, smax)
     ht1, wd1 = images.shape[1:3]
@@ -51,10 +46,16 @@ def random_scale_and_crop(images: np.ndarray, depths: np.ndarray,
     ch, cw = crop_size
     x0 = rng.randint(0, wd2 - cw + 1)
     y0 = rng.randint(0, ht2 - ch + 1)
-    images = _resize_stack(images, ht2, wd2, cv2.INTER_LINEAR)
-    depths = _resize_stack(depths, ht2, wd2, cv2.INTER_NEAREST)
-    images = images[:, y0:y0 + ch, x0:x0 + cw]
-    depths = depths[:, y0:y0 + ch, x0:x0 + cw]
+    if use_native:
+        images = native.scale_and_crop(images, ht2, wd2, y0, x0, ch, cw,
+                                       nearest=False)
+        depths = native.scale_and_crop(depths, ht2, wd2, y0, x0, ch, cw,
+                                       nearest=True)
+    else:
+        images = _resize_stack(images, ht2, wd2, cv2.INTER_LINEAR)
+        depths = _resize_stack(depths, ht2, wd2, cv2.INTER_NEAREST)
+        images = images[:, y0:y0 + ch, x0:x0 + cw]
+        depths = depths[:, y0:y0 + ch, x0:x0 + cw]
     intrinsics[:, 0, 2] -= x0
     intrinsics[:, 1, 2] -= y0
     return images, depths, intrinsics

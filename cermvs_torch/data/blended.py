@@ -30,7 +30,7 @@ from cermvs_torch.data.augment import random_scale_and_crop
 from cermvs_torch.data.cams import read_cam_file
 from cermvs_torch.data.loader import Dataset
 from cermvs_torch.data.pairs import load_pair
-from cermvs_torch.io.pfm import read_pfm
+from cermvs_torch.io import read_pfm_fast as read_pfm
 
 TRAINING_SET = [
     "5a3f4aba5889373fbbc5d3b5", "5bfc9d5aec61ca1dd69132a2",

@@ -29,7 +29,7 @@ from cermvs_torch.data.augment import random_scale_and_crop
 from cermvs_torch.data.cams import read_cam_file
 from cermvs_torch.data.loader import Dataset
 from cermvs_torch.data.pairs import backfill_neighbors, load_pair
-from cermvs_torch.io.pfm import read_pfm
+from cermvs_torch.io import read_pfm_fast as read_pfm
 
 TRAINING_SET = [
     113, 14, 124, 111, 89, 45, 61, 104, 63, 22, 73, 39, 16, 42, 57, 8, 120,

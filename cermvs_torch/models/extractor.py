@@ -6,9 +6,10 @@ Architecture (module names follow the reference ``state_dict``):
   layer2: ResidualBlock(64, stride 2) + ResidualBlock(64)
   [layer3: ResidualBlock(128, stride 2) + ResidualBlock(128)  iff type=="LR"]
   conv2 1x1 -> output_dim
-"HR" yields 1/4 resolution features, "LR" 1/8. The instance norm has no
-affine parameters and is computed in fp32. Parameters are fp32; convolutions
-run in the module's compute ``dtype`` (bfloat16 by default).
+"HR" yields 1/4 resolution features, "LR" 1/8. The instance and group
+norms have no affine parameters and are computed in fp32. Parameters are
+fp32; convolutions run in the module's compute ``dtype`` (bfloat16 by
+default).
 
 Public layout is channels-last, as in the JAX package: (..., H, W, 3) in,
 (..., H/f, W/f, C) out. Convolutions see the same memory through a permuted
@@ -17,6 +18,7 @@ NCHW view (channels-last memory format), so no layout copies are made.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -68,12 +70,29 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
-def _norm(norm_fn: str):
+def group_norm(x: torch.Tensor, num_groups: int,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Normalization over H, W and each group of ``C // num_groups``
+    channels of an NHWC tensor, in fp32; no affine parameters."""
+    B, H, W, C = x.shape
+    x32 = x.float().reshape(B, H, W, num_groups, C // num_groups)
+    var, mean = torch.var_mean(x32, dim=(1, 2, 4), keepdim=True,
+                               correction=0)
+    out = (x32 - mean) * torch.rsqrt(var + eps)
+    return out.reshape(B, H, W, C).to(x.dtype)
+
+
+def _norm(norm_fn: str, planes: int = 32):
+    """The norm of a layer of ``planes`` channels. The group norm takes
+    ``planes // 8`` groups; the encoder's stem passes no ``planes``, so its
+    group norm has 4 groups whatever its width, as in the JAX package."""
     if norm_fn == "instance":
         return instance_norm
+    if norm_fn == "group":
+        return functools.partial(group_norm, num_groups=max(1, planes // 8))
     if norm_fn == "none":
         return lambda x: x
-    raise ValueError(f"unsupported norm_fn {norm_fn!r} (instance/none)")
+    raise ValueError(f"unsupported norm_fn {norm_fn!r} (instance/group/none)")
 
 
 class ResidualBlock(nn.Module):
@@ -82,7 +101,7 @@ class ResidualBlock(nn.Module):
     def __init__(self, in_planes: int, planes: int, norm_fn: str = "instance",
                  stride: int = 1):
         super().__init__()
-        self.norm = _norm(norm_fn)
+        self.norm = _norm(norm_fn, planes)
         self.conv1 = nn.Conv2d(in_planes, planes, 3, stride=stride, padding=1)
         self.conv2 = nn.Conv2d(planes, planes, 3, padding=1)
         self.downsample = None

@@ -23,6 +23,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from cermvs_torch.config import configurable
 from cermvs_torch.models.extractor import (BasicEncoder, compute_dtype,
@@ -53,18 +54,30 @@ class RAFT(nn.Module):
         ``dtype``: the compute dtype, a torch dtype or its name
         (``"float32"``, ``"bfloat16"``, as a gin binding gives it).
 
-        ``remat``, ``unroll_iters`` and ``encoder_chunk`` are the JAX
-        package's bindings of the same names, accepted so that its gin
-        files and flags drive this class, and they change nothing here:
-        they only choose how JAX traces the update loop (a scan or unrolled
-        steps) and what it keeps for the backward pass (recomputing the
-        encoders and iterations, scanning the feature encoder over chunks
-        of frames), that is memory and compile time, not the values. The
-        port runs the loop eagerly and keeps autograd's activations; a
-        counterpart that trades memory for recomputation is ROADMAP Queue 1
-        item 5."""
+        ``remat`` (the JAX package's default, True): wherever autograd
+        records, the context encoder, each chunk of the feature encoder and
+        each GRU iteration (the lookup and the update block) keep no
+        activations for the backward pass and are recomputed there
+        (``torch.utils.checkpoint``, non-reentrant). The volume pyramid and
+        the context's gate terms stay outside, as in the JAX package. The
+        values and gradients are those of ``remat=False``; only memory and
+        time change. No module here draws random numbers, so no RNG state
+        is kept, which also keeps the step capturable in a CUDA graph.
+
+        ``encoder_chunk``: frames per feature-encoder call; None: 8 in
+        training, and in test mode all frames, or one at a time above
+        ~2.1 Mpx (a batch's activations would dominate device memory), as
+        in the JAX package. The last chunk takes the frames left (the JAX
+        package pads it with zero frames; the instance norm is per frame,
+        so the features are the same).
+
+        ``unroll_iters`` chooses between a scan and unrolled steps in the
+        JAX package's trace; the loop here is a Python loop either way, so
+        it is accepted and changes nothing."""
         super().__init__()
-        del remat, unroll_iters, encoder_chunk
+        del unroll_iters
+        self.remat = remat
+        self.encoder_chunk = encoder_chunk
         self.cascade = tuple(tuple(s) for s in cascade)
         self.encoder_type = encoder_type
         self.dim_fmap = dim_fmap
@@ -106,13 +119,29 @@ class RAFT(nn.Module):
             return (2 * self.radius + 1) * 2 ** (self.num_levels - 1)
         return n
 
-    def _encode_frames(self, frames: torch.Tensor) -> torch.Tensor:
-        """All frames in one batch; frames above ~2.1 Mpx one at a time (the
-        batch's activations would dominate device memory)."""
-        H, W = frames.shape[1:3]
-        if H * W <= 2_100_000:
-            return self.fnet(frames)
-        return torch.cat([self.fnet(f[None]) for f in frames], 0)
+    @staticmethod
+    def _run(remat: bool, fn, *args):
+        """``fn(*args)``, recomputed in the backward pass where ``remat``."""
+        if remat:
+            return checkpoint(fn, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return fn(*args)
+
+    def _encode_frames(self, frames: torch.Tensor, remat: bool
+                       ) -> torch.Tensor:
+        """The feature encoder over frames (F, H, W, 3), ``encoder_chunk``
+        frames a call."""
+        total, H, W = frames.shape[:3]
+        if self.encoder_chunk:
+            chunk = self.encoder_chunk
+        elif not self.test_mode:
+            chunk = 8
+        else:
+            chunk = total if H * W <= 2_100_000 else 1
+        if chunk >= total:
+            return self._run(remat, self.fnet, frames)
+        return torch.cat([self._run(remat, self.fnet, frames[i:i + chunk])
+                          for i in range(0, total, chunk)], 0)
 
     def forward(self, images, poses, intrinsics, scale=None, volume_fn=None):
         """``volume_fn``: a volume construction for this call (default: the
@@ -134,13 +163,16 @@ class RAFT(nn.Module):
 
         ii = torch.zeros(V, dtype=torch.int64, device=dev)
         jj = torch.arange(1, N, dtype=torch.int64, device=dev)
+        remat = (self.remat and not self.test_mode
+                 and torch.is_grad_enabled())
 
         # the named ranges show up in torch.profiler traces
         with record_function("raft.encoders"):
-            net_inp = self.cnet(images[:, 0])
+            net_inp = self._run(remat, self.cnet, images[:, 0])
             net = torch.tanh(net_inp[..., :self.dim_net])
             inp = torch.relu(net_inp[..., self.dim_net:])
-            fmaps = self._encode_frames(images.reshape(B * N, H, W, 3))
+            fmaps = self._encode_frames(images.reshape(B * N, H, W, 3),
+                                        remat)
             fmaps = fmaps.reshape(B, N, h, w, -1).float()
 
         vol_fn = volume_fn or self.volume_fn or corr_ops.ExactVolume()
@@ -163,13 +195,17 @@ class RAFT(nn.Module):
                     materialize_pyramid=(self.lookup_impl != "pallas"))
             with record_function(f"raft.iterations_stage{stage}"):
                 g_ctx = self.update_block.gru_ctx(inp, stage)
-                for _ in range(n_iters):
-                    disp = disp.detach()
+
+                def body(net, disp, pyr=pyr, stage=stage, g_ctx=g_ctx):
                     zinv = disp[..., 0][:, None].expand(B, Vv, h, w)
                     corr_frames = corr_ops.lookup(pyr, zinv, self.radius,
                                                   impl=self.lookup_impl)
-                    net, delta = self.update_block(
-                        net, inp, disp, corr_frames, stage, gru_ctx=g_ctx)
+                    return self.update_block(net, inp, disp, corr_frames,
+                                             stage, gru_ctx=g_ctx)
+
+                for _ in range(n_iters):
+                    disp = disp.detach()
+                    net, delta = self._run(remat, body, net, disp)
                     disp = disp + delta
                     predictions.append(disp)
 

@@ -272,3 +272,18 @@ def build_corr_pyramid(vol_fn, ctx, disp, n_hyp, incre, shift: bool,
     levels = build_pyramid(corr, num_levels) if materialize_pyramid else [corr]
     return CorrPyramid(levels=levels, origin=origin, incre=incre, n_hyp=n_hyp,
                        num_levels=num_levels)
+
+
+def dense_corr(fmaps: torch.Tensor, ii, jj) -> torch.Tensor:
+    """All-pairs correlation, an oracle for tests and diagnostics (on no
+    path): every pixel of view ``ii[v]`` against every pixel of view
+    ``jj[v]``, both maps scaled by 1/8. fmaps (B, N, H, W, C) -> (B, V, H, W,
+    H, W)."""
+    ii = torch.as_tensor(ii, dtype=torch.int64, device=fmaps.device)
+    jj = torch.as_tensor(jj, dtype=torch.int64, device=fmaps.device)
+    f1 = fmaps.index_select(1, ii) / 8.0
+    f2 = fmaps.index_select(1, jj) / 8.0
+    B, V, H, W, C = f1.shape
+    corr = torch.einsum("bvpc,bvqc->bvpq", f1.reshape(B, V, H * W, C),
+                        f2.reshape(B, V, H * W, C))
+    return corr.reshape(B, V, H, W, H, W)

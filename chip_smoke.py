@@ -7,7 +7,12 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``.
 Phases (any failure raises, so the exit code is non-zero):
 
   1. build the kernels from ``cermvs_torch/csrc`` (``epiband.cu``,
-     ``hatwarp.cu``, ``lookup.cu``), one nvcc each, all at once;
+     ``hatwarp.cu``, ``lookup.cu``), one nvcc each, all at once, and beside
+     them the host data runtime (``dataio.cpp``, g++, ``io/native.py``);
+     hold this host's build of the runtime against its numpy version at the
+     DTU and BlendedMVS training crops (and its PFM codec against the
+     Python reader), and ``BasicEncoder(norm_fn="group")`` on the card
+     against the CPU;
   2. hold the epiband forward kernel against its plain PyTorch version on
      the card at the DTU slice's shapes (stage 0: D=64, base == 0; stage 1:
      D=44 with bases inside and outside the band and with the main path's
@@ -83,7 +88,9 @@ Phases (any failure raises, so the exit code is non-zero):
      device time at both stages; all beside the earlier designs'
      back-to-back times;
   9. train through ``train()`` with ``train_DTU.gin``'s bindings (rectified,
-     batch 2, nf10, crop 1056x1440) for twelve steps through the state's
+     batch 2, nf10, crop 1056x1440) and the JAX package's defaults that the
+     file leaves unbound (the host data runtime's crop, ``RAFT.remat``:
+     checked) for twelve steps through the state's
      StepRunner (a CUDA graph per batch shape and plan key: the first
      step eager, then its capture; a new plan's first step captured, then
      replayed; the others replayed): print each
@@ -97,9 +104,14 @@ Phases (any failure raises, so the exit code is non-zero):
      plan and upload of phase 8's batch; from one snapshot of the state,
      two eager steps and a replay on that batch (each restored in place),
      the replay held to the eager steps' spread in loss, grad_norm,
-     weights and AdamW moments;
+     weights and AdamW moments; then on that batch from one set of seeded
+     weights, ``RAFT.remat`` off, on and off again: an eager step each
+     (the loss with remat held to the two others' spread, the largest
+     gradient difference, peak allocated) and a fresh StepRunner's
+     capture and replays (s/step, peak reserved, graph pool);
  10. train twelve steps the same way with the fused lookup, check its
-     launches (16 forward and 16 backward a step) and hold a replay
+     launches (32 forward, 16 of them recomputed by remat, and 16
+     backward a step) and hold a replay
      against eager steps alike, and hold one step's loss from fixed
      weights on phase 8's batch against the banded lookup's;
  11. the demo's Tanks and Temples half: synthetic Ignatius (an orbit about
@@ -123,8 +135,12 @@ Phases (any failure raises, so the exit code is non-zero):
      sweep cameras and one forward-walk reference): each step's route,
      each key's first dispatch with the peaks after it, s/step, the
      launches; the walk's batch alone exact; a replay against eager steps;
-     the epiband forward and both gradients against their plain versions
-     at the widest plan the run took (fp32 and bf16, both stages).
+     one batch read part by part in one thread (JPEG decode, float32
+     cast, the PFM read native and in Python, ``np.median``, the scale and
+     crop native and through cv2; one sample's native crop four times in a
+     row and in four threads at once); the epiband forward and both
+     gradients against their plain versions at the widest plan the run
+     took (fp32 and bf16, both stages).
 
 Each phase from 6 on first prints the device memory the phases before it
 left (their runners' graph pools released).
@@ -154,6 +170,7 @@ import sys
 import tempfile
 import time
 import types
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -168,6 +185,7 @@ DTU_HW = (1200, 1600)      # DTU training images and depths
 TRAIN_STEPS = 11           # train.num_steps: 12 steps; the synthetic tree's
 PALLAS_STEPS = 11          # batches took 3-5 plan keys in 6-8 steps
 MIN_REPLAYS = 3            # replayed steps each training phase must take
+REMAT_REPLAYS = 3          # phase 9's replays with RAFT.remat on and off
 DEMO_VIEWS = 11            # imaged views of the synthetic DTU test scan
 SPHERE_R = 200.0           # its surface: a sphere about the origin (mm)
 TRUE_HW = (1152, 1600)     # true depth maps: the 1200x1600 images' crop
@@ -1022,6 +1040,7 @@ def train_through_graphs(torch, tree, label, name):
     seconds, s/step over the replayed steps, the launches and the peaks of
     allocated, reserved and graph-pool memory. Fails unless MIN_REPLAYS
     steps replayed. Returns the state and the figures."""
+    from cermvs_torch import config as pcfg
     from cermvs_torch.ops import cudalib
     from cermvs_torch.training.train import train
 
@@ -1063,6 +1082,14 @@ def train_through_graphs(torch, tree, label, name):
     peak = torch.cuda.max_memory_allocated()
     reserved = torch.cuda.max_memory_reserved()
     pool = graph_pool_bytes(torch, state.runner._pool)
+    bound = {k: v for k, v in pcfg.operative_config().get(
+        "random_scale_and_crop", {}).items() if k == "use_native"}
+    print(f"{label}: RAFT.remat {state.model.remat}, "
+          f"random_scale_and_crop.use_native bound {bound or 'no'} "
+          f"(the JAX package's defaults: remat, the native crop)",
+          flush=True)
+    if not state.model.remat or bound:
+        raise RuntimeError(f"{label}: not run with the defaults")
     keys = [{"key": str(plan_label(r["plan"])), "step": i + 1,
              "eager_s": r["eager_s"], "capture_s": r["capture_s"]}
             for i, r in enumerate(records) if r["first"]]
@@ -1093,7 +1120,9 @@ def train_launches(records, model, fused_lookup=False):
     hat passes per feature warp (2 per view) and per stage's volume
     back-warp, forward and transposed, on each two-pass one (a plan that
     is not two-pass warps by quad gathers, no kernel); with the fused
-    lookup, its taps and their gradient once per GRU iteration."""
+    lookup, its taps and their gradient once per GRU iteration, and under
+    ``RAFT.remat`` the taps once more per iteration, recomputed in the
+    backward pass."""
     B, V, S = 2, NUM_FRAMES, len(model.cascade)
     rect = sum(r["plan"] is not None for r in records)
     twopass = sum(r["plan"] is not None and r["plan"].twopass
@@ -1104,8 +1133,8 @@ def train_launches(records, model, fused_lookup=False):
             "epiband_bwd_dfs": rect * B * V * S,
             "hat_rows_fwd": twopass * B * V * (2 + S) * 2,
             "hat_rows_bwd": twopass * B * V * (2 + S) * 2,
-            "lookup_fused_fwd": taps, "lookup_fused_bwd": taps,
-            "lookup_fused_v2": 0}
+            "lookup_fused_fwd": taps * (1 + bool(model.remat)),
+            "lookup_fused_bwd": taps, "lookup_fused_v2": 0}
 
 
 def replay_against_eager(torch, state, batch, plan, label,
@@ -1274,6 +1303,75 @@ def phase_train(torch, tree, plan5, batch5):
             "plan_s": plan_s, "upload_s": upload_s, "busy_share": profile,
             **check,
             "plan": [list(p[:3]) + [list(p[3])] for p in sorted(plans)]}
+
+
+def remat_both_ways(torch, plan, batch5):
+    """Phase 8's batch, the same seeded weights, ``RAFT.remat`` off, on
+    and off again: each a fresh state's eager train step (its loss, the
+    weights' gradients and the peak allocated), then a fresh StepRunner's
+    first dispatch (eager, then the capture) and REMAT_REPLAYS replays
+    (s/step, peak reserved, the graph pool). The loss with remat must be
+    the remat-off steps' within their spread (bit for bit where they
+    agree); the gradients' largest difference is printed beside theirs."""
+    from cermvs_torch.models.raft import RAFT
+    from cermvs_torch.ops.corr_rectified import RectifiedVolume
+    from cermvs_torch.training.step import (StepRunner, batch_to_device,
+                                            init_state, train_step)
+
+    torch.backends.cudnn.allow_tf32 = True  # the bf16 model's own setting
+    batch = batch_to_device(batch5, "cuda")
+    runs = []
+    for remat in (False, True, False):
+        released(torch, f"phase 9, remat {remat}")
+        state = init_state(RAFT(remat=remat, device="cuda",
+                                generator=torch.Generator().manual_seed(7)),
+                           1000)
+        torch.cuda.reset_peak_memory_stats()
+        eager_s, m = synced_s(torch, lambda: train_step(
+            state, batch, 0.5, volume_fn=RectifiedVolume(plan)))
+        run = {"remat": remat, "loss": m["loss"],
+               "grad_norm": m["grad_norm"], "eager_s": eager_s,
+               "eager_peak_bytes": torch.cuda.max_memory_allocated(),
+               "grads": torch.cat([p.grad.detach().reshape(-1).float()
+                                   for p in state.model.parameters()])}
+        state.runner = StepRunner(state)
+        torch.cuda.reset_peak_memory_stats()
+        first_s, _ = synced_s(torch, lambda: state.runner(batch, 0.5, plan))
+        replay_s = [synced_s(torch, lambda: state.runner(batch, 0.5,
+                                                         plan))[0]
+                    for _ in range(REMAT_REPLAYS)]
+        run.update(first_s=first_s, replay_s=replay_s,
+                   peak_bytes=torch.cuda.max_memory_allocated(),
+                   peak_reserved_bytes=torch.cuda.max_memory_reserved(),
+                   graph_pool_bytes=graph_pool_bytes(torch,
+                                                     state.runner._pool))
+        print(f"phase 9: remat {remat}: eager step loss {run['loss']!r} "
+              f"grad_norm {run['grad_norm']!r} in {eager_s:.3f} s, peak "
+              f"{run['eager_peak_bytes'] / 2**30:.2f} GiB allocated; "
+              f"through a StepRunner: first dispatch {first_s:.3f} s, "
+              f"replays {[round(t, 4) for t in replay_s]} s/step, peak "
+              f"{run['peak_bytes'] / 2**30:.2f} GiB allocated, "
+              f"{run['peak_reserved_bytes'] / 2**30:.2f} GiB reserved, "
+              f"graph pool {run['graph_pool_bytes'] / 2**30:.2f} GiB",
+              flush=True)
+        runs.append(run)
+        del state
+    off, on, off2 = runs
+    spread = {"loss": abs(off["loss"] - off2["loss"]),
+              "grads": float((off["grads"] - off2["grads"]).abs().max())}
+    err = {"loss": min(abs(on["loss"] - r["loss"]) for r in (off, off2)),
+           "grads": min(float((on["grads"] - r["grads"]).abs().max())
+                        for r in (off, off2))}
+    print(f"phase 9: remat on against off: max|difference| {err}, off "
+          f"against off {spread} (the loss's limit); largest gradient "
+          f"{float(on['grads'].abs().max()):.4e}", flush=True)
+    if err["loss"] > spread["loss"]:
+        raise RuntimeError(f"remat changes the loss: {err} > {spread}")
+    for r in runs:
+        del r["grads"]
+    released(torch, "phase 9, remat compared")
+    return {"on": on, "off": [off, off2], "max_diff": err,
+            "off_spread": spread}
 
 
 def cuda_ms_cold(torch, fn, reps):
@@ -2835,6 +2933,7 @@ def phase_blended_train(torch, tree):
     print(f"phase 13: a batch loaded in one thread in "
           f"{[round(t, 3) for t in load_s]} s; replayed steps on a resident "
           f"batch {[round(t, 4) for t in replay_s]} s", flush=True)
+    loader_parts = time_blended_loader(tree, crop)
     del fresh, resident
     released(torch, "phase 13, kernels at the widest plan")
     errs, at = hold_epiband_at_plan(torch, widest, "phase 13")
@@ -2846,7 +2945,158 @@ def phase_blended_train(torch, tree):
             "graph_pool_bytes": run["graph_pool_bytes"], "steps": steps,
             "wall_s": run["wall_s"], "kernel_errs": errs, "widest_plan": at,
             "load_s_one_thread": load_s, "resident_replay_s": replay_s,
+            "loader_parts_s": loader_parts,
             "plans": [str(p) for p in sorted(plans, key=str)], **check}
+
+
+def time_blended_loader(tree, crop):
+    """One batch (two samples of NUM_FRAMES + 1 views) of the synthetic
+    BlendedMVS scene read part by part as ``Blended.__getitem__`` reads it,
+    in one thread, each part summed over the batch: the JPEG decode, the
+    float32 cast, the PFM read (the host data runtime's codec, which the
+    loader uses, and the Python reader), ``np.median`` over the valid
+    depths, and the scale and crop (the host data runtime's, which the
+    loader uses, and cv2's, at one scale); then one sample's native crop
+    four times in a row and in four threads at once, as the loader's
+    threads run it. Returns seconds by part."""
+    import cv2
+
+    from cermvs_torch.data.augment import _resize_stack
+    from cermvs_torch.data.blended import Blended
+    from cermvs_torch.io import native, pfm
+
+    ds = Blended(dataset_path=str(tree), num_frames=NUM_FRAMES)
+    parts = dict.fromkeys(("jpeg_decode", "float32_cast", "pfm_native",
+                           "pfm_python", "median", "crop_native",
+                           "crop_cv2", "crop_native_4_serial",
+                           "crop_native_4_threads"), 0.0)
+
+    def timed(part, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        parts[part] += time.perf_counter() - t0
+        return out
+
+    ch, cw = crop
+    for index in (0, 1):
+        scene, ref, neighbors = ds.index[index]
+        d = ds._scene_dir(scene)
+        images, depths = [], []
+        for i in [ref] + list(neighbors):
+            img = timed("jpeg_decode", lambda: cv2.imread(
+                str(d / "blended_images" / f"{i:08d}.jpg")))
+            images.append(timed("float32_cast",
+                                lambda: img.astype(np.float32)))
+            path = d / "rendered_depth_maps" / f"{i:08d}.pfm"
+            depth = timed("pfm_native", lambda: native.read_pfm(path))
+            if not np.array_equal(timed("pfm_python",
+                                        lambda: pfm.read_pfm(path)), depth):
+                raise RuntimeError(f"the PFM readers differ on {path}")
+            depths.append(depth)
+        images, depths = np.stack(images), np.stack(depths)
+        timed("median", lambda: np.median(depths[depths > 0]))
+        h, w = images.shape[1:3]
+        rh, rw = int(2.0 ** 0.2 * h), int(2.0 ** 0.2 * w)
+        y0, x0 = (rh - ch) // 2, (rw - cw) // 2
+        timed("crop_native", lambda: (
+            native.scale_and_crop(images, rh, rw, y0, x0, ch, cw, False),
+            native.scale_and_crop(depths, rh, rw, y0, x0, ch, cw, True)))
+        timed("crop_cv2", lambda: (
+            _resize_stack(images, rh, rw, cv2.INTER_LINEAR)[
+                :, y0:y0 + ch, x0:x0 + cw],
+            _resize_stack(depths, rh, rw, cv2.INTER_NEAREST)[
+                :, y0:y0 + ch, x0:x0 + cw]))
+    # the loader's four threads each crop a sample while the runtime
+    # splits each resize over up to eight threads of its own: the last
+    # sample's crop four times, one after another and four at once
+    crop_one = (lambda: native.scale_and_crop(images, rh, rw, y0, x0, ch,
+                                              cw, False))
+    timed("crop_native_4_serial", lambda: [crop_one() for _ in range(4)])
+    with ThreadPoolExecutor(4) as pool:
+        timed("crop_native_4_threads", lambda: [
+            f.result() for f in [pool.submit(crop_one) for _ in range(4)]])
+    print(f"phase 13: one batch ({2 * (NUM_FRAMES + 1)} frames of {BL_HW}) "
+          f"read part by part in one thread, s: "
+          f"{ {k: round(v, 4) for k, v in parts.items()} } (the loader "
+          f"reads PFMs and crops natively; pfm_python and crop_cv2 beside; "
+          f"crop_native_4_*: one sample's images four times)",
+          flush=True)
+    return parts
+
+
+def host_runtime(torch):
+    """Phase 1: this host's build of the host data runtime against its
+    numpy version at the training crops (DTU 1200x1600 -> 1056x1440,
+    BlendedMVS 1536x2048 -> 1376x1824, two frames each, scale 2^0.3):
+    bilinear images at ``native.bilinear_tolerance``, nearest depths bit
+    for bit; its PFM codec against the Python reader; each call's seconds.
+    Then ``BasicEncoder(norm_fn="group")`` (HR, fp32, TF32 off) on the
+    card against the CPU, rtol 1e-4 / atol 1e-4."""
+    from cermvs_torch.io import native, pfm
+    from cermvs_torch.models.extractor import BasicEncoder, init_conv_
+
+    rng = np.random.RandomState(5)
+    out = {}
+    for name, (h, w), (ch, cw) in (("dtu", DTU_HW, (1056, 1440)),
+                                   ("blended", BL_HW, (1376, 1824))):
+        images = (rng.rand(2, h, w, 3) * 255).astype(np.float32)
+        depths = (rng.rand(2, h, w) * 500 + 100).astype(np.float32)
+        rh, rw = int(2.0 ** 0.3 * h), int(2.0 ** 0.3 * w)
+        y0, x0 = (rh - ch) // 3, (rw - cw) // 2
+        args = (rh, rw, y0, x0, ch, cw)
+        t0 = time.perf_counter()
+        img = native.scale_and_crop(images, *args, False)
+        t1 = time.perf_counter()
+        dep = native.scale_and_crop(depths, *args, True)
+        t2 = time.perf_counter()
+        err = float(np.abs(img - native.scale_and_crop_reference(
+            images, *args, False)).max())
+        tol = native.bilinear_tolerance(images)
+        same = bool(np.array_equal(dep, native.scale_and_crop_reference(
+            depths, *args, True)))
+        with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+            f = Path(tmp) / "d.pfm"
+            pfm.write_pfm(f, depths[0])
+            t3 = time.perf_counter()
+            read = native.read_pfm(f)
+            t4 = time.perf_counter()
+            pfm_same = bool(np.array_equal(read, pfm.read_pfm(f)))
+        out[name] = {"bilinear_max_abs_err": err, "bilinear_tol": tol,
+                     "nearest_equal": same, "pfm_equal": pfm_same,
+                     "bilinear_s": t1 - t0, "nearest_s": t2 - t1,
+                     "pfm_read_s": t4 - t3}
+        print(f"phase 1: dataio {name}: 2 frames {(h, w)} -> {(rh, rw)} "
+              f"cropped to {(ch, cw)}: bilinear max|native-numpy| {err:.3e}"
+              f" (tolerance {tol:.3e}) in {t1 - t0:.3f} s, nearest equal "
+              f"{same} in {t2 - t1:.3f} s; PFM read equal {pfm_same} in "
+              f"{t4 - t3:.4f} s", flush=True)
+        if err > tol or not same or not pfm_same:
+            raise RuntimeError(f"the host data runtime disagrees with its "
+                               f"numpy version ({name})")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    enc = BasicEncoder(128, "group", "HR", torch.float32)
+    gen = torch.Generator().manual_seed(3)
+    for m in enc.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            init_conv_(m, gen)
+    x = torch.from_numpy(rng.randn(2, 384, 512, 3).astype(np.float32))
+    with torch.no_grad():
+        want = enc(x)
+        got = enc.cuda()(x.cuda()).cpu()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = (
+        tf32)
+    e = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, rtol=1e-4, atol=1e-4))
+    print(f"phase 1: BasicEncoder(norm_fn=\"group\") HR fp32 on the card "
+          f"against the CPU: {tuple(got.shape)}, max|card-cpu| {e:.3e} "
+          f"ok={ok}", flush=True)
+    if not ok:
+        raise RuntimeError("the group-norm encoder disagrees with the CPU")
+    out["group_encoder_max_abs_err"] = e
+    return out
 
 
 def mark(ends, phase):
@@ -2865,6 +3115,7 @@ def main():
         raise SystemExit("chip_smoke: run it from a checkout of the "
                          "repository (cermvs_torch/ not found)")
     sys.path.insert(0, str(REPO))
+    from cermvs_torch.io import native
     from cermvs_torch.models.raft import RAFT
     from cermvs_torch.ops import cudalib
     from cermvs_torch.ops import epiband as eb
@@ -2882,10 +3133,14 @@ def main():
 
     # ---- phase 1: build ------------------------------------------------
     t0 = time.perf_counter()
-    cudalib.build_all([eb.LIB, hw.LIB, lk.LIB], verbose=True)  # one nvcc each
+    with ThreadPoolExecutor(1) as pool:  # g++ beside the nvcc builds
+        host_build = pool.submit(native.build)
+        cudalib.build_all([eb.LIB, hw.LIB, lk.LIB], verbose=True)
+        host_build.result()
     build_s = time.perf_counter() - t0
-    print(f"phase 1: epiband.cu, hatwarp.cu and lookup.cu built in "
-          f"{build_s:.1f} s", flush=True)
+    print(f"phase 1: epiband.cu, hatwarp.cu and lookup.cu (nvcc) and "
+          f"dataio.cpp (g++) built in {build_s:.1f} s", flush=True)
+    host = host_runtime(torch)
     ends = {}
     mark(ends, "phase 1")
 
@@ -3068,6 +3323,7 @@ def main():
         mark(ends, "phase 8")
         released(torch, "phase 9")
         training = phase_train(torch, tree, train_plan, train_batch)
+        training["remat"] = remat_both_ways(torch, train_plan, train_batch)
         mark(ends, "phase 9")
         released(torch, "phase 10")
         fused_training = phase_train_pallas(torch, tree, train_plan,
@@ -3139,10 +3395,12 @@ def main():
         "train_graphs": {k: training[k] for k in (
             "keys", "peak_reserved_bytes", "graph_pool_bytes", "plan_s",
             "upload_s", "busy_share", "replay_vs_eager", "eager_vs_eager")},
+        "train_remat": training["remat"],
         "demo": demo, "true_fusion": true_fusion,
         "fused_lookup_training": {k: v for k, v in fused_training.items()
                                   if k != "launches"},
         "tnt_demo": tnt, "custom_demo": custom, "blended_training": blended,
+        "host_runtime": host,
         "build_s": build_s, "phase_end_s": ends, "card": smi,
         "total_s": time.perf_counter() - T_START}}), flush=True)
     print(json.dumps({"ok": True, "device": {

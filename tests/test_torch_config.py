@@ -1,19 +1,25 @@
 """The port's configuration surface against the JAX package's: the same gin
 names and ``-p`` bindings drive both. Every configurable of the port takes
-every parameter its JAX counterpart takes; the bindings that change only
-how JAX traces or what it keeps in memory are accepted and change nothing
-(the same outputs, bit for bit, on the CPU); the bindings the port cannot
-honour raise, naming their ROADMAP Queue 1 item. Held against the JAX
-package elsewhere: ``optimizer.clip_norm`` (test_torch_training.py,
+every parameter its JAX counterpart takes, with the same default (the JAX
+package's jnp dtypes as their torch dtypes); ``RAFT.unroll_iters``, which
+changes only how JAX traces, is accepted and changes nothing (the same
+outputs, bit for bit, on the CPU); ``RAFT.encoder_chunk`` gives JAX's
+forward; the bindings the port cannot honour raise, naming their ROADMAP
+Queue 1 item. Held against the JAX package elsewhere:
+``optimizer.clip_norm`` (test_torch_training.py,
 test_torch_train_step.py), ``UpdateBlock.share_*`` (test_torch_models.py),
-``random_scale_and_crop.use_native`` (test_torch_data.py).
+``random_scale_and_crop.use_native`` (test_torch_data.py,
+test_torch_native.py), ``RAFT.remat`` and ``RAFT.encoder_chunk`` in training
+(test_torch_remat.py).
 """
 
 import argparse
+import dataclasses
 import importlib
 import inspect
 import pkgutil
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -21,6 +27,7 @@ import torch
 import cermvs_torch
 import cermvs_tpu
 from cermvs_tpu import config as jcfg
+from cermvs_tpu.models.raft import RAFT as JRAFT
 from cermvs_tpu.pipeline.inference import InferenceRunner as JRunner
 from cermvs_tpu.utils.torch_import import convert_raft
 from cermvs_torch import config as pcfg
@@ -62,6 +69,31 @@ def _parameters(fn):
     return set(inspect.signature(inspect.unwrap(f)).parameters) - {"self"}
 
 
+def _defaults(fn):
+    """Each parameter's default (``inspect.Parameter.empty`` for none)."""
+    fields = getattr(fn, "__dataclass_fields__", None)
+    if fields is not None:  # a flax module
+        out = {}
+        for name, f in fields.items():
+            if name in FLAX_FIELDS:
+                continue
+            if f.default is not dataclasses.MISSING:
+                out[name] = f.default
+            elif f.default_factory is not dataclasses.MISSING:
+                out[name] = f.default_factory()
+            else:
+                out[name] = inspect.Parameter.empty
+        return out
+    f = fn.__init__ if inspect.isclass(fn) else fn
+    return {name: p.default for name, p in
+            inspect.signature(inspect.unwrap(f)).parameters.items()
+            if name != "self"}
+
+
+# the JAX package's dtype defaults, as the port spells them
+JAX_DTYPES = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
+
+
 def _configurables(config, pkg):
     """The configurables ``pkg``'s own modules register (tests and scripts
     register others under the same registry)."""
@@ -77,6 +109,18 @@ def test_port_configurables_take_every_jax_binding():
     missing = {name: sorted(_parameters(fn) - _parameters(port[name]))
                for name, fn in jax_side.items() if name in port}
     assert {k: v for k, v in missing.items() if v} == {}
+    differ, compared = {}, 0
+    for name, fn in jax_side.items():
+        mine = _defaults(port[name])
+        for param, want in _defaults(fn).items():
+            want = JAX_DTYPES.get(want, want)
+            got = mine[param]
+            compared += 1
+            if not (got is want or (type(got) is type(want)
+                                    and got == want)):
+                differ[f"{name}.{param}"] = (want, got)
+    assert differ == {}
+    assert compared > 100
 
 
 def _run(model):
@@ -93,15 +137,39 @@ def _forward(seed=0):
                      generator=torch.Generator().manual_seed(seed)))
 
 
-@pytest.mark.parametrize("flag", ["RAFT.remat = False",
-                                  "RAFT.unroll_iters = True",
-                                  "RAFT.encoder_chunk = 2"])
+@pytest.mark.parametrize("flag", ["RAFT.unroll_iters = True"])
 def test_raft_bindings_that_shape_jax_tracing_change_nothing(bindings, flag):
     want = _forward()
     bindings(flag)
     got = _forward()
     assert np.abs(want).max() > 0
     np.testing.assert_array_equal(got, want)
+
+
+def test_encoder_chunk_binding_matches_jax(bindings):
+    """``RAFT.encoder_chunk = 2`` bound in both packages: the test-mode
+    forward encodes two frames a call (the last one alone here; JAX pads
+    it with a zero frame) and gives JAX's disparities at test_torch_slice's
+    tolerance. Not bit for bit against the unbound forward: a convolution
+    over fewer frames sums in another order."""
+    model = RAFT(cascade=CASCADE, dtype=torch.float32, device="cpu",
+                 test_mode=True, generator=torch.Generator().manual_seed(0))
+    params = convert_raft({k: v.numpy().copy()
+                           for k, v in model.state_dict().items()})
+    images, poses, intr = _scene(H=32, W=96)
+    bindings("RAFT.encoder_chunk = 2")
+    jcfg.clear_config()
+    jcfg.parse_config(["RAFT.encoder_chunk = 2"])
+    try:
+        jmodel = JRAFT(cascade=CASCADE, dtype=jnp.float32, test_mode=True)
+    finally:
+        jcfg.clear_config()
+    assert jmodel.encoder_chunk == 2
+    want = np.asarray(jmodel.apply(params, *(jnp.asarray(a)[None]
+                                             for a in (images, poses, intr))))
+    got = _forward()
+    assert np.abs(want).max() > 0
+    np.testing.assert_allclose(got, want, **SLICE_TOL)
 
 
 def test_inference_device_prefetch_changes_nothing(bindings, tmp_path):

@@ -1,8 +1,10 @@
 """CUDA-only tests of the port: the epiband forward and backward kernels, the
 hat-resample kernels and the fused lookup kernels (forward, gradient,
 prefix-sum) against their plain PyTorch versions on the card,
-wrong inputs raising and leaving the card usable, and the small end-to-end
-agreement of the rectified (kernel) and exact constructions. They skip where
+wrong inputs raising and leaving the card usable, the small end-to-end
+agreement of the rectified (kernel) and exact constructions, the compiled
+train step (with ``RAFT.remat``: replay against eager, remat on against
+off) and the group-norm encoder against the CPU. They skip where
 ``torch.cuda.is_available()`` is false. This file imports nothing of JAX, so
 it also runs on a machine without it:
 
@@ -1370,12 +1372,12 @@ def deterministic():
     torch.backends.cudnn.deterministic = False
 
 
-def train_model(device, seed=0):
+def train_model(device, seed=0, **kw):
     from cermvs_torch.models.raft import RAFT
 
     return RAFT(dtype=torch.float32, device=device,
                 cascade=((8, 64, 2), (-1, 320, 2)),
-                generator=torch.Generator().manual_seed(seed))
+                generator=torch.Generator().manual_seed(seed), **kw)
 
 
 def train_batch(seed, forward=False):
@@ -1399,10 +1401,10 @@ def train_key(batch):
     return PlanCache().key_for(plan) if plan.ok else None
 
 
-def train_state(device, num_steps=10):
+def train_state(device, num_steps=10, **kw):
     from cermvs_torch.training.step import StepRunner, init_state
 
-    state = init_state(train_model(device), num_steps)
+    state = init_state(train_model(device, **kw), num_steps)
     state.runner = StepRunner(state)
     return state
 
@@ -1633,3 +1635,84 @@ def test_train_replays_count_the_launches_of_the_eager_step(cuda_device):
     assert set(counts[0]) == {"epiband_fwd", "epiband_bwd_dfr",
                               "epiband_bwd_dfs", "hat_rows_fwd",
                               "hat_rows_bwd"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lookup_impl", ["banded", "pallas"])
+def test_remat_train_replay_equals_eager(cuda_device, deterministic,
+                                         lookup_impl):
+    """A step with ``RAFT.remat`` (the encoders and each GRU iteration
+    recomputed in the backward pass, inside the capture) captured and
+    replayed gives the eager steps' values (to their spread); with the
+    fused lookup a step launches its taps twice per iteration (once
+    recomputed) and their gradient once, replayed or eager."""
+    from cermvs_torch.ops.corr_rectified import RectifiedVolume
+    from cermvs_torch.training.step import batch_to_device, train_step
+
+    state = train_state(cuda_device, remat=True, lookup_impl=lookup_impl)
+    batches = [train_batch(s) for s in (0, 2, 4)]
+    key = train_key(batches[0])
+    assert key is not None
+    steps = [(batch_to_device(b, cuda_device), gw, key)
+             for b, gw in zip(batches, (0.0, 0.5, 1.0))]
+    snap = snapshot(state)
+    replayed, counts = [], []
+    for b, gw, k in steps:
+        cudalib.reset_launches()
+        replayed.append(state.runner(b, gw, k))
+        counts.append({n: v for n, v in cudalib.launches.items() if v})
+    assert_within_spread(*replay_against_eager(state, snap, steps,
+                                               replayed))
+    cudalib.reset_launches()
+    train_step(state, steps[0][0], 0.5, volume_fn=RectifiedVolume(key))
+    counts.append({n: v for n, v in cudalib.launches.items() if v})
+    iters = sum(s[2] for s in state.model.cascade)
+    want = ({"lookup_fused_fwd": 2 * iters, "lookup_fused_bwd": iters}
+            if lookup_impl == "pallas" else {})
+    for c in counts:
+        assert {n: c.get(n, 0) for n in want} == want, c
+        assert c["epiband_fwd"] == c["epiband_bwd_dfs"] > 0
+
+
+@pytest.mark.cuda
+def test_remat_matches_no_remat_on_the_card(cuda_device, deterministic):
+    """One eager step from the same weights and batch with ``RAFT.remat``
+    on and off: the loss and every gradient equal, to the spread of two
+    steps with it off (bit for bit where they agree)."""
+    from cermvs_torch.ops.corr_rectified import RectifiedVolume
+    from cermvs_torch.training.step import (batch_to_device, init_state,
+                                            train_step)
+
+    b = train_batch(0)
+    key = train_key(b)
+    batch = batch_to_device(b, cuda_device)
+    runs = []
+    for remat in (False, True, False):
+        state = init_state(train_model(cuda_device, remat=remat), 10)
+        m = train_step(state, batch, 0.5, volume_fn=RectifiedVolume(key))
+        runs.append({"loss": torch.tensor(m["loss"]),
+                     "grads": torch.cat([p.grad.reshape(-1) for p in
+                                         state.model.parameters()])})
+    err = {k: min(max_diff(runs[1], r)[k] for r in (runs[0], runs[2]))
+           for k in runs[1]}
+    assert_within_spread(err, max_diff(runs[0], runs[2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("enc_type", ["HR", "LR"])
+def test_group_norm_encoder_matches_cpu(cuda_device, enc_type):
+    """``BasicEncoder(norm_fn="group")`` on the card against the CPU, fp32
+    with TF32 off, rtol 1e-4 / atol 1e-4."""
+    from cermvs_torch.models.extractor import BasicEncoder, init_conv_
+
+    enc = BasicEncoder(96, "group", enc_type, torch.float32)
+    gen = torch.Generator().manual_seed(4)
+    for m in enc.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            init_conv_(m, gen)
+    x = torch.from_numpy(np.random.RandomState(4).randn(2, 64, 96, 3)
+                         .astype(np.float32))
+    with torch.no_grad():
+        want = enc(x)
+        got = enc.to(cuda_device)(x.to(cuda_device)).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

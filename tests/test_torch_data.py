@@ -1,11 +1,10 @@
 """The port's data layer against the JAX package's on the CPU: camera and
-pair files, the loader's order and shuffle, ``random_scale_and_crop`` (the
-JAX cv2 path, ``use_native=False``, with the same RandomState), and DTU
-training and test samples on the synthetic tree of ``tests/test_data.py``.
-Both sides read the same files with cv2 and numpy, so samples compare
-exactly, except DTU training images: the JAX dataset resizes them with its
-native C++ resize where it is built (the port with cv2), which differs by
-float rounding (2.6e-4 on values up to 255): atol 1e-3 there.
+pair files, the loader's order and shuffle, ``random_scale_and_crop`` (both
+packages' defaults, the host data runtime's resize, and their cv2 path,
+``use_native=False``, with the same RandomState), and DTU training and test
+samples on the synthetic tree of ``tests/test_data.py``. Both sides read
+the same files and resize with the same arithmetic, so every sample
+compares exactly.
 """
 
 import numpy as np
@@ -85,43 +84,60 @@ def test_cams_and_pairs_roundtrip(tmp_path):
     assert backfill_neighbors(pairs, 3, 3) == [0, 1, 2]
 
 
-@pytest.mark.parametrize("seed", [0, 3])
-def test_random_scale_and_crop_matches_jax(rng, seed):
+def _crop_inputs(rng):
     images = (rng.rand(3, 60, 90, 3) * 255).astype(np.float32)
     depths = (rng.rand(3, 60, 90) * 5 + 1).astype(np.float32)
     K = np.tile(np.array([[50.0, 0, 45], [0, 50.0, 30], [0, 0, 1]],
                          np.float32), (3, 1, 1))
+    return images, depths, K
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_random_scale_and_crop_matches_jax(rng, seed):
+    """Both packages' defaults: the host data runtime's resize."""
+    images, depths, K = _crop_inputs(rng)
     a = random_scale_and_crop(images, depths, K, crop_size=(48, 64),
                               rng=np.random.RandomState(seed))
     b = j_crop(images, depths, K, crop_size=(48, 64),
-               rng=np.random.RandomState(seed), use_native=False)
+               rng=np.random.RandomState(seed))
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x, y)
     assert a[0].shape == (3, 48, 64, 3) and a[1].shape == (3, 48, 64)
 
 
-def test_native_resize_is_refused(rng):
-    """The JAX package's ``use_native=True`` resizes with its C++ runtime,
-    whose arrays are not cv2's (compared where that runtime builds), so the
-    port refuses the binding, naming its ROADMAP item, rather than give
-    cv2's arrays under it."""
-    from cermvs_tpu.io import native
+@pytest.mark.parametrize("seed", [0, 3])
+def test_random_scale_and_crop_cv2_path_matches_jax(rng, seed):
+    images, depths, K = _crop_inputs(rng)
+    a = random_scale_and_crop(images, depths, K, crop_size=(48, 64),
+                              rng=np.random.RandomState(seed),
+                              use_native=False)
+    b = j_crop(images, depths, K, crop_size=(48, 64),
+               rng=np.random.RandomState(seed), use_native=False)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
 
-    images = (rng.rand(3, 60, 90, 3) * 255).astype(np.float32)
-    depths = (rng.rand(3, 60, 90) * 5 + 1).astype(np.float32)
-    K = np.tile(np.eye(3, dtype=np.float32), (3, 1, 1))
-    if native.available():
-        a, b = (j_crop(images, depths, K, crop_size=(48, 64),
-                       rng=np.random.RandomState(0), use_native=flag)
-                for flag in (True, False))
-        assert not all(np.array_equal(x, y) for x, y in zip(a, b))
-    pcfg.clear_config()
-    pcfg.parse_config(["random_scale_and_crop.use_native = True"])
-    try:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            random_scale_and_crop(images, depths, K, crop_size=(48, 64))
-    finally:
+
+def test_native_resize_binding_matches_jax(rng):
+    """``random_scale_and_crop.use_native`` bound in the port's
+    configuration: True gives the JAX package's native arrays, False its
+    cv2 arrays, and the two differ (float rounding), so a default that
+    differed between the packages would crop other training batches."""
+    images, depths, K = _crop_inputs(rng)
+    out = {}
+    for flag in (True, False):
         pcfg.clear_config()
+        pcfg.parse_config([f"random_scale_and_crop.use_native = {flag}"])
+        try:
+            out[flag] = random_scale_and_crop(
+                images, depths, K, crop_size=(48, 64),
+                rng=np.random.RandomState(0))
+        finally:
+            pcfg.clear_config()
+        want = j_crop(images, depths, K, crop_size=(48, 64),
+                      rng=np.random.RandomState(0), use_native=flag)
+        for x, y in zip(out[flag], want):
+            np.testing.assert_array_equal(x, y)
+    assert not np.array_equal(out[True][0], out[False][0])
 
 
 def test_dtu_samples_match_jax(dtu_fixture):  # noqa: F811
@@ -136,9 +152,7 @@ def test_dtu_samples_match_jax(dtu_fixture):  # noqa: F811
             sp, sj = p[i], j[i]
             assert sp["images"].shape == (4, 24, 32, 3)
             for k in sj:
-                np.testing.assert_allclose(
-                    sp[k], sj[k], rtol=0, atol=1e-3 if k == "images" else 0,
-                    err_msg=k)
+                np.testing.assert_array_equal(sp[k], sj[k], err_msg=k)
     finally:
         jcfg.clear_config()
         pcfg.clear_config()

@@ -3,9 +3,9 @@ the CPU. Each test writes a small synthetic tree and reads the same files
 through both classes; every sample must be equal bit for bit (images,
 depths, poses, intrinsics, names, scale).
 
-BlendedMVS samples end in ``random_scale_and_crop``: the JAX side is bound
-to its cv2 path (``use_native = False``), the port's only one, since its
-native C++ resize gives other arrays (``tests/test_torch_data.py``).
+BlendedMVS samples end in ``random_scale_and_crop``: with
+``use_native`` unbound on both sides (the host data runtime's resize, both
+packages' default) and bound to False on both (cv2's).
 """
 
 import cv2
@@ -160,6 +160,15 @@ BL_HW = (40, 56)
 BL_CROP = "random_scale_and_crop.crop_size = [32, 48]"
 
 
+def _bind_blended(use_native):
+    """Both packages' bindings for a Blended run: the crop, and
+    ``use_native`` unbound (True, the default) or bound to False."""
+    flags = [BL_CROP] + ([] if use_native else
+                         ["random_scale_and_crop.use_native = False"])
+    pcfg.parse_config(flags)
+    jcfg.parse_config(flags)
+
+
 def _write_blended(root, seed=0):
     """Two scenes in two subsets, nested three deep. Scene 0's view 2 lists
     too few pairs for num_frames 3 and is skipped; the depths have zeros."""
@@ -185,11 +194,11 @@ def _write_blended(root, seed=0):
     return scenes
 
 
+@pytest.mark.parametrize("use_native", [True, False])
 @pytest.mark.parametrize("scaling", ["median", "aux"])
-def test_blended_samples_match_jax(tmp_path, configs, scaling):
+def test_blended_samples_match_jax(tmp_path, configs, scaling, use_native):
     _write_blended(tmp_path)
-    pcfg.parse_config([BL_CROP])
-    jcfg.parse_config([BL_CROP, "random_scale_and_crop.use_native = False"])
+    _bind_blended(use_native)
     kw = dict(dataset_path=str(tmp_path), num_frames=3, scaling=scaling,
               seed=4)
     p, j = Blended(**kw), JBlended(**kw)
@@ -229,10 +238,10 @@ def test_blended_median_and_aux_scale(tmp_path, configs):
         assert crop.max() <= 500 * scale * (1 + 1e-6)
 
 
-def test_blended_same_seed_gives_jax_crop(tmp_path, configs):
+@pytest.mark.parametrize("use_native", [True, False])
+def test_blended_same_seed_gives_jax_crop(tmp_path, configs, use_native):
     _write_blended(tmp_path)
-    pcfg.parse_config([BL_CROP])
-    jcfg.parse_config([BL_CROP, "random_scale_and_crop.use_native = False"])
+    _bind_blended(use_native)
     kw = dict(dataset_path=str(tmp_path), num_frames=3)
     for seed in (0, 11):
         p, j = Blended(seed=seed, **kw), JBlended(seed=seed, **kw)
@@ -243,10 +252,10 @@ def test_blended_same_seed_gives_jax_crop(tmp_path, configs):
     assert not np.array_equal(a, b)
 
 
-def test_blended_through_the_train_loader(tmp_path, configs):
+@pytest.mark.parametrize("use_native", [True, False])
+def test_blended_through_the_train_loader(tmp_path, configs, use_native):
     _write_blended(tmp_path)
-    pcfg.parse_config([BL_CROP])
-    jcfg.parse_config([BL_CROP, "random_scale_and_crop.use_native = False"])
+    _bind_blended(use_native)
     from cermvs_tpu.data import get_train_data_loader as j_loader
 
     kw = dict(datasetname="Blended", dataset_path=str(tmp_path),

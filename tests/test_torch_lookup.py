@@ -193,7 +193,9 @@ def test_raft_pallas_lookup_gradients_match_jax(interpret, monkeypatch):
     preds = port(tb["images"], tb["poses"], tb["intrinsics"])
     loss = sequence_loss(preds, disp_ground_truth(tb["depths"]), 0.5)[0]
     loss.backward()
-    assert seen == [1] * 4
+    # 4 iterations' lookups, each recomputed in the backward pass under
+    # RAFT.remat (the default): a level-0 slab every time
+    assert seen == [1] * 8
     np.testing.assert_allclose(float(loss.detach()), lj, rtol=1e-5)
     gnorm = np.sqrt(sum(float(np.sum(a ** 2)) for _, a in _leaves(gj)))
     errs = {}

@@ -168,8 +168,9 @@ def _write_blended_scene(root):
 
 def test_blended_train_step_matches_jax(tmp_path, configs):
     _write_blended_scene(tmp_path)
+    # both packages' defaults: the host data runtime's scale and crop
     pcfg.parse_config([BL_CROP])
-    jcfg.parse_config([BL_CROP, "random_scale_and_crop.use_native = False"])
+    jcfg.parse_config([BL_CROP])
     kw = dict(datasetname="Blended", dataset_path=str(tmp_path),
               batch_size=2, num_frames=2, num_workers=0, seed=1)
     batch = next(iter(pdata.get_train_data_loader(**kw)))

@@ -3,6 +3,9 @@ package's ``make_train_step`` on the CPU, through the exact and through the
 rectified construction (the JAX epiband kernels interpreted, the port's
 plain versions): the same batch, the same weights, the same AdamW.
 
+Both models recompute their encoders and iterations in the backward pass
+(``remat=True``, both packages' default).
+
 Batches: ``tests/test_training.py``'s ``_tiny_batch`` (exact) and
 ``tests/test_train_rectified.py``'s ``_batches`` (rectified), B = 2, 3
 views. The clip at a configured bound: ``optimizer.clip_norm`` bound in the
@@ -117,7 +120,7 @@ def test_train_step_matches_jax(construction, bound_clip):
              else _batches(1)[0])
     batch = {k: np.array(v) for k, v in batch.items()}
     port = RAFT(cascade=TINY, dtype=torch.float32, device="cpu",
-                generator=torch.Generator().manual_seed(0))
+                remat=True, generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
         for i in range(len(TINY)):
             getattr(port.update_block, f"delta{i}")[2].weight.mul_(1e-3)
@@ -133,7 +136,7 @@ def test_train_step_matches_jax(construction, bound_clip):
         kw["volume_fn"] = j_rect_fn(plan_j)
         volume_fn = RectifiedVolume(plan_p)
     tx, _ = j_fetch(num_steps=50, clip_norm=bound_clip)
-    jmodel = JRAFT(cascade=TINY, dtype=jnp.float32, **kw)
+    jmodel = JRAFT(cascade=TINY, dtype=jnp.float32, remat=True, **kw)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     gj = _jax_grads(jmodel, params, jbatch, 0.5)
     jstep = make_train_step(jmodel, tx, donate=False)
