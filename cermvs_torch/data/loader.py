@@ -106,7 +106,12 @@ class DataLoader:
     def _threaded_iter(self, batches: List[List[int]]) -> Iterator[Any]:
         """Workers take batch positions in order and park results until the
         consumer reaches them; at most ``prefetch`` results wait at once. A
-        worker's exception is raised in the consumer."""
+        worker's exception is raised in the consumer.
+
+        Closing the iterator (a ``break``, an exception) waits for the
+        workers to finish the batch each is loading: a worker left inside
+        cv2 or the native runtime when the interpreter exits aborts the
+        process (``terminate called without an active exception``)."""
         results: Dict[int, Any] = {}
         cond = threading.Condition()
         done = threading.Event()
@@ -154,4 +159,4 @@ class DataLoader:
             for _ in threads:
                 slots.release()  # unblock workers waiting for a slot
             for t in threads:
-                t.join(timeout=1.0)
+                t.join()

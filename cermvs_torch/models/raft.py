@@ -18,6 +18,7 @@ poses (B, N, 4, 4) world-to-camera, intrinsics (B, N, 3, 3).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -145,7 +146,23 @@ class RAFT(nn.Module):
 
     def forward(self, images, poses, intrinsics, scale=None, volume_fn=None):
         """``volume_fn``: a volume construction for this call (default: the
-        module's own, else the exact construction)."""
+        module's own, else the exact construction).
+
+        A construction that spans processes (``parallel.infer.
+        ViewShardedVolume``) may define ``local_frames(images, poses,
+        intrinsics)``, the reference and this rank's share of the
+        neighbours, which are all this rank encodes, and ``aggregate(
+        corr_frames, aggregation)``, the view aggregation of the looked-up
+        features across the ranks where the views' volumes stay apart."""
+        vol_fn = volume_fn or self.volume_fn or corr_ops.ExactVolume()
+        local_frames = getattr(vol_fn, "local_frames", None)
+        if local_frames is not None:
+            images, poses, intrinsics = local_frames(images, poses,
+                                                     intrinsics)
+        view_agg = (None if self.mean_volume
+                    else getattr(vol_fn, "aggregate", None))
+        aggregate = (None if view_agg is None else functools.partial(
+            view_agg, aggregation=self.aggregation))
         B, N, H, W, _ = images.shape
         factor = self.stride_factor
         h, w = H // factor, W // factor
@@ -175,7 +192,6 @@ class RAFT(nn.Module):
                                         remat)
             fmaps = fmaps.reshape(B, N, h, w, -1).float()
 
-        vol_fn = volume_fn or self.volume_fn or corr_ops.ExactVolume()
         with record_function("raft.volume_prepare"):
             vctx = vol_fn.prepare(fmaps, poses, intrinsics, ii, jj,
                                    self.dtype)
@@ -201,7 +217,8 @@ class RAFT(nn.Module):
                     corr_frames = corr_ops.lookup(pyr, zinv, self.radius,
                                                   impl=self.lookup_impl)
                     return self.update_block(net, inp, disp, corr_frames,
-                                             stage, gru_ctx=g_ctx)
+                                             stage, gru_ctx=g_ctx,
+                                             aggregate=aggregate)
 
                 for _ in range(n_iters):
                     disp = disp.detach()

@@ -163,12 +163,15 @@ class UpdateBlock(nn.Module):
             parts.append(corr_frames.std(dim=1, correction=0))
         return torch.cat(parts, dim=-1)
 
-    def forward(self, net, inp, disp, corr_frames, stage: int, gru_ctx=None):
+    def forward(self, net, inp, disp, corr_frames, stage: int, gru_ctx=None,
+                aggregate=None):
         """net/inp: (B, H, W, dim); disp: (B, H, W, 1) fp32; corr_frames:
-        (B, V, H, W, cor_planes) fp32. Returns (net, delta)."""
+        (B, V, H, W, cor_planes) fp32. ``aggregate``: the view aggregation
+        of ``corr_frames`` in place of :meth:`aggregate` (a view-sharded
+        forward aggregates across processes). Returns (net, delta)."""
         dt = self.dtype
         dctx = (100.0 * disp_context(disp, self.size_disp_enc)).to(dt)
-        corr = self.aggregate(corr_frames).to(dt)
+        corr = (aggregate or self.aggregate)(corr_frames).to(dt)
         corr = _apply_two_conv(self.stage_module("corr_encoder", stage), corr,
                                dt)
         if gru_ctx is None:

@@ -119,7 +119,8 @@ def _gather_corr_chunk(f_ref, f_quads, coords, H, W):
 def build_corr_volume_from(f_ref, f_src, Pij, origin, n_hyp: int,
                            incre: float, hyp_chunk: int = 16,
                            mean_over_views: bool = False,
-                           gather_dtype=None) -> torch.Tensor:
+                           gather_dtype=None,
+                           view_sum: bool = False) -> torch.Tensor:
     """Volume from per-pair features.
 
     f_ref/f_src: (B, V, H, W, C) already scaled by 1/8; Pij: (B, V, 4, 4);
@@ -127,7 +128,9 @@ def build_corr_volume_from(f_ref, f_src, Pij, origin, n_hyp: int,
     gathered transients stay at one view x ``hyp_chunk`` hypotheses, fewer
     where those would exceed GATHER_BUDGET_BYTES; with autograd recording,
     each chunk is recomputed in the backward pass.
-    Returns (B, V, H, W, D), or (B, 1, H, W, D) with ``mean_over_views``.
+    Returns (B, V, H, W, D), or (B, 1, H, W, D) with ``mean_over_views``:
+    the mean over the views, or their sum with ``view_sum`` (a view-sharded
+    rank's share, which the ranks sum before dividing).
     """
     B, V, H, W, C = f_ref.shape
     Hs, Ws = f_src.shape[2:4]
@@ -160,7 +163,7 @@ def build_corr_volume_from(f_ref, f_src, Pij, origin, n_hyp: int,
         vol = view_volume(0)
         for v in range(1, V):
             vol = vol + view_volume(v)
-        return (vol / V)[:, None]
+        return (vol if view_sum else vol / V)[:, None]
     return torch.stack([view_volume(v) for v in range(V)], dim=1)
 
 
@@ -175,11 +178,12 @@ class ExactVolume:
                 relative_projection(poses, intrinsics, ii, jj), feature_dtype)
 
     def build(self, ctx, origin, n_hyp, incre, hyp_chunk=16,
-              mean_over_views=False, zero_slab=False):
+              mean_over_views=False, zero_slab=False, view_sum=False):
         del zero_slab  # the gather construction gains nothing from it
         f_ref, f_src, Pij, gd = ctx
         return build_corr_volume_from(f_ref, f_src, Pij, origin, n_hyp, incre,
-                                      hyp_chunk, mean_over_views, gd)
+                                      hyp_chunk, mean_over_views, gd,
+                                      view_sum)
 
 
 def build_corr_volume(fmaps, poses, intrinsics, ii, jj, origin, n_hyp, incre,

@@ -85,8 +85,10 @@ def build_corr_volume_rectified(fmaps, poses, intrinsics, ii, jj, origin,
                                 n_hyp: int, incre: float, plan: RectPlan,
                                 mean_over_views: bool = False,
                                 gather_dtype=None, impl: str = "kernel",
-                                zero_slab: bool = False, rect_ctx=None):
-    """(1, 1, h, w, D) when ``mean_over_views`` else (1, V, h, w, D), fp32.
+                                zero_slab: bool = False, rect_ctx=None,
+                                view_sum: bool = False):
+    """(1, 1, h, w, D) when ``mean_over_views`` else (1, V, h, w, D), fp32;
+    with ``view_sum`` the sum over the views in place of their mean.
 
     ``impl="kernel"``: the epiband wrapper (the CUDA kernel on CUDA tensors,
     its plain version on CPU tensors); ``impl="oracle"``: the plain version.
@@ -137,14 +139,15 @@ def build_corr_volume_rectified(fmaps, poses, intrinsics, ii, jj, origin,
         vol = one_view(0)
         for v in range(1, V):
             vol = vol + one_view(v)
-        return (vol / V)[None, None]
+        return (vol if view_sum else vol / V)[None, None]
     return torch.stack([one_view(v) for v in range(V)])[None]
 
 
 def build_corr_volume_rectified_batched(
         fmaps, poses, intrinsics, ii, jj, origin, n_hyp: int, incre: float,
         plan: RectPlan, mean_over_views: bool = False, gather_dtype=None,
-        impl: str = "kernel", zero_slab: bool = False, rect_ctxs=None):
+        impl: str = "kernel", zero_slab: bool = False, rect_ctxs=None,
+        view_sum: bool = False):
     """Batch-B construction: the B == 1 builder per sample, concatenated
     (B == 1 returns its volume as it is). ``plan`` must cover every sample
     (``rectify.plan_union`` of the samples' plans); ``rect_ctxs`` holds one
@@ -154,7 +157,8 @@ def build_corr_volume_rectified_batched(
         fmaps[b:b + 1], poses[b:b + 1], intrinsics[b:b + 1], ii, jj,
         origin[b:b + 1], n_hyp, incre, plan, mean_over_views=mean_over_views,
         gather_dtype=gather_dtype, impl=impl, zero_slab=zero_slab,
-        rect_ctx=rect_ctxs[b] if rect_ctxs else None) for b in range(B)]
+        rect_ctx=rect_ctxs[b] if rect_ctxs else None, view_sum=view_sum)
+        for b in range(B)]
     return vols[0] if B == 1 else torch.cat(vols, 0)
 
 
@@ -178,13 +182,14 @@ class RectifiedVolume:
         return (fmaps, poses, intrinsics, ii, jj, feature_dtype, ctxs)
 
     def build(self, ctx, origin, n_hyp, incre, hyp_chunk=16,
-              mean_over_views=False, zero_slab=False):
+              mean_over_views=False, zero_slab=False, view_sum=False):
         del hyp_chunk  # memory is bounded by the per-view loop
         fmaps, poses, intrinsics, ii, jj, fd, ctxs = ctx
         return build_corr_volume_rectified_batched(
             fmaps, poses, intrinsics, ii, jj, origin, n_hyp, incre,
             self.plan, mean_over_views=mean_over_views, gather_dtype=fd,
-            impl=self.impl, zero_slab=zero_slab, rect_ctxs=ctxs)
+            impl=self.impl, zero_slab=zero_slab, rect_ctxs=ctxs,
+            view_sum=view_sum)
 
 
 def make_rectified_volume_fn(plan: RectPlan, impl: str = "kernel"):
@@ -199,8 +204,9 @@ class MixedVolume:
     ``plan`` and ``rect_views`` come from
     :func:`rectify.plan_rectification_partial` (the plan's per-view entries
     follow ``rect_views``). With ``mean_over_views`` the two means combine
-    as ``(vol_r * |rect| + vol_e * |exact|) / V``; otherwise the per-view
-    volumes come back in the original jj order."""
+    as ``(vol_r * |rect| + vol_e * |exact|) / V`` (the numerator alone with
+    ``view_sum``); otherwise the per-view volumes come back in the original
+    jj order."""
 
     def __init__(self, plan: RectPlan, rect_views, impl: str = "kernel"):
         self.rect_views = tuple(int(v) for v in rect_views)
@@ -233,7 +239,7 @@ class MixedVolume:
         return ctx_r, ctx_e, ev
 
     def build(self, ctx, origin, n_hyp, incre, hyp_chunk=16,
-              mean_over_views=False, zero_slab=False):
+              mean_over_views=False, zero_slab=False, view_sum=False):
         ctx_r, ctx_e, ev = ctx
         rv = self.rect_views
         vol_r = self.rect.build(ctx_r, origin, n_hyp, incre, hyp_chunk,
@@ -242,7 +248,8 @@ class MixedVolume:
                                  mean_over_views)
         V = len(rv) + len(ev)
         if mean_over_views:
-            return (vol_r * len(rv) + vol_e * len(ev)) / V
+            vol = vol_r * len(rv) + vol_e * len(ev)
+            return vol if view_sum else vol / V
         parts = [None] * V
         for k, v in enumerate(rv):
             parts[v] = vol_r[:, k]

@@ -30,6 +30,7 @@ Two halves:
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Tuple
@@ -414,6 +415,51 @@ class PlanCache:
 
     def __len__(self) -> int:
         return len(self._plans)
+
+
+def pack_plan(plan: RectPlan, n_views: int) -> np.ndarray:
+    """A plan as a flat float64 vector, for the exchange between processes:
+    each data-parallel rank plans its local batch, the ranks all-gather the
+    packed plans and each takes the same :func:`plan_union`, so that every
+    rank steps the same construction. ``n_views``: the neighbours (len(jj));
+    a plan without per-view entries packs its scene-wide values for each.
+    The same layout as the JAX package's, so either package unpacks the
+    other's vectors. Inverse: :func:`unpack_plan`."""
+    head = [float(plan.ok), plan.h_r, plan.w_r, plan.s_max, plan.s_neg,
+            plan.rate_lo, plan.rate_hi, float(plan.twopass)]
+    if plan.ok and plan.view_rates:
+        pv = [x for v in range(n_views)
+              for x in (*plan.view_rates[v], plan.view_s_max[v])]
+    else:
+        pv = [plan.rate_lo, plan.rate_hi, plan.s_max] * n_views
+    return np.asarray(head + pv, np.float64)
+
+
+def unpack_plan(vec: np.ndarray, n_views: int) -> RectPlan:
+    """Inverse of :func:`pack_plan` (the ``reason`` is not carried)."""
+    vec = np.asarray(vec, np.float64)
+    if vec[0] == 0.0:
+        return RectPlan(0, 0, 0, 0, False, "remote plan not ok")
+    pv = vec[8:].reshape(n_views, 3)
+    return RectPlan(
+        int(vec[1]), int(vec[2]), int(vec[3]), int(vec[4]), True, "",
+        rate_lo=float(vec[5]), rate_hi=float(vec[6]),
+        view_rates=tuple((float(a), float(b)) for a, b, _ in pv),
+        view_s_max=tuple(int(s) for _, _, s in pv),
+        twopass=bool(vec[7]))
+
+
+def subplan(plan: RectPlan, views) -> RectPlan:
+    """The plan of a subset of its neighbours: the per-view entries of
+    ``views`` (positions in the plan's own view order), in that order, and
+    the scene-wide grids, bands and rates as they are. A view-sharded rank
+    builds its share of the views with it, each view in its own window."""
+    if not plan.view_rates:
+        return plan
+    views = [int(v) for v in views]
+    return dataclasses.replace(
+        plan, view_rates=tuple(plan.view_rates[v] for v in views),
+        view_s_max=tuple(plan.view_s_max[v] for v in views))
 
 
 def host_rect_homographies(poses, intrinsics, h: int, w: int, h_r: int,

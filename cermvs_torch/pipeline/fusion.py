@@ -1,5 +1,5 @@
 """Point-cloud fusion with an adaptive geometric-consistency threshold, on
-one device.
+one device or over the ranks of a process group.
 
 For every reference view and each of its sources, the reference depth is
 projected into the source, the source depth is sampled there, and the
@@ -24,11 +24,20 @@ With ``stream=True`` (or when the depth stack exceeds
 (reference, sources) maps are uploaded, so device memory is O(view_batch x
 sources x H x W). ``view_batch=0`` runs one reference view at a time.
 
+Several processes (``mesh``, or ``multihost`` under an initialised
+process group of several ranks): the reference views of each group are
+dealt round robin over the ranks, and in every step of the bisection the
+ranks all-gather ``[sum of kept shares, count]`` so that every rank takes
+the same global threshold; each rank writes ``result.part{rank}.ply``, and
+after a barrier rank 0 merges the parts into ``result.ply``; an exit
+barrier follows, so every rank may read it. ``fusion(mesh=)`` means the
+ranks of that mesh: the port runs one process per device, so this is the
+JAX package's ref-view batch sharded over a mesh in PyTorch's form.
+
 The host side (reading and resizing the depth maps, aligning the images,
 emitting points) is the JAX package's numpy and cv2 code, so both write the
 same files from the same maps; the device side is torch ops in fp32 in the
-same order. Sharding over a mesh and several processes is ROADMAP Queue 1
-item 6.
+same order.
 """
 
 from __future__ import annotations
@@ -44,10 +53,9 @@ import torch
 
 from cermvs_torch.config import configurable
 from cermvs_torch.io.pfm import read_pfm
-from cermvs_torch.io.ply import write_ply
+from cermvs_torch.io.ply import read_ply, write_ply
 from cermvs_torch.ops.sampling import bilinear_sample
-
-NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 6)"
+from cermvs_torch.parallel import mesh as pmesh
 
 
 def _hom(xyz):
@@ -146,11 +154,15 @@ def align_image_to_depth(ref_img, depth, rescale, intrinsics, extrinsics):
     return img, intrinsics, extrinsics
 
 
-def _process_count(multihost: bool) -> int:
-    if not (multihost and torch.distributed.is_available()
-            and torch.distributed.is_initialized()):
-        return 1
-    return torch.distributed.get_world_size()
+def _fusion_group(mesh, multihost: bool):
+    """The process group fusion shares its views over (None: alone): the
+    ranks of ``mesh``, else with ``multihost`` every rank of an initialised
+    group of several."""
+    if mesh is not None:
+        return pmesh.mesh_group(mesh)
+    if multihost and pmesh.world_size(pmesh.world()) > 1:
+        return pmesh.world()
+    return None
 
 
 @configurable("fusion")
@@ -163,14 +175,14 @@ def fusion(data_loader, output_folder, suffix="", glb: float = 0.25,
     ``{output_folder}/depths/{ref}{suffix}.pfm`` of every view of
     ``data_loader`` into ``{output_folder}/result.ply`` (returned), with
     mask PNGs under ``mask/``. ``view_batch > 0`` runs that many reference
-    views per batch; ``mesh`` and several processes raise
-    ``NotImplementedError`` (one process with ``multihost=True`` is the
-    normal case)."""
-    if mesh is not None:
-        raise NotImplementedError(f"fusion over a mesh is {NOT_PORTED}")
-    if _process_count(multihost) > 1:
-        raise NotImplementedError(f"multi-process fusion is {NOT_PORTED}")
-    dev = torch.device(device)
+    views per batch. ``mesh`` (a ``(data, view)`` DeviceMesh) or
+    ``multihost`` with several ranks: the views are shared by the ranks
+    (module docstring); every rank reads every depth map and returns the
+    path of the merged cloud. A mesh of another kind raises
+    ``NotImplementedError``."""
+    group = _fusion_group(mesh, multihost)
+    pc, pid = pmesh.world_size(group), pmesh.rank(group)
+    dev = pmesh.local_device(device)
     output_folder = Path(output_folder)
 
     all_images: List[np.ndarray] = []
@@ -238,6 +250,11 @@ def fusion(data_loader, output_folder, suffix="", glb: float = 0.25,
         srcs = [refid_to_index[x] for x in srcids]
         assert srcs, "reference view needs at least one source"
         groups.setdefault(len(srcs), []).append((ref, srcs))
+    if pc > 1:
+        # each group's reference views dealt round robin over the ranks;
+        # the threshold search stays global (below)
+        groups = {k: v[pid::pc] for k, v in groups.items()}
+        groups = {k: v for k, v in groups.items() if v}
 
     def emit_points(ref, geo_mask, fused_depth):
         os.makedirs(output_folder / "mask", exist_ok=True)
@@ -280,7 +297,15 @@ def fusion(data_loader, output_folder, suffix="", glb: float = 0.25,
                     for k, (ref, _) in enumerate(chunk):
                         emit_points(ref, gm[k], fd[k])
 
-        mean_mask = float(np.mean(mask_ratios))
+        if pc > 1:
+            # the mean over every rank's views: each rank updates the same
+            # threshold
+            v = pmesh.process_allgather(np.asarray(
+                [float(np.sum(mask_ratios)), float(len(mask_ratios))],
+                np.float64), group)
+            mean_mask = float(v[:, 0].sum() / max(v[:, 1].sum(), 1.0))
+        else:
+            mean_mask = float(np.mean(mask_ratios))
         print(f"iter {it}: thre={10 ** thre:.5f} mean_mask={mean_mask:.4f}")
         if mean_mask >= glb:
             thre_left = thre
@@ -292,6 +317,17 @@ def fusion(data_loader, output_folder, suffix="", glb: float = 0.25,
     rgb = (np.concatenate(vertex_colors, axis=0) if vertex_colors
            else np.zeros((0, 3), np.uint8))
     out = output_folder / "result.ply"
+    if pc > 1:
+        write_ply(output_folder / f"result.part{pid}.ply", xyz, rgb)
+        pmesh.barrier(group)  # every part is written before the merge
+        if pid == 0:
+            parts = [read_ply(output_folder / f"result.part{q}.ply")
+                     for q in range(pc)]
+            write_ply(out, np.concatenate([a for a, _ in parts]),
+                      np.concatenate([b for _, b in parts]))
+            print("saving the final model to", out)
+        pmesh.barrier(group)  # callers on every rank may read result.ply
+        return out
     write_ply(out, xyz, rgb)
     print("saving the final model to", out)
     return out

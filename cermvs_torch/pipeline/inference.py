@@ -1,4 +1,5 @@
-"""Depth-map inference on one device.
+"""Depth-map inference on one device, or with the neighbour views sharded
+over the ranks of a mesh's ``view`` axis (``mesh=``, ``parallel/infer.py``).
 
 ``InferenceRunner`` owns the model and picks the cost-volume construction
 per batch; ``inference()`` runs every reference view of a loader as a
@@ -21,6 +22,9 @@ The forward of each ``(shape, dtype, construction key)`` is the JAX
 package's compiled program's counterpart: on a CUDA runner the key's first
 dispatch runs eagerly and then captures the same forward in a CUDA graph,
 which every later dispatch of the key replays (:meth:`InferenceRunner._fn`).
+Under a view mesh the same keys route through ``ViewShardedVolume``: a
+graph holds its NCCL ``all_reduce`` calls, and under gloo, whose
+collectives cannot be captured, every forward runs eagerly.
 
 The pipeline: a thread prepares items two ahead (scale, crop, pad, the bf16
 cast) and, with ``device_prefetch`` on a CUDA runner, casts into pinned
@@ -54,6 +58,9 @@ from cermvs_torch.ops.rectify import (PlanCache, RectPlan,
                                       plan_rectification,
                                       plan_rectification_partial, plan_union,
                                       rect_cost_ratio)
+from cermvs_torch.parallel.infer import ViewShardedVolume
+from cermvs_torch.parallel.mesh import (collectives_capturable, rank,
+                                        view_group, world, world_size)
 
 
 def _prefetched(iterable, fn, depth: int = 2):
@@ -62,8 +69,10 @@ def _prefetched(iterable, fn, depth: int = 2):
 
     Cancellation-safe: when the consumer abandons the generator (a break,
     or an exception downstream closes it), the worker sees the stop event at
-    its next bounded put and exits instead of blocking on a full queue. An
-    exception in the worker is raised in the consumer."""
+    its next bounded put and exits instead of blocking on a full queue, and
+    the close waits for it (a thread left in native code at interpreter
+    exit aborts the process). An exception in the worker is raised in the
+    consumer."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     end = object()
     stop = threading.Event()
@@ -87,8 +96,9 @@ def _prefetched(iterable, fn, depth: int = 2):
                 return
         put(end)
 
-    threading.Thread(target=worker, name="inference-prep",
-                     daemon=True).start()
+    thread = threading.Thread(target=worker, name="inference-prep",
+                              daemon=True)
+    thread.start()
     try:
         while True:
             item = q.get()
@@ -99,6 +109,7 @@ def _prefetched(iterable, fn, depth: int = 2):
             yield item
     finally:
         stop.set()
+        thread.join()
 
 
 def to_bf16(images, pin: bool = False) -> torch.Tensor:
@@ -184,6 +195,15 @@ class InferenceRunner:
     ``utils.weights``) reaches it; it keeps everything else as it was at
     capture (the model's attributes, such as ``lookup_impl``, and the
     ``torch.backends`` flags): change those on a new runner.
+
+    ``mesh``: a ``(data, view)`` DeviceMesh (``parallel.make_mesh``): each
+    forward runs view-sharded over the ranks of its ``view`` axis, every
+    rank with the same inputs and the same disparities out. Routing is the
+    one without a mesh, with the warped features' memory shared by the view
+    ranks (the JAX package's ``mem_shards``); a batch of several views runs
+    exact. Under gloo the forwards run eagerly (:attr:`graphs` False,
+    :attr:`eager_reason` says why). A mesh of another kind (a ``row``
+    axis) raises ``NotImplementedError``.
     """
 
     def __init__(self, model: Optional[RAFT] = None, params=None,
@@ -199,13 +219,10 @@ class InferenceRunner:
         exact. ``max_k_chunks`` is the JAX package's cap on its epiband
         kernel's hypothesis chunks, one of its Mosaic VMEM gates; it is
         accepted so that both packages take the same arguments, and changes
-        nothing: the port's kernel takes any window (ROADMAP North star).
-        ``mesh`` (views sharded over devices) is not ported: anything but
-        None raises."""
+        nothing: the port's kernel takes any window (ROADMAP North star)."""
         del max_k_chunks
-        if mesh is not None:
-            raise NotImplementedError("inference over a device mesh is not "
-                                      "ported yet (ROADMAP Queue 1 item 6)")
+        self.view_group = view_group(mesh) if mesh is not None else None
+        self.view_shards = world_size(self.view_group)
         if construction not in ("auto", "exact", "rectified"):
             raise ValueError(f"unknown construction {construction!r}")
         self.device = torch.device(device)
@@ -239,6 +256,11 @@ class InferenceRunner:
         self.last_capture_s = 0.0
         self._static_inputs: Dict[tuple, tuple] = {}
         cuda = self.device.type == "cuda"
+        self.graphs = cuda and collectives_capturable(self.view_group)
+        self.eager_reason = (
+            None if self.graphs else "a CPU runner" if not cuda else
+            f"{torch.distributed.get_backend(self.view_group)} collectives "
+            f"cannot be captured in a CUDA graph")
         # the stream inference()'s prep thread uploads frames on
         self.upload_stream = torch.cuda.Stream(self.device) if cuda else None
         # the graphs capture on a stream of their own and share one memory
@@ -262,8 +284,10 @@ class InferenceRunner:
         return poses, intr, img_shape[0] // f, img_shape[1] // f
 
     def _rect_bytes(self, plan: RectPlan, n_views: int, batch: int = 1):
+        """The warped features' bytes on each card: a view rank holds its
+        share of the views."""
         return (2 * batch * n_views * plan.h_r * (plan.w_r + plan.ws_r)
-                * self.model.dim_fmap)
+                * self.model.dim_fmap) // self.view_shards
 
     def plan_for(self, poses, intrinsics, scale, img_shape) -> RectPlan:
         """Host-side rectification plan on the scaled, feature-stride
@@ -324,10 +348,24 @@ class InferenceRunner:
             [[0], 1 + np.argsort(np.linalg.norm(centers, axis=-1),
                                  kind="stable")])
 
-    def _volume(self, key, make):
-        if key not in self._volumes:
-            self._volumes[key] = make()
-        return self._volumes[key]
+    def _volume(self, key, n_views: int):
+        """The construction of a key, made once: None for the model's exact
+        one, a RectPlan's rectified one, a ``(plan, rect_views)`` mixed one;
+        under a view mesh this rank's ``ViewShardedVolume`` of it."""
+        if self.view_group is None and key is None:
+            return None
+        vkey = (key, n_views) if self.view_group is not None else key
+        if vkey not in self._volumes:
+            plan, rect_views = (key if isinstance(key, tuple)
+                                else (key, None))
+            if self.view_group is not None:
+                self._volumes[vkey] = ViewShardedVolume(
+                    n_views, self.view_group, plan, rect_views)
+            elif rect_views is None:
+                self._volumes[vkey] = make_rectified_volume_fn(plan)
+            else:
+                self._volumes[vkey] = make_mixed_volume_fn(plan, rect_views)
+        return self._volumes[vkey]
 
     def _route_one(self, poses, intrinsics, scale, img_shape):
         """One reference view: (construction key or None, route). The key
@@ -335,15 +373,12 @@ class InferenceRunner:
         rect_views)``."""
         plan = self.plan_for(poses, intrinsics, scale, img_shape)
         if plan.ok:
-            self._volume(plan, lambda: make_rectified_volume_fn(plan))
             return plan, "rectified"
         pplan, rect_views = self.mixed_plan(poses, intrinsics, scale,
                                             img_shape)
         if pplan is None:
             return None, "exact"
-        key = (pplan, rect_views)
-        self._volume(key, lambda: make_mixed_volume_fn(pplan, rect_views))
-        return key, "mixed"
+        return (pplan, rect_views), "mixed"
 
     def _route_batch(self, images, poses, intrinsics, scales):
         """A batch under "rectified": each sample's neighbours in baseline
@@ -366,9 +401,7 @@ class InferenceRunner:
                 or (self._rect_bytes(plan, poses.shape[1] - 1, B)
                     > self.rect_memory_budget)):
             return None, images, poses, intrinsics
-        plan = self._plan_cache.key_for(plan)
-        self._volume(plan, lambda: make_rectified_volume_fn(plan))
-        return plan, images, poses, intrinsics
+        return self._plan_cache.key_for(plan), images, poses, intrinsics
 
     def upload(self, frames: torch.Tensor) -> Upload:
         """Copy frames from pinned host memory to the device on the runner's
@@ -414,7 +447,7 @@ class InferenceRunner:
             with torch.no_grad():
                 return self.model(*args, volume_fn=volume_fn)
 
-        if self.device.type != "cuda":
+        if not self.graphs:
             self._cache[cache_key] = eager
             return eager
 
@@ -469,7 +502,8 @@ class InferenceRunner:
         elif not torch.is_tensor(images):
             images = to_bf16(images)
         key, path = None, "exact"
-        if self.construction == "rectified" and images.shape[0] > 1:
+        if (self.construction == "rectified" and images.shape[0] > 1
+                and self.view_group is None):
             if not self._warned_batched_rect:
                 warnings.warn(
                     "construction='rectified' with view_batch > 1 unions the "
@@ -494,7 +528,7 @@ class InferenceRunner:
         return Routed(images.to(dev), torch.from_numpy(poses).to(dev),
                       torch.from_numpy(intrinsics).to(dev),
                       torch.tensor(scales, dtype=torch.float32, device=dev),
-                      None if key is None else self._volumes[key], key, path)
+                      self._volume(key, poses.shape[1] - 1), key, path)
 
     def submit_batch(self, images, poses, intrinsics, scales) -> torch.Tensor:
         """A batch of B reference views with their neighbours -> disparities
@@ -505,7 +539,7 @@ class InferenceRunner:
         bf16, as the encoders compute in bf16 regardless. Routing follows
         the JAX package: one view goes through :meth:`plan_for` and
         :meth:`mixed_plan` unless the construction is "exact"; a batch runs
-        exact unless the construction is "rectified"."""
+        exact unless the construction is "rectified" (and no view mesh)."""
         r = self.route(images, poses, intrinsics, scales)
         self.last_path = r.path
         return self.forward(r)
@@ -576,8 +610,10 @@ def inference(test_loader, ckpt=None, output_folder="results",
     (with ``view_batch <= 1``, on a CUDA runner): the prep thread casts the
     frames into pinned memory and uploads them on the runner's upload
     stream, so the copy overlaps the previous forward; otherwise the
-    forward's dispatch uploads them. ``mesh`` (views sharded over several
-    devices) is not ported: anything but None raises.
+    forward's dispatch uploads them. ``mesh``: a ``(data, view)``
+    DeviceMesh: every rank of its view axis reads every item and computes
+    the same disparities, each forward view-sharded (``InferenceRunner``),
+    with no pinned side-stream upload; rank 0 writes the files.
 
     Returns one ``(name, seconds, construction, capture_s)`` record per
     view. ``seconds`` is pipeline-inclusive, as the JAX package's report is:
@@ -590,8 +626,7 @@ def inference(test_loader, ckpt=None, output_folder="results",
     dispatch's lies in no record's interval.
     """
     if mesh is not None:
-        raise NotImplementedError("inference over a device mesh is not "
-                                  "ported yet (ROADMAP Queue 1 item 6)")
+        view_group(mesh)  # a mesh of another kind raises before any work
     if model is None and params is None:
         if ckpt is None:
             raise ValueError("need model, params or a ckpt path")
@@ -608,7 +643,7 @@ def inference(test_loader, ckpt=None, output_folder="results",
             model = RAFT(test_mode=True, device=device,
                          **(model_kwargs or {}))
             model.load_state_dict(state)
-    runner = InferenceRunner(model=model, params=params,
+    runner = InferenceRunner(model=model, params=params, mesh=mesh,
                              construction=construction, device=device,
                              **({} if model is not None
                                 else (model_kwargs or {})))
@@ -617,8 +652,9 @@ def inference(test_loader, ckpt=None, output_folder="results",
     (output_folder / "depths").mkdir(exist_ok=True, parents=True)
     num_frames = test_loader.dataset.num_frames
     factor = runner.model.stride_factor
-    prefetch = (device_prefetch and view_batch <= 1
+    prefetch = (device_prefetch and view_batch <= 1 and mesh is None
                 and runner.upload_stream is not None)
+    writer = mesh is None or rank(world()) == 0
     records = []
 
     def prep(item):
@@ -642,6 +678,8 @@ def inference(test_loader, ckpt=None, output_folder="results",
                     if capture_s > 0 else "")
             print(f"per view time: {seconds:.3f}s  "
                   f"peak device memory: {peak:.0f} MB ({name}, {path}){note}")
+        if not writer:
+            return
         write_pfm(output_folder / "depths"
                   / f"{name}_scale{rescale}_nf{num_frames}.pfm", depth)
         if write_min_depth is not None:

@@ -1,9 +1,18 @@
-"""The single-device train step: forward, sequence loss, backward,
-global-norm clip and the AdamW step, in place on a :class:`TrainState`,
-and :class:`StepRunner`, the step of each (batch shapes, construction key)
-as a CUDA graph: the counterpart of the JAX package's ``make_train_step``,
-which ``train()`` jits once for the exact construction and once per cached
-rectification plan.
+"""The train step: forward, sequence loss, backward, global-norm clip and
+the AdamW step, in place on a :class:`TrainState`, and :class:`StepRunner`,
+the step of each (batch shapes, construction key) as a CUDA graph: the
+counterpart of the JAX package's ``make_train_step``, which ``train()`` jits
+once for the exact construction and once per cached rectification plan.
+
+Data parallel (``group``): each rank steps its local batch, and between the
+backward pass and the clip the gradients and the loss are averaged over the
+group (the JAX package's ``pmean`` over the data axis,
+``training/step.py:98-99``), one ``all_reduce`` on a flat buffer, and the
+metrics reweighted by the local over the global valid-pixel count
+(``training/step.py:100-106``). Every rank then clips
+and updates the same weights. An explicit collective, not
+``DistributedDataParallel``: its reducer's autograd hooks and bucket
+rebuilds in the first iterations would sit inside a captured step.
 
 Batches are dicts of images (B, N, H, W, 3) in [0, 255], depths
 (B, N, H, W), poses (B, N, 4, 4) and intrinsics (B, N, 3, 3).
@@ -18,8 +27,10 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from cermvs_torch.ops import cudalib
+from cermvs_torch.parallel.mesh import collectives_capturable
 from cermvs_torch.training.loss import sequence_loss
 from cermvs_torch.training.optim import clip_by_global_norm, fetch_optimizer
 
@@ -61,15 +72,46 @@ def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
             for k in BATCH_KEYS}
 
 
+def data_parallel_mean(params, loss: torch.Tensor,
+                       metrics: Dict[str, torch.Tensor],
+                       depths: torch.Tensor, group
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The gradients (in place) and the loss as their means over ``group``,
+    and each metric as its global value: JAX's ``pmean`` of the gradients
+    and the loss, and its ``psum`` of each metric weighted by the local
+    valid-pixel count over the global count (``sequence_loss`` divides by
+    the local count). Two ``all_reduce`` calls: the gradients, the loss and
+    the count in one flat buffer, then the weighted metrics. In a world of
+    one every value comes back bit for bit."""
+    grads = [p.grad for p in params if p.grad is not None]
+    n = dist.get_world_size(group)
+    denom = (depths[:, 0] > 0).sum().float().clamp(min=1.0)
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [loss.detach().reshape(1), denom.reshape(1)])
+    dist.all_reduce(flat, group=group)
+    flat[:-1].div_(n)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+    values = torch.stack(list(metrics.values())) * (denom / flat[-1])
+    dist.all_reduce(values, group=group)
+    return flat[-2], dict(zip(metrics, values.unbind()))
+
+
 def step_body(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
               clip_norm: float, batch: Dict[str, torch.Tensor],
-              gradual_weight, volume_fn=None
+              gradual_weight, volume_fn=None, group=None
               ) -> Tuple[Tuple[str, ...], torch.Tensor]:
     """Forward, sequence loss, backward, clip and the AdamW update, with no
     host sync, so a CUDA graph can capture it. Returns the names of the
     final iterate's metrics, ``loss`` and ``grad_norm`` (the gradients'
     global norm before the clip) and their values stacked in one fp32
     tensor on the device, so that they come back in one copy.
+
+    ``group``: the data-parallel process group (None: this process
+    alone), over which :func:`data_parallel_mean` averages the gradients
+    and the loss before the clip.
 
     The gradients are zeroed in place, not freed: after a model's first
     step they keep their addresses, outside any graph's memory pool, and a
@@ -82,6 +124,9 @@ def step_body(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                                   gradual_weight)
     optimizer.zero_grad(set_to_none=False)
     loss.backward()
+    if group is not None:
+        loss, metrics = data_parallel_mean(model.parameters(), loss, metrics,
+                                           batch["depths"], group)
     grad_norm = clip_by_global_norm(
         [p.grad for p in model.parameters()], clip_norm)
     optimizer.step()
@@ -91,14 +136,16 @@ def step_body(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
 
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
-               gradual_weight, volume_fn=None) -> Dict[str, float]:
+               gradual_weight, volume_fn=None, group=None
+               ) -> Dict[str, float]:
     """One eager step in place; returns the metrics of the final iterate
     with ``loss`` and ``grad_norm`` (the gradients' global norm before
     clipping to ``state.clip_norm``). ``gradual_weight``: a float or a
     0-dim tensor on the model's device. ``volume_fn``: the construction for
-    this batch (default: the model's own)."""
+    this batch (default: the model's own). ``group``: the data-parallel
+    process group, or None."""
     names, values = step_body(state.model, state.optimizer, state.clip_norm,
-                              batch, gradual_weight, volume_fn)
+                              batch, gradual_weight, volume_fn, group)
     state.scheduler.step()
     state.step += 1
     return dict(zip(names, values.tolist()))
@@ -167,13 +214,20 @@ class StepRunner:
     optimizer's tensors at their addresses: load checkpoints in place
     (``training.checkpoint.load_state``). The model's attributes and the
     ``torch.backends`` flags stay as they were at capture: change those on
-    a new runner. ``state.step`` is the caller's to advance."""
+    a new runner. ``state.step`` is the caller's to advance.
 
-    def __init__(self, state: TrainState):
+    ``group``: the data-parallel process group (None: this process alone).
+    Under NCCL each graph holds the step's ``all_reduce`` calls; a gloo
+    collective cannot be captured, so under gloo every step runs eagerly on
+    the same device and kernels (:attr:`graphs` False, :attr:`eager_reason`
+    says why)."""
+
+    def __init__(self, state: TrainState, group=None):
         self.model = state.model
         self.optimizer = state.optimizer
         self.scheduler = state.scheduler
         self.clip_norm = state.clip_norm
+        self.group = group
         self.device = next(self.model.parameters()).device
         self._steps: Dict[tuple, Callable] = {}
         self._static: Dict[tuple, Dict[str, torch.Tensor]] = {}
@@ -185,7 +239,14 @@ class StepRunner:
         self.last_eager_s = 0.0
         self.last_capture_s = 0.0
         self._pool = None
-        if self.device.type == "cuda":
+        self.graphs = (self.device.type == "cuda"
+                       and collectives_capturable(group))
+        self.eager_reason = (
+            None if self.graphs else
+            "a CPU step" if self.device.type != "cuda" else
+            f"{dist.get_backend(group)} collectives cannot be captured in a "
+            f"CUDA graph")
+        if self.graphs:
             self._gw = torch.zeros((), dtype=torch.float32,
                                    device=self.device)
             self._capture_stream = torch.cuda.Stream(self.device)
@@ -208,7 +269,7 @@ class StepRunner:
         elif self._pool is None:
             self._steps[cache_key] = functools.partial(
                 step_body, self.model, self.optimizer, self.clip_norm,
-                volume_fn=_volume_of(key))
+                volume_fn=_volume_of(key), group=self.group)
             names, values = self._steps[cache_key](batch, gradual_weight)
         else:
             names, values = self._first(cache_key, batch, gradual_weight)
@@ -226,7 +287,7 @@ class StepRunner:
             self._gw.fill_(gradual_weight)
             names, values = step_body(self.model, self.optimizer,
                                       self.clip_norm, batch, self._gw,
-                                      volume_fn)
+                                      volume_fn, self.group)
             torch.cuda.synchronize(self.device)
             self._static[spec] = {k: torch.empty_like(batch[k])
                                   for k in BATCH_KEYS}
@@ -245,7 +306,7 @@ class StepRunner:
                                  capture_error_mode="thread_local"):
             g_names, g_values = step_body(self.model, self.optimizer,
                                           self.clip_norm, static, self._gw,
-                                          volume_fn)
+                                          volume_fn, self.group)
         step = GraphedStep(graph, static, self._gw, g_names, g_values,
                            launches)
         self._steps[cache_key] = step

@@ -1,5 +1,6 @@
 """Training metrics logger: running means every ``SUM_FREQ`` steps, to
-stdout and to ``{run_dir}/{name}/metrics.jsonl``."""
+stdout and to ``{run_dir}/{name}/metrics.jsonl``. ``is_host0=False`` (a
+data-parallel rank other than 0) logs nothing."""
 
 from __future__ import annotations
 
@@ -11,17 +12,23 @@ from typing import Dict
 
 class Logger:
     def __init__(self, name: str, run_dir: str = "runs", SUM_FREQ: int = 100,
-                 lr_fn=None):
+                 lr_fn=None, is_host0: bool = True):
         self.name = name
+        self.is_host0 = is_host0
         self.SUM_FREQ = SUM_FREQ
         self.total_steps = 0
         self.running: Dict[str, float] = {}
         self.lr_fn = lr_fn
         self.run_dir = os.path.join(run_dir, name)
-        os.makedirs(self.run_dir, exist_ok=True)
-        self._jsonl = open(os.path.join(self.run_dir, "metrics.jsonl"), "a")
+        self._jsonl = None
+        if is_host0:
+            os.makedirs(self.run_dir, exist_ok=True)
+            self._jsonl = open(os.path.join(self.run_dir, "metrics.jsonl"),
+                               "a")
 
     def push(self, metrics: Dict[str, float]) -> None:
+        if not self.is_host0:
+            return
         self.total_steps += 1
         for k, v in metrics.items():
             self.running[k] = self.running.get(k, 0.0) + float(v)
@@ -41,4 +48,5 @@ class Logger:
         self.running = {}
 
     def close(self) -> None:
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()

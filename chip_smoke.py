@@ -140,7 +140,29 @@ Phases (any failure raises, so the exit code is non-zero):
      crop native and through cv2; one sample's native crop four times in a
      row and in four threads at once); the epiband forward and both
      gradients against their plain versions at the widest plan the run
-     took (fp32 and bf16, both stages).
+     took (fp32 and bf16, both stages);
+ 14. the data and view axes (``parallel/``): (a) a world of one over NCCL
+     on this card: ``InferenceRunner(mesh=make_mesh(1, 1))`` through the
+     rectified, mixed and exact routes at phase 4's width, bit for bit the
+     runner without a mesh, eager and replayed from a graph that holds the
+     ``all_reduce`` (replays of both timed in turns), and ``train()`` with
+     ``train_DTU.gin``'s bindings and ``data_parallel`` over that group on
+     phase 8's batch six times, its losses, weights and AdamW moments
+     bit for bit a run without a group, five steps replayed with the
+     collective captured; (b) ``dryrun_multiprocess(2, "cuda")``: two gloo
+     ranks sharing this card, the view-sharded forward (5 + 5 views,
+     exact, rectified, mixed, and rectified with the mean, max and std
+     aggregation, fp32 with two GRU iterations a stage; each frame
+     encoded alone on both sides, the delta heads damped) against the unsharded one on each stage volume after the
+     ``all_reduce`` and on the disparities, the max and std exchange alone
+     against the model's aggregation on both ranks, the epiband and hat
+     launches of both ranks summing to the unsharded forward's, a
+     data-parallel step of phase 8's batch as 1 + 1 against the step of
+     2 (exact and rectified; the ranks' plans exchanged), sharded fusion
+     of a sphere's true depths against one process's cloud; (c) ``torchrun
+     --nproc_per_node=1 -m cermvs_torch.launch_distributed -g train_DTU -p
+     train.num_steps=1`` on phase 8's tree. Two ranks on one card show
+     correctness and the split of the work, not scaling.
 
 Each phase from 6 on first prints the device memory the phases before it
 left (their runners' graph pools released).
@@ -284,6 +306,43 @@ BL_STEPS = 11              # train.num_steps: 12 steps, one epoch of its
 #                            24 references (the walk's first view the only
 #                            walk reference)
 BL_F = 2200.0              # focal (px) at 2048 wide
+PAR_STEPS = 5              # phase 14: train.num_steps of its world-of-one
+#                            runs, six steps on phase 8's batch (five
+#                            replays each, timed)
+PAR_REPLAYS = 3            # phase 14: timed replays a route, in turns
+PAR_FORWARD_TOL = dict(    # phase 14: two ranks' forward against one's
+    volume_tol=dict(rtol=5e-5, atol=1e-6),  # each stage's volume, built
+    #                        from the same origins by both, of the largest
+    #                        |value|: fp32 sums of the same view volumes in
+    #                        another order (the mixed one's means times
+    #                        their counts; 9e-6 on an H100); each frame
+    #                        encoded alone on both sides (the same features)
+    disp_tol=dict(rtol=2e-2, atol=1e-6))    # disparities after 16 bf16 GRU
+#                            iterations, of the largest |disparity| (delta
+#                            heads damped 1e-3; 4.9e-3 on an H100)
+PAR_PER_VIEW_MODEL = dict(  # phase 14: the mean, max and std forward's
+    dtype="float32",       # model: fp32, two GRU iterations a stage, at
+    cascade=((64, 64, 2), (-1, 320, 2)))  # full width. The exchange
+#                            alone is exact for the max and within fp32
+#                            rounding for the moments (3.6e-7 of 5.2 on an
+#                            H100), but the random GRU amplifies that
+#                            rounding with every iteration: disparities
+#                            8.6e-4 of their max after 2 a stage, 1.7e-2
+#                            after the shipped 8 (7.5e-2 in bf16), the
+#                            same in every run; 8 would leave the
+#                            disparity check no margin
+PAR_TRAIN_TOL = dict(      # phase 14: a step of batch 1 + 1 against 2,
+    model=dict(dtype="float32"), tf32=False,  # the fp32 model, TF32 off
+    tol=None,              # (bf16 convs of batch 1 and 2 round apart)
+    grad_rtol=2e-2,        # the clipped gradients' relative error: 16
+    #                        iterations carry the two batch sizes' fp32
+    #                        rounding to other lookup cells (6.2e-3-7.0e-3
+    #                        on an H100; 3.6e-2 in bf16); the loss to 1e-4
+    loss_tol=dict(rtol=1e-4, atol=0.0))     # (4.2e-6 there); the
+#                            weights, each moved by ~lr either way by one
+#                            AdamW step, say nothing more
+PAR_FUSION = dict(n_views=6, H=576, W=800, kind="sphere")  # phase 14's
+#                            sharded fusion: a sphere's true depths
 
 
 def dtu_ring_poses(n):
@@ -2881,6 +2940,10 @@ def phase_blended_train(torch, tree):
     pcfg.parse_config_file(str(REPO / "configs" / "train_BlendedMVS.gin"))
     pcfg.bind_parameter("Blended.dataset_path", str(tree))
     pcfg.bind_parameter("train.num_steps", BL_STEPS)
+    # one loader thread: the crops, drawn from the dataset's one RandomState,
+    # then follow the seed and not the threads' order, so the run's plan keys
+    # (8 in 12 steps, 4 replays) are the same in every run
+    pcfg.bind_parameter("get_train_data_loader.num_workers", 1)
     crop = pcfg.query_parameter("random_scale_and_crop.crop_size")
     print(f"phase 13: BlendedMVS scene ({BL_ORBIT} orbit, {BL_SWEEP} sweep, "
           f"{BL_WALK} walk cameras, {BL_HW} JPEGs and PFM depths) written in "
@@ -3097,6 +3160,260 @@ def host_runtime(torch):
         raise RuntimeError("the group-norm encoder disagrees with the CPU")
     out["group_encoder_max_abs_err"] = e
     return out
+
+
+def world_of_one_inference(torch, mesh, model, routes):
+    """Phase 14(a): each route through a runner with a (1, 1) mesh and one
+    without: the first dispatch (eager, then the capture with the
+    ``all_reduce`` inside) and replays, all held bit for bit against the
+    runner without a mesh; PAR_REPLAYS replays of each, in turns, timed.
+    Returns the figures and the meshed runs' launches."""
+    from cermvs_torch.ops import cudalib
+    from cermvs_torch.pipeline.inference import GraphedForward, InferenceRunner
+
+    out, launches = {}, {k: 0 for k in KERNELS}
+    for label, construction, (images, poses, intr) in routes:
+        meshed = InferenceRunner(model=model, mesh=mesh, device="cuda",
+                                 construction=construction)
+        plain = InferenceRunner(model=model, device="cuda",
+                                construction=construction)
+        cudalib.reset_launches()
+        first = meshed.submit(images, poses, intr, 1.0).clone()
+        replay = meshed.submit(images, poses, intr, 1.0).clone()
+        torch.cuda.synchronize()
+        for k in KERNELS:
+            launches[k] += cudalib.launches.get(k, 0)
+        p_first = plain.submit(images, poses, intr, 1.0).clone()
+        p_replay = plain.submit(images, poses, intr, 1.0).clone()
+        graphed = [isinstance(f, GraphedForward)
+                   for f in meshed._cache.values()]
+        errs = {"first": float((first - p_first).abs().max()),
+                "replay": float((replay - p_first).abs().max()),
+                "plain_replay": float((p_replay - p_first).abs().max())}
+        times = {"meshed": [], "plain": []}
+        for _ in range(PAR_REPLAYS):
+            for name, runner in (("plain", plain), ("meshed", meshed)):
+                t, _ = synced_s(torch, lambda: runner.submit(
+                    images, poses, intr, 1.0))
+                times[name].append(t)
+        out[label] = {"path": meshed.last_path, "graphed": graphed,
+                      "graphs": meshed.graphs, "errs": errs, "s": times}
+        print(f"phase 14: (a) world of one, {label}: path "
+              f"{meshed.last_path}/{plain.last_path}, captured {graphed}; "
+              f"max|meshed - unmeshed| eager {errs['first']}, replay "
+              f"{errs['replay']}; replays s (meshed) "
+              f"{[round(t, 4) for t in times['meshed']]}, (no mesh) "
+              f"{[round(t, 4) for t in times['plain']]}", flush=True)
+        if not (meshed.last_path == plain.last_path == label
+                and meshed.graphs and graphed == [True]):
+            raise RuntimeError(f"phase 14 {label}: route or capture")
+        if any(errs.values()):
+            raise RuntimeError(f"phase 14 {label}: the meshed forward is "
+                               f"not the unmeshed one bit for bit: {errs}")
+        del meshed, plain
+        released(torch, f"phase 14, {label}")
+    return out, launches
+
+
+def world_of_one_training(torch, tree, batch):
+    """Phase 14(a): ``train()`` with ``train_DTU.gin``'s bindings on phase
+    8's batch ``PAR_STEPS + 1`` times, with ``data_parallel`` over the world of one and
+    without it: every loss and the final weights and AdamW moments bit for
+    bit, the grouped steps replayed from graphs that hold the step's
+    ``all_reduce`` calls. Returns the figures and the grouped launches."""
+    from cermvs_torch import data as data_mod
+    from cermvs_torch.ops import cudalib
+    from cermvs_torch.training.train import train
+
+    runs = {}
+    loader = data_mod.get_train_data_loader
+    data_mod.get_train_data_loader = lambda **kw: [batch] * (PAR_STEPS + 1)
+    try:
+        for grouped in (True, False):
+            configure_training(tree)
+            records = []
+
+            def on_step(state, metrics, plan):
+                torch.cuda.synchronize()
+                records.append((time.perf_counter(), metrics["loss"],
+                                state.runner.last_dispatch_compiled))
+
+            cudalib.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            with tempfile.TemporaryDirectory(dir=REPO / "build") as ck:
+                state = train(name="chip_smoke_par", checkpoint_dir=ck,
+                              run_dir=ck, resume=False, log_every=1,
+                              on_step=on_step, device="cuda",
+                              data_parallel=grouped, num_steps=PAR_STEPS)
+            runs[grouped] = {
+                "losses": [r[1] for r in records],
+                "firsts": [r[2] for r in records],
+                "replay_s": [b[0] - a[0] for a, b in zip(records, records[1:])
+                             if not b[2]],
+                "graphs": state.runner.graphs,
+                "group": state.runner.group is not None,
+                "launches": {k: cudalib.launches.get(k, 0) for k in KERNELS},
+                "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+                "tensors": [p.detach().clone()
+                            for p in state.model.parameters()]
+                + [t.clone() for st in state.optimizer.state.values()
+                   for t in st.values() if torch.is_tensor(t)]}
+            del state
+            released(torch, f"phase 14, train grouped={grouped}")
+    finally:
+        data_mod.get_train_data_loader = loader
+    g, u = runs[True], runs[False]
+    same = (len(g["tensors"]) == len(u["tensors"])
+            and all(torch.equal(a, b) for a, b in zip(g["tensors"],
+                                                        u["tensors"])))
+    print(f"phase 14: (a) train() over the world of one: losses "
+          f"{g['losses']} (no group {u['losses']}), first dispatches "
+          f"{g['firsts']}, replay s/step {[round(t, 4) for t in g['replay_s']]}"
+          f" (no group {[round(t, 4) for t in u['replay_s']]}), weights and "
+          f"moments equal: {same}, peak reserved "
+          f"{g['peak_reserved_bytes'] / 2**30:.2f} GiB", flush=True)
+    if not (g["group"] and g["graphs"] and not u["group"]):
+        raise RuntimeError("phase 14: the grouped run was not grouped or "
+                           "not captured")
+    if g["losses"] != u["losses"] or not same or sum(
+            not f for f in g["firsts"]) < 2:
+        raise RuntimeError("phase 14: grouped steps differ from ungrouped "
+                           "ones, or fewer than two replayed")
+    fig = {k: {n: v[n] for n in ("losses", "firsts", "replay_s",
+                                  "peak_reserved_bytes")}
+           for k, v in (("grouped", g), ("ungrouped", u))}
+    return fig, g["launches"]
+
+
+def run_launcher(tree, tmp):
+    """Phase 14(c): ``torchrun --nproc_per_node=1 -m
+    cermvs_torch.launch_distributed -g train_DTU -p train.num_steps=1`` on
+    phase 8's synthetic tree; its return code and seconds."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node=1", "-m", "cermvs_torch.launch_distributed",
+           "-g", "train_DTU", "-p", "train.num_steps=1",
+           "-p", f"DTU.dataset_path='{tree}'", "-p", "DTU.light_number=0",
+           "-p", f"train.checkpoint_dir='{tmp}/ckpt'",
+           "-p", f"train.run_dir='{tmp}/runs'"]
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    tail = (res.stdout + res.stderr).strip().splitlines()[-6:]
+    print(f"phase 14: (c) {' '.join(cmd[1:5])} ... -g train_DTU -p "
+          f"train.num_steps=1: rc {res.returncode} in {secs:.1f} s; last "
+          f"lines {tail}", flush=True)
+    if res.returncode != 0:
+        # the rank's own error comes before torchrun's report of it: the
+        # report first, then the start of the error output, last
+        raise RuntimeError(f"phase 14: the launcher failed:\n"
+                           f"{res.stdout[-3000:]}\n{res.stderr[-1500:]}\n"
+                           f"the start of its error output:\n"
+                           f"{res.stderr[:4000]}")
+    return {"rc": res.returncode, "s": secs}
+
+
+def phase_parallel(torch, tree, batch):
+    """Phase 14: the data and view axes. (a) A world of one over NCCL on
+    this card: ``InferenceRunner(mesh=make_mesh(1, 1))`` through the
+    rectified, mixed and exact routes and ``train()`` with
+    ``data_parallel``, bit for bit the runs without a group, eager and
+    replayed from graphs that hold the ``all_reduce``; (b) a gloo world of
+    two ranks on this card (``dryrun_multiprocess(2, "cuda")``): the
+    view-sharded forward (5 + 5 views; the mean aggregation, and the
+    mean, max and std) against the unsharded one on the stage volumes and
+    the disparities, the ranks' epiband and hat launches
+    summing to the unsharded forward's, a data-parallel step of batch 1 + 1
+    against one of batch 2, and sharded fusion of a sphere's true depths
+    against one process's cloud; (c) the torchrun launcher. The two ranks
+    share one card, so this shows correctness and the split of the work,
+    not scaling. Returns the figures and the launches of the meshed and
+    grouped runs of (a)."""
+    import torch.distributed as dist
+
+    from cermvs_torch.models.raft import RAFT
+    from cermvs_torch.parallel import dryrun
+    from cermvs_torch.parallel.mesh import initialize_distributed, make_mesh
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        initialize_distributed("cuda", store=dist.FileStore(
+            str(Path(tmp) / "store"), 1), rank=0, world_size=1)
+        try:
+            print(f"phase 14: NCCL world of one on "
+                  f"{torch.cuda.current_device()}", flush=True)
+            mesh = make_mesh(1, 1)
+            model = RAFT(test_mode=True,
+                         generator=torch.Generator().manual_seed(0))
+            scene = dtu_scene(H, W, NUM_FRAMES + 1)
+            out["inference"], launches = world_of_one_inference(
+                torch, mesh, model, [
+                    ("rectified", "rectified", scene),
+                    ("mixed", "auto", mixed_ring_scene(H, W,
+                                                       NUM_FRAMES + 1)),
+                    ("exact", "exact", scene)])
+            del model
+            out["training"], train_launches = world_of_one_training(
+                torch, tree, batch)
+        finally:
+            dist.destroy_process_group()
+        for k in KERNELS:
+            launches[k] += train_launches[k]
+        released(torch, "phase 14 (b)")
+        batch_file = str(Path(tmp) / "batch.npz")
+        np.savez(batch_file, **{k: np.asarray(batch[k]) for k in (
+            "images", "depths", "poses", "intrinsics")})
+        spec = {"forward": dict(scene="ring", H=H, W=W, N=NUM_FRAMES + 1,
+                                model=dict(encoder_chunk=1),
+                                per_view_model=PAR_PER_VIEW_MODEL,
+                                rect_lambda_max=0.00375, damp=1e-3,
+                                **PAR_FORWARD_TOL),
+                "train": dict(batch_file=batch_file, **PAR_TRAIN_TOL),
+                "fusion": PAR_FUSION}
+        t1 = time.perf_counter()
+        report = dryrun.dryrun_multiprocess(2, "cuda", spec=spec)
+        for case, aggregation in dryrun.FORWARD_CASES:
+            case = dryrun.forward_label(case, aggregation)
+            f = report[f"forward_{case}"]
+            agg = ("" if aggregation == ("mean",) else
+                   f"; the aggregation's exchange alone max|diff| (of "
+                   f"max|value|) by rank {f['aggregate_err']}")
+            print(f"phase 14: (b) two gloo ranks, {case} forward: views "
+                  f"{f['views']}, stage volumes max|2 ranks - 1| "
+                  f"{f['volume_err']} (of {f['volume_max']}), disparity "
+                  f"{f['disp_err']:.3e} (of {f['disp_max']:.3e}); launches "
+                  f"by rank {f['launches_by_rank']} against one rank's "
+                  f"{f['plain_launches']}; eager ({f['eager_reason']}); "
+                  f"a second forward {[round(t, 4) for t in f['s']]} s by "
+                  f"rank against one rank's {f['plain_s']:.4f}; a stage-0 "
+                  f"volume ({f['volume_bytes'][0] / 2**20:.1f} MiB) "
+                  f"all-reduced alone in "
+                  f"{[[round(t, 4) for t in r] for r in f['all_reduce_s']]}"
+                  f" s; peak allocated by rank "
+                  f"{[round(b / 2**30, 2) for b in f['peak_bytes']]} GiB"
+                  + agg, flush=True)
+        for c in ("exact", "rectified"):
+            t = report[f"train_{c}"]
+            print(f"phase 14: (b) two gloo ranks, {c} step of batch 1 + 1 "
+                  f"against 2: loss {t['metrics']['loss']!r} against "
+                  f"{t['ref_metrics']['loss']!r}, grad_norm "
+                  f"{t['metrics']['grad_norm']!r} against "
+                  f"{t['ref_metrics']['grad_norm']!r}, gradients' relative "
+                  f"error {t['grad_rel_err']:.3e}, max|weights diff| "
+                  f"{t['weights_err']:.3e} (lr {t['lr']:.3e}); peak "
+                  f"allocated by rank "
+                  f"{[round(b / 2**30, 2) for b in t['peak_bytes']]} GiB"
+                  + (f", local plans differ {t['plans_differ']}"
+                     if c == "rectified" else ""), flush=True)
+        print(f"phase 14: (b) sharded fusion: {report['fusion']}; the world "
+              f"of two in {time.perf_counter() - t1:.1f} s", flush=True)
+        out["world_of_two"] = report
+        out["launcher"] = run_launcher(tree, tmp)
+    out["s"] = time.perf_counter() - t0
+    print(f"phase 14: {out['s']:.1f} s", flush=True)
+    return out, launches
 
 
 def mark(ends, phase):
@@ -3316,19 +3633,21 @@ def main():
         true_fusion = phase_true_fusion(torch, Path(root))
         mark(ends, "phase 7")
 
-    with tempfile.TemporaryDirectory(dir=build) as tree:
-        released(torch, "phase 8")
-        train_plan, train_batch = plan_training_batch(torch, tree)
-        rows = phase_training_kernels(torch, train_plan, train_batch)
-        mark(ends, "phase 8")
-        released(torch, "phase 9")
-        training = phase_train(torch, tree, train_plan, train_batch)
-        training["remat"] = remat_both_ways(torch, train_plan, train_batch)
-        mark(ends, "phase 9")
-        released(torch, "phase 10")
-        fused_training = phase_train_pallas(torch, tree, train_plan,
-                                            train_batch)
-        mark(ends, "phase 10")
+    # phase 8's DTU tree, which phase 14 trains on again
+    dtu_dir = tempfile.TemporaryDirectory(dir=build)
+    dtu_tree = dtu_dir.name
+    released(torch, "phase 8")
+    train_plan, train_batch = plan_training_batch(torch, dtu_tree)
+    rows = phase_training_kernels(torch, train_plan, train_batch)
+    mark(ends, "phase 8")
+    released(torch, "phase 9")
+    training = phase_train(torch, dtu_tree, train_plan, train_batch)
+    training["remat"] = remat_both_ways(torch, train_plan, train_batch)
+    mark(ends, "phase 9")
+    released(torch, "phase 10")
+    fused_training = phase_train_pallas(torch, dtu_tree, train_plan,
+                                        train_batch)
+    mark(ends, "phase 10")
     with tempfile.TemporaryDirectory(dir=build) as root:
         released(torch, "phase 11")
         tnt = phase_tnt_demo(torch, Path(root))
@@ -3340,6 +3659,11 @@ def main():
         released(torch, "phase 13")
         blended = phase_blended_train(torch, Path(tree))
         mark(ends, "phase 13")
+    released(torch, "phase 14")
+    parallel, parallel_launches = phase_parallel(torch, dtu_tree,
+                                                 train_batch)
+    mark(ends, "phase 14")
+    dtu_dir.cleanup()
     rows.update(lookup_rows)
 
     s0 = stages["stage0"]
@@ -3360,7 +3684,8 @@ def main():
                "training_fused_lookup": fused_training["launches"],
                "tnt_demo": tnt.pop("launches"),
                "custom_demo": custom.pop("launches"),
-               "training_blended": blended.pop("launches")}
+               "training_blended": blended.pop("launches"),
+               "parallel": parallel_launches}
     # launches: the main path's count of each kernel: the demo's for the
     # fused lookup forward, the fused-lookup training run's for its
     # gradient (the prefix-sum variant is on no path), training's for the
@@ -3400,6 +3725,7 @@ def main():
         "fused_lookup_training": {k: v for k, v in fused_training.items()
                                   if k != "launches"},
         "tnt_demo": tnt, "custom_demo": custom, "blended_training": blended,
+        "parallel": parallel,
         "host_runtime": host,
         "build_s": build_s, "phase_end_s": ends, "card": smi,
         "total_s": time.perf_counter() - T_START}}), flush=True)

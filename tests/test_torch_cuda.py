@@ -4,7 +4,10 @@ prefix-sum) against their plain PyTorch versions on the card,
 wrong inputs raising and leaving the card usable, the small end-to-end
 agreement of the rectified (kernel) and exact constructions, the compiled
 train step (with ``RAFT.remat``: replay against eager, remat on against
-off) and the group-norm encoder against the CPU. They skip where
+off), the group-norm encoder against the CPU, and the parallel paths (an
+NCCL world of one: the meshed forward and the data-parallel step captured
+with their ``all_reduce`` and replayed; two gloo ranks sharing the card:
+the view-sharded forward's launches split between them). They skip where
 ``torch.cuda.is_available()`` is false. This file imports nothing of JAX, so
 it also runs on a machine without it:
 
@@ -1716,3 +1719,105 @@ def test_group_norm_encoder_matches_cpu(cuda_device, enc_type):
         want = enc(x)
         got = enc.to(cuda_device)(x.to(cuda_device)).cpu()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture
+def nccl_world_of_one(cuda_device, tmp_path):
+    """An NCCL group of this process alone on the card, destroyed after."""
+    import torch.distributed as dist
+
+    from cermvs_torch.parallel.mesh import initialize_distributed
+
+    initialize_distributed(cuda_device, store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,construction,route", [
+    ("lateral", "rectified", "rectified"), ("mixed", "auto", "mixed"),
+    ("lateral", "exact", "exact")], ids=["rectified", "mixed", "exact"])
+def test_nccl_world_of_one_forward_is_unmeshed(nccl_world_of_one, kind,
+                                               construction, route):
+    """``InferenceRunner(mesh=make_mesh(1, 1))`` over NCCL: its first
+    dispatch (eager, then the capture of a graph that holds the
+    ``all_reduce``) and a replay equal the runner without a mesh bit for
+    bit."""
+    from cermvs_torch.parallel.mesh import make_mesh
+    from cermvs_torch.pipeline.inference import (GraphedForward,
+                                                 InferenceRunner)
+
+    torch.backends.cudnn.allow_tf32 = False
+    model = train_model("cuda")
+    model.test_mode = True
+    images, poses, intr = graph_scene(kind)
+    kw = dict(construction=construction, rect_lambda_max=0.1, device="cuda")
+    meshed = InferenceRunner(model=model, mesh=make_mesh(1, 1), **kw)
+    plain = InferenceRunner(model=model, **kw)
+    assert meshed.graphs and meshed.eager_reason is None
+    first = meshed.submit(images, poses, intr, 1.0).clone()
+    replay = meshed.submit(images, poses, intr, 1.0).clone()
+    assert not meshed.last_dispatch_compiled
+    assert [type(f) for f in meshed._cache.values()] == [GraphedForward]
+    ref = plain.submit(images, poses, intr, 1.0)
+    assert meshed.last_path == plain.last_path == route
+    assert torch.equal(first, ref) and torch.equal(replay, ref)
+
+
+@pytest.mark.cuda
+def test_nccl_world_of_one_step_replays_as_eager(cuda_device,
+                                                 nccl_world_of_one,
+                                                 deterministic):
+    """A data-parallel ``StepRunner`` over the NCCL world of one captures
+    its step with the ``all_reduce`` calls inside; three replays leave the
+    weights, AdamW's moments and the metrics of eager steps without a group
+    (to the eager-vs-eager spread, bit for bit where that is 0)."""
+    from cermvs_torch.training.step import StepRunner, batch_to_device
+
+    state = train_state(cuda_device)
+    state.runner = StepRunner(state, group=nccl_world_of_one)
+    assert state.runner.graphs
+    batches = [train_batch(s) for s in (0, 2, 4, 6)]
+    key = train_key(batches[0])
+    steps = [(batch_to_device(b, cuda_device), gw, key)
+             for b, gw in zip(batches, (0.0, 0.4, 0.7, 1.0))]
+    snap = snapshot(state)
+    replayed = []
+    for i, (b, gw, k) in enumerate(steps):
+        replayed.append(state.runner(b, gw, k))
+        assert state.runner.last_dispatch_compiled == (i == 0)
+    assert_within_spread(*replay_against_eager(state, snap, steps,
+                                               replayed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["rectified", "mixed"])
+def test_gloo_world_of_two_splits_the_launches(cuda_device, case):
+    """Two gloo ranks sharing the card (``dryrun.World``): the view-sharded
+    forward's epiband and hat launches, summed over the ranks, are the
+    unsharded forward's, each rank steps eagerly, and the disparities
+    agree at the dry run's CPU tolerances."""
+    from cermvs_torch.parallel import dryrun
+
+    # each frame encoded alone on both sides: the same conv shapes, so the
+    # same cuDNN algorithms and features
+    spec = dict(dryrun.SMALL["forward"])
+    spec["model"] = dict(spec["model"], encoder_chunk=1)
+    with dryrun.World(2, "cuda") as world:
+        res = world.run(dryrun.forward_task, spec, case, "cuda")
+    total = {}
+    for r in res:
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    plain = {k: v for k, v in res[0]["plain_launches"].items() if v}
+    assert plain["epiband_fwd"] > 0 and plain["hat_rows_fwd"] > 0
+    assert {k: v for k, v in total.items() if v} == plain
+    assert all(0 < r["launches"]["epiband_fwd"] < plain["epiband_fwd"]
+               for r in res)
+    assert not res[0]["graphs"] and "gloo" in res[0]["eager_reason"]
+    tol = spec["disp_tol"]
+    assert res[0]["disp_err"] <= tol["atol"] + tol["rtol"] * res[0][
+        "disp_max"]

@@ -7,6 +7,8 @@ the same files and resize with the same arithmetic, so every sample
 compares exactly.
 """
 
+import threading
+
 import numpy as np
 import pytest
 
@@ -66,6 +68,33 @@ def test_loader_raises_worker_errors():
 
     with pytest.raises(ValueError, match="boom"):
         list(DataLoader(Bad(), batch_size=None, num_workers=2))
+
+
+def test_closing_the_loader_waits_for_its_workers():
+    """A break leaves no worker running: a worker still inside cv2 or the
+    native runtime when the interpreter exits aborts the process. The one
+    worker is held in its second load for longer than a join of a second."""
+    gate = threading.Event()
+
+    class Slow(Dataset):
+        def __len__(self):
+            return 4
+
+        def __getitem__(self, i):
+            if i:
+                gate.wait()
+            return np.zeros(1)
+
+    before = set(threading.enumerate())
+    it = iter(DataLoader(Slow(), batch_size=None, num_workers=1))
+    assert next(it).shape == (1,)
+    timer = threading.Timer(1.5, gate.set)
+    timer.start()
+    it.close()
+    timer.join()
+    assert gate.is_set()
+    assert [t for t in threading.enumerate()
+            if t not in before and t is not timer] == []
 
 
 def test_cams_and_pairs_roundtrip(tmp_path):
