@@ -105,8 +105,14 @@ def _two_conv(dim_in, dim0, dim1, k0, k1, final_relu):
     return nn.Sequential(*layers)
 
 
-def _apply_two_conv(seq: nn.Sequential, x, dtype):
+def _apply_two_conv(seq: nn.Sequential, x, dtype, row_mask=None):
+    """conv, relu, conv [, relu]. ``row_mask`` zeroes the out-of-image
+    ghost rows between the convs (the first conv's bias makes them nonzero
+    even on zero input), so the second sees the unsharded model's zero
+    padding there."""
     x = F.relu(conv_nhwc(seq[0], x, dtype))
+    if row_mask is not None:
+        x = x * row_mask
     x = conv_nhwc(seq[2], x, dtype)
     return F.relu(x) if len(seq) > 3 else x
 
@@ -164,19 +170,31 @@ class UpdateBlock(nn.Module):
         return torch.cat(parts, dim=-1)
 
     def forward(self, net, inp, disp, corr_frames, stage: int, gru_ctx=None,
-                aggregate=None):
+                aggregate=None, row_mask=None):
         """net/inp: (B, H, W, dim); disp: (B, H, W, 1) fp32; corr_frames:
         (B, V, H, W, cor_planes) fp32. ``aggregate``: the view aggregation
         of ``corr_frames`` in place of :meth:`aggregate` (a view-sharded
-        forward aggregates across processes). Returns (net, delta)."""
+        forward aggregates across processes). ``row_mask`` (B, H, 1, 1):
+        a row-sharded forward (``parallel/spatial.py``) runs the block on
+        its rows extended by ghost rows, and the mask, 0 on the rows
+        outside the image, zeroes them at every conv input, as the
+        unsharded model's zero padding has them. Returns (net, delta)."""
         dt = self.dtype
+        mk = None if row_mask is None else row_mask.to(dt)
         dctx = (100.0 * disp_context(disp, self.size_disp_enc)).to(dt)
         corr = (aggregate or self.aggregate)(corr_frames).to(dt)
+        if mk is not None:
+            corr = corr * mk
         corr = _apply_two_conv(self.stage_module("corr_encoder", stage), corr,
-                               dt)
+                               dt, mk)
         if gru_ctx is None:
             gru_ctx = self.gru_ctx(inp, stage)
         dyn = torch.cat([dctx, corr], dim=-1)
-        net = self.stage_module("gru", stage)(net.to(dt), dyn, gru_ctx)
-        d = _apply_two_conv(self.stage_module("delta", stage), net, dt)
+        net = net.to(dt)
+        if mk is not None:
+            dyn, net = dyn * mk, net * mk
+        net = self.stage_module("gru", stage)(net, dyn, gru_ctx)
+        if mk is not None:
+            net = net * mk
+        d = _apply_two_conv(self.stage_module("delta", stage), net, dt, mk)
         return net, 0.01 * d.float()

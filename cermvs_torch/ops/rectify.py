@@ -495,6 +495,50 @@ def host_rect_homographies(poses, intrinsics, h: int, w: int, h_r: int,
     return H_ref_inv, H_src_inv, H_fwd
 
 
+def plan_row_bands(poses, intrinsics, h: int, w: int, plan: RectPlan,
+                   n_shards: int, ghost: int, margin: int = 4
+                   ) -> Tuple[np.ndarray, int]:
+    """Per-(shard, view) bands of rect rows for the row-sharded rectified
+    construction (``parallel/spatial.py``).
+
+    Shard ``s`` owns feature rows ``[s*hloc, (s+1)*hloc)``, extended by
+    ``ghost`` rows; its back-warp of view ``v``'s volume reads the rect
+    rows that ``H_fwd[v]`` maps that block to (one bilinear tap either
+    side). The band ``[q0[s, v], q0[s, v] + band_h)`` covers them with
+    ``margin`` rows to spare. On a scene the planner accepts, ``H_fwd``'s
+    row map has no pole over the image, so its extremes lie on the block's
+    boundary and a coarse grid finds them.
+
+    Returns ``(q0, band_h)``: the band starts (n_shards, V) int32 in rect
+    rows, and one band height for all, a multiple of 8 at most
+    ``plan.h_r``."""
+    assert plan.ok, plan.reason
+    assert h % n_shards == 0, (h, n_shards)
+    _, _, H_fwd = host_rect_homographies(
+        poses, intrinsics, h, w, plan.h_r, plan.w_r, plan.s_max)
+    V = H_fwd.shape[0]
+    hloc = h // n_shards
+    xs = np.linspace(0.0, w - 1.0, 65)
+    q_lo = np.zeros((n_shards, V))
+    q_hi = np.zeros((n_shards, V))
+    for s in range(n_shards):
+        y0 = max(s * hloc - ghost, 0)
+        y1 = min(s * hloc + hloc + ghost, h) - 1
+        ys = np.linspace(float(y0), float(y1), 65)
+        Yg, Xg = np.meshgrid(ys, xs, indexing="ij")
+        for v in range(V):
+            den = H_fwd[v, 2, 0] * Xg + H_fwd[v, 2, 1] * Yg + H_fwd[v, 2, 2]
+            assert np.all(np.abs(den) > 1e-9), "horizon inside gated scene"
+            k = (H_fwd[v, 1, 0] * Xg + H_fwd[v, 1, 1] * Yg
+                 + H_fwd[v, 1, 2]) / den
+            q_lo[s, v] = np.floor(k.min()) - 1 - margin
+            q_hi[s, v] = np.ceil(k.max()) + 2 + margin
+    extent = float((q_hi - q_lo).max())
+    band_h = min(int(-(-extent // 8) * 8), plan.h_r)
+    q0 = np.clip(q_lo, 0, plan.h_r - band_h).astype(np.int32)
+    return q0, band_h
+
+
 # ---------------------------------------------------------------------------
 # In-graph geometry (torch, float32)
 # ---------------------------------------------------------------------------

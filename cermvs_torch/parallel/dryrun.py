@@ -20,6 +20,16 @@ one process with no group:
     against the model's aggregation of all of them, on every rank;
   * ``fusion(mesh=)`` of a scene's depth maps against one process's cloud.
 
+:func:`dryrun_spatial` does the same for the row and grid meshes
+(``parallel/spatial.py``): the row-sharded forward over ``n`` row ranks
+(exact, banded rectified, and exact with the mean, max and std) and the
+grid-sharded one over ``n/2`` row x 2 view ranks (exact and rectified),
+each through ``InferenceRunner(mesh=)`` against the runner without a mesh:
+each cascade stage's volume of the owned rows, rebuilt from the unsharded
+forward's origins, the disparities, and the kernel launches (every row rank
+builds all of its views, so each rank's count is the unsharded forward's
+under a ``(row,)`` mesh, and the view ranks of a row sum to it on a grid).
+
 The ranks run the port alone (the children import nothing else), which is
 what the CPU tests and ``chip_smoke.py`` both call: on the CPU at
 :data:`SMALL`, on one card as two ranks sharing it (NCCL refuses two ranks
@@ -61,6 +71,22 @@ SMALL = {
                   batch_file=None, tol=dict(rtol=1e-3, atol=2e-5),
                   grad_rtol=1e-4, loss_tol=dict(rtol=1e-5, atol=1e-7)),
     "fusion": dict(n_views=8, H=24, W=32),
+    # 4 row ranks of GHOST_RECT feature rows each: H = 4 x 4 x 16
+    "spatial": dict(scene="lateral", H=256, W=48, N=5,
+                    model=dict(cascade=((8, 64, 2), (-1, 320, 2)),
+                               hyp_chunk=4, dtype="float32",
+                               lookup_impl="pallas"),
+                    rect_lambda_max=0.1, damp=1e-3, n_view=2,
+                    # the features' norm takes its moments in another
+                    # order, and the bands' translated homographies round
+                    # the warps' positions otherwise: up to 3e-6 of the
+                    # largest |value|
+                    volume_tol=dict(rtol=1e-5, atol=1e-6),
+                    # of the largest |disparity| (~3e-4 to 6e-4), from
+                    # each route's readings: exact 1.0e-6 to 1.8e-6,
+                    # rectified 1.7e-6 to 2.0e-6
+                    disp_tol=dict(exact=dict(rtol=2e-5, atol=1e-9),
+                                  rectified=dict(rtol=5e-5, atol=1e-9))),
 }
 
 
@@ -613,6 +639,145 @@ def fusion_task(root: str, device: str) -> dict:
     return out
 
 
+def spatial_task(spec, kind: str, case: str, device: str,
+                 aggregation=("mean",)) -> dict:
+    """The ``kind`` ("row" or "grid") sharded forward of ``case`` ("exact"
+    or "rectified") on this rank through ``InferenceRunner(mesh=)``, and on
+    rank 0 also the runner without a mesh. Every rank rebuilds its stage
+    volumes from the unsharded forward's origins (its extended rows of
+    them), and the owned rows are gathered: rank 0 holds the errors of the
+    volumes and the disparities. ``spec``'s ``tf32`` False turns TF32 off
+    for the task (cuDNN's fp32 convolutions default to it)."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    if spec.get("tf32") is False:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    try:
+        return _spatial_task(spec, kind, case, torch.device(device),
+                             aggregation)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+
+
+class _TimedCollectives:
+    """An observer of ``spatial.observe_collectives``: each collective (the
+    halo exchanges, the gathers, the norms' moments and a grid's view sum)
+    run between two device syncs, its count, seconds and bytes kept."""
+
+    def __init__(self, device):
+        self.device = device
+        self.n, self.s, self.bytes = 0, 0.0, 0
+
+    def __call__(self, nbytes: int, run) -> None:
+        _sync(self.device)
+        t0 = time.perf_counter()
+        run()
+        _sync(self.device)
+        self.s += time.perf_counter() - t0
+        self.n += 1
+        self.bytes += nbytes
+
+
+def _timed_collectives(fwd, runner, args, device) -> dict:
+    """One more forward of ``fwd`` with its collectives timed alone
+    (:class:`_TimedCollectives`): their count, bytes and seconds, and the
+    forward's seconds."""
+    from cermvs_torch.parallel.spatial import observe_collectives
+
+    timed = _TimedCollectives(device)
+    with observe_collectives(timed):
+        _sync(device)
+        t0 = time.perf_counter()
+        fwd(runner.model, *args)
+        _sync(device)
+        total = time.perf_counter() - t0
+    return {"n": timed.n, "bytes": timed.bytes, "s": timed.s,
+            "forward_s": total}
+
+
+def _stage_volumes(fwd, model, args, origins) -> List[torch.Tensor]:
+    """The stage volumes of ``fwd`` on ``args`` (its extended rows), each
+    built from its own origin of ``origins`` on the context that
+    ``fwd.context`` returns: the construction alone, apart from the
+    origins the forward computes."""
+    with torch.no_grad():
+        ctx = fwd.context(model, *args)
+        out = []
+        for stage, o in enumerate(origins):
+            n_hyp, n_div, _ = model.cascade[stage]
+            out.append(fwd.volume(ctx, o, model.auto_hyps(n_hyp),
+                                  0.0025 / n_div, zero_slab=(stage == 0)))
+        return out
+
+
+def _spatial_task(spec, kind, case, device, aggregation) -> dict:
+    from cermvs_torch.ops import cudalib
+    from cermvs_torch.parallel.mesh import make_row_mesh, rank, world
+    from cermvs_torch.parallel.spatial import gather_rows
+    from cermvs_torch.pipeline.inference import InferenceRunner
+
+    model = _model(dict(spec, model=dict(spec["model"], aggregation=tuple(
+        aggregation))), True, device)
+    images, poses, intr = forward_scene(spec)
+    kw = dict(construction=case, device=device,
+              rect_lambda_max=spec["rect_lambda_max"])
+    mesh = make_row_mesh(n_view=spec["n_view"] if kind == "grid" else 1)
+    runner = InferenceRunner(model=model, mesh=mesh, **kw)
+    r = runner.route(images[None], poses[None], intr[None], [1.0])
+    fwd = r.volume_fn
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    _sync(device)
+    cudalib.reset_launches()
+    disp = fwd(runner.model, *r.args)
+    _sync(device)
+    launches = dict(cudalib.launches)
+    t0 = time.perf_counter()
+    fwd(runner.model, *r.args)
+    _sync(device)
+    secs = time.perf_counter() - t0
+    collectives = _timed_collectives(fwd, runner, r.args, device)
+    out = {"collectives": collectives, "path": r.path, "disp": disp.float().cpu().numpy(),
+           "launches": launches, "s": secs, "views": list(fwd.views),
+           "graphs": runner.graphs, "eager_reason": runner.eager_reason,
+           "band_h": fwd.band_h, "shape_multiple": runner.shape_multiple,
+           "peak_bytes": (torch.cuda.max_memory_allocated(device)
+                          if device.type == "cuda" else 0)}
+    origins = [None]
+    if rank(world()) == 0:
+        plain = InferenceRunner(model=model, **kw)
+        p_path, p_disp, p_rec, p_launches, p_secs = _forward(
+            plain, images, poses, intr)
+        origins = [[c[0].cpu() for c in p_rec.calls]]
+        p_vols = [v.cpu().numpy() for v in p_rec.volumes]
+        out.update(plain_path=p_path, plain_launches=p_launches,
+                   plain_s=p_secs, disp_err=_err(out["disp"], p_disp),
+                   disp_max=float(np.abs(p_disp).max()))
+    dist.broadcast_object_list(origins, src=0)
+    g, rows = fwd.ghost, images.shape[1] // 4 // fwd.n_rows
+    a = rank(fwd.row_group) * rows
+    # the construction alone, from the unsharded forward's origins with the
+    # rows beyond the image edge-extended, as the unsharded origin warp
+    # clamps its positions to the image. The forward's own ghost rows there
+    # are zeros, as in the JAX package (the banded origin warp of the first
+    # and last ranks reads them for rect pixels within ~2 rows of the
+    # edge), so this check does not show the first and last ranks' own
+    # stage volumes: the disparities do
+    ext = [torch.nn.functional.pad(o, (0, 0, g, g), mode="replicate")[
+        :, :, a:a + rows + 2 * g].to(device) for o in origins[0]]
+    vols = [gather_rows(v[:, :, g:g + rows].contiguous(), fwd.row_group, 2)
+            for v in _stage_volumes(fwd, runner.model, r.args, ext)]
+    if rank(world()) == 0:
+        _require(len(vols) == len(p_vols), f"{kind} {case}: {len(vols)} "
+                 f"stages rebuilt against {len(p_vols)}")
+        out.update(volume_err=[_err(a.cpu().numpy(), b)
+                               for a, b in zip(vols, p_vols)],
+                   volume_max=[float(np.abs(b).max()) for b in p_vols])
+    return out
+
+
 # ---------------------------------------------------------------------------
 # The dry run
 # ---------------------------------------------------------------------------
@@ -733,6 +898,95 @@ def dryrun_multiprocess(n: int = 2, device: str = "cuda",
         report["fusion"] = res[0]
         _require(res[0]["equal"] and res[0]["points"] > 0,
                  f"sharded fusion differs from one process's: {res[0]}")
+        return report
+    finally:
+        if own:
+            world.close()
+
+
+# the kernels a view's warps and volume launch: a grid's view ranks share
+# them, where each runs every lookup of the iterations
+PER_VIEW_KERNELS = ("epiband_fwd", "hat_rows_fwd")
+
+SPATIAL_CASES = (("row", "exact", ("mean",)), ("row", "rectified", ("mean",)),
+                 ("row", "exact", ("mean", "max", "std")),
+                 ("grid", "exact", ("mean",)), ("grid", "rectified",
+                                                ("mean",)))
+
+
+def spatial_label(kind: str, case: str, aggregation) -> str:
+    """The report's name of a row or grid case: "row_rectified", or
+    "row_exact_mean_max_std" for another aggregation than the mean."""
+    return "_".join((kind, case) + (() if tuple(aggregation) == ("mean",)
+                                    else tuple(aggregation)))
+
+
+def dryrun_spatial(n: int = 4, device: str = "cuda",
+                   spec: Optional[dict] = None,
+                   world: Optional[World] = None,
+                   cases=SPATIAL_CASES) -> dict:
+    """Run the row and grid checks of the module docstring on ``n`` ranks
+    (a ``world`` of them, or one started here and closed at the end) on
+    ``device`` for each of ``cases`` (kind, construction, aggregation);
+    ``spec``: the sizes and tolerances (default ``SMALL["spatial"]``; the
+    disparities' per construction). Returns a report of every case and
+    raises ``AssertionError`` naming the first check that failed."""
+    spec = spec or SMALL["spatial"]
+    own = world is None
+    world = world or World(n, device)
+    try:
+        report: Dict[str, Any] = {"n": n, "device": device}
+        for kind, case, aggregation in cases:
+            label = spatial_label(kind, case, aggregation)
+            res = world.run(spatial_task, spec, kind, case, device,
+                            aggregation)
+            r0 = res[0]
+            plain = {k: v for k, v in r0["plain_launches"].items() if v}
+            report[label] = {
+                "path": r0["path"], "views": [x["views"] for x in res],
+                "band_h": r0["band_h"],
+                "shape_multiple": r0["shape_multiple"],
+                "volume_err": r0["volume_err"],
+                "volume_max": r0["volume_max"], "disp_err": r0["disp_err"],
+                "disp_max": r0["disp_max"], "graphs": r0["graphs"],
+                "eager_reason": r0["eager_reason"],
+                "s": [x["s"] for x in res], "plain_s": r0["plain_s"],
+                "launches_by_rank": [x["launches"] for x in res],
+                "plain_launches": plain,
+                "collectives": [x["collectives"] for x in res],
+                "peak_bytes": [x["peak_bytes"] for x in res]}
+            _require(r0["path"] == r0["plain_path"] == case,
+                     f"{label}: routes {r0['path']}, {r0['plain_path']}")
+            for e, m in zip(r0["volume_err"], r0["volume_max"]):
+                _require(_close(e, m, spec["volume_tol"]),
+                         f"{label}: stage volume |diff| {e:.3e} (max "
+                         f"{m:.3e})")
+            _require(_close(r0["disp_err"], r0["disp_max"],
+                            spec["disp_tol"][case]),
+                     f"{label}: disparity |diff| {r0['disp_err']:.3e} (max "
+                     f"{r0['disp_max']:.3e})")
+            for x in res[1:]:
+                _require(np.array_equal(x["disp"], r0["disp"]),
+                         f"{label}: the ranks' disparities differ")
+            # a grid's ranks are row-major: the view ranks of row i are
+            # i * n_view .. (i + 1) * n_view - 1; they share the views'
+            # warps and volumes and each runs every lookup
+            nv = spec["n_view"] if kind == "grid" else 1
+            for i in range(0, n, nv):
+                got: Dict[str, int] = {}
+                for x in res[i:i + nv]:
+                    for k, v in x["launches"].items():
+                        if k in PER_VIEW_KERNELS or x is res[i]:
+                            got[k] = got.get(k, 0) + v
+                _require({k: v for k, v in got.items() if v} == plain,
+                         f"{label}: launches of ranks {i}..{i + nv - 1} "
+                         f"{[x['launches'] for x in res[i:i + nv]]} "
+                         f"against unsharded {plain}")
+                for x in res[i + 1:i + nv]:
+                    _require(all(v == x["launches"].get(k, 0)
+                                 for k, v in res[i]["launches"].items()
+                                 if k not in PER_VIEW_KERNELS),
+                             f"{label}: the view ranks' lookups differ")
         return report
     finally:
         if own:

@@ -35,7 +35,8 @@ import torch.distributed as dist
 from cermvs_torch.ops.corr import ExactVolume
 from cermvs_torch.ops.corr_rectified import MixedVolume, RectifiedVolume
 from cermvs_torch.ops.rectify import RectPlan, subplan
-from cermvs_torch.parallel.mesh import rank, view_group, world_size
+from cermvs_torch.parallel.mesh import (AXES, check_mesh, rank, view_group,
+                                        world_size)
 
 
 def shard_views(n_views: int, n_ranks: int, rect_views=None):
@@ -159,6 +160,7 @@ def view_sharded_forward(model, images, poses, intrinsics, scale, mesh,
     del view_scan
     if plan is not None and plan.ok and images.shape[0] != 1:
         raise ValueError("the rectified view-sharded forward takes B == 1")
+    check_mesh(mesh, (AXES,), "the view-sharded forward's mesh")
     volume = ViewShardedVolume(images.shape[1] - 1, view_group(mesh), plan,
                                rect_views)
     with torch.no_grad():

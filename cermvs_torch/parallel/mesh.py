@@ -12,9 +12,11 @@ mesh axis, the port reduces over that axis's process group:
   * ``multihost_utils.process_allgather``: :func:`process_allgather`.
 
 ``data`` carries data-parallel training (``training/train.py``), ``view``
-the neighbour views of view-sharded inference (``parallel/infer.py``).
-With no process group initialised every entry point runs on its own, as it
-always did.
+the neighbour views of view-sharded inference (``parallel/infer.py``),
+``row`` the image rows of row-sharded inference (``parallel/spatial.py``):
+a ``(row,)`` mesh (:func:`make_row_mesh`), or a ``(row, view)`` grid with
+the views over its second axis. With no process group initialised every
+entry point runs on its own, as it always did.
 
 CUDA graphs: an NCCL collective can be captured once its communicator
 exists (:func:`initialize_distributed` makes it eagerly); a gloo collective
@@ -32,8 +34,9 @@ import torch
 import torch.distributed as dist
 
 AXES = ("data", "view")
-NOT_PORTED = ("row and grid sharding (a mesh with a 'row' axis) is not "
-              "ported yet (ROADMAP Queue 1 item 6)")
+ROW_AXES = ("row",)
+GRID_AXES = ("row", "view")
+MESHES = (AXES, ROW_AXES, GRID_AXES)
 
 
 def is_initialized() -> bool:
@@ -120,15 +123,39 @@ def make_mesh(n_data: Optional[int] = None, n_view: int = 1):
                             mesh_dim_names=AXES)
 
 
-def _check_mesh(mesh):
-    """A mesh the port takes: a DeviceMesh with the axes (data, view) over
-    every rank. Anything else raises, naming what is not ported."""
+def make_row_mesh(n_row: Optional[int] = None, n_view: int = 1):
+    """A ``(row,)`` DeviceMesh over every rank of the default group, or with
+    ``n_view`` > 1 a ``(row, view)`` grid (``n_row`` defaults to the world
+    size over ``n_view``): the meshes the JAX package's ``InferenceRunner``
+    takes as ``row_mesh`` and ``grid_mesh``."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    n = world_size(world())
+    if n_row is None:
+        n_row = n // n_view
+    if n_row * n_view != n:
+        raise ValueError(f"mesh {n_row}x{n_view} != {n} ranks")
+    if n_view == 1:
+        return init_device_mesh(device_type, (n_row,),
+                                mesh_dim_names=ROW_AXES)
+    return init_device_mesh(device_type, (n_row, n_view),
+                            mesh_dim_names=GRID_AXES)
+
+
+def check_mesh(mesh, kinds=MESHES, what: str = "a mesh"):
+    """``mesh`` if it is a DeviceMesh over every rank whose axes are one of
+    ``kinds``; else a ValueError naming the meshes taken (``what``: the
+    mesh's role, for the message)."""
     from torch.distributed.device_mesh import DeviceMesh
 
-    if not isinstance(mesh, DeviceMesh) or mesh.mesh_dim_names != AXES:
-        raise NotImplementedError(
-            f"a mesh must be a DeviceMesh with the axes {AXES} "
-            f"(parallel.make_mesh); {NOT_PORTED}")
+    names = mesh.mesh_dim_names if isinstance(mesh, DeviceMesh) else None
+    if names not in kinds:
+        raise ValueError(
+            f"{what} must be a DeviceMesh with the axes "
+            f"{' or '.join(map(str, kinds))}, got "
+            f"{names or type(mesh).__name__} (parallel.make_mesh and "
+            f"make_row_mesh make them)")
     if mesh.size() != world_size(world()):
         raise ValueError(f"the mesh spans {mesh.size()} of "
                          f"{world_size(world())} ranks")
@@ -136,13 +163,28 @@ def _check_mesh(mesh):
 
 
 def view_group(mesh):
-    """The process group of the mesh's ``view`` axis through this rank."""
-    return _check_mesh(mesh).get_group("view")
+    """The process group of the mesh's ``view`` axis through this rank;
+    None for a ``(row,)`` mesh, whose ranks each hold every view."""
+    if check_mesh(mesh).mesh_dim_names == ROW_AXES:
+        return None
+    return mesh.get_group("view")
+
+
+def row_group(mesh):
+    """The process group of the mesh's ``row`` axis through this rank; None
+    for a ``(data, view)`` mesh, whose ranks each hold every row."""
+    if check_mesh(mesh).mesh_dim_names == AXES:
+        return None
+    return mesh.get_group("row")
 
 
 def mesh_group(mesh):
-    """The process group of every rank of the mesh (the default group)."""
-    _check_mesh(mesh)
+    """The process group of every rank of a ``(data, view)`` mesh (the
+    default group). Fusion shards its reference views over those ranks, as
+    the JAX package's does over ``(data, view)``; a mesh with a ``row``
+    axis shards rows of a forward, and fusion has none to shard."""
+    check_mesh(mesh, (AXES,), "fusion's mesh (reference views are sharded "
+               "over (data, view) only, as in the JAX package)")
     return dist.group.WORLD
 
 

@@ -1,5 +1,7 @@
-"""Depth-map inference on one device, or with the neighbour views sharded
-over the ranks of a mesh's ``view`` axis (``mesh=``, ``parallel/infer.py``).
+"""Depth-map inference on one device, or sharded over the ranks of a mesh
+(``mesh=``): the neighbour views over a ``(data, view)`` mesh's ``view``
+axis (``parallel/infer.py``), the image rows over a ``(row,)`` mesh, or
+both over a ``(row, view)`` grid (``parallel/spatial.py``).
 
 ``InferenceRunner`` owns the model and picks the cost-volume construction
 per batch; ``inference()`` runs every reference view of a loader as a
@@ -22,8 +24,10 @@ The forward of each ``(shape, dtype, construction key)`` is the JAX
 package's compiled program's counterpart: on a CUDA runner the key's first
 dispatch runs eagerly and then captures the same forward in a CUDA graph,
 which every later dispatch of the key replays (:meth:`InferenceRunner._fn`).
-Under a view mesh the same keys route through ``ViewShardedVolume``: a
-graph holds its NCCL ``all_reduce`` calls, and under gloo, whose
+Under a view mesh the same keys route through ``ViewShardedVolume``; under
+a row or grid mesh through ``SpatialForward``, the exact construction or,
+where the scene allows it, the banded rectified one (the JAX package's
+``_row_plan``). A graph holds the NCCL collectives, and under gloo, whose
 collectives cannot be captured, every forward runs eagerly.
 
 The pipeline: a thread prepares items two ahead (scale, crop, pad, the bf16
@@ -56,11 +60,14 @@ from cermvs_torch.ops.corr_rectified import (make_mixed_volume_fn,
                                              make_rectified_volume_fn)
 from cermvs_torch.ops.rectify import (PlanCache, RectPlan,
                                       plan_rectification,
-                                      plan_rectification_partial, plan_union,
+                                      plan_rectification_partial,
+                                      plan_row_bands, plan_union,
                                       rect_cost_ratio)
 from cermvs_torch.parallel.infer import ViewShardedVolume
-from cermvs_torch.parallel.mesh import (collectives_capturable, rank,
-                                        view_group, world, world_size)
+from cermvs_torch.parallel.mesh import (check_mesh, collectives_capturable,
+                                        rank, row_group, view_group, world,
+                                        world_size)
+from cermvs_torch.parallel.spatial import GHOST_RECT, SpatialForward
 
 
 def _prefetched(iterable, fn, depth: int = 2):
@@ -145,7 +152,9 @@ class Fetch(NamedTuple):
 class Routed(NamedTuple):
     """One dispatch as the forward takes it: the inputs on the device, the
     neighbours in the routed order, and the volume construction (None for
-    exact) with its cache key and route name."""
+    exact; a ``SpatialForward`` under a row or grid mesh) with its cache key
+    and route name; ``q0``: the band starts of the banded rectified
+    construction, on the device."""
 
     images: torch.Tensor
     poses: torch.Tensor
@@ -154,6 +163,12 @@ class Routed(NamedTuple):
     volume_fn: object
     key: object
     path: str
+    q0: Optional[torch.Tensor] = None
+
+    @property
+    def args(self) -> tuple:
+        """The forward's inputs: the first four fields, and ``q0`` if any."""
+        return tuple(self[:4]) + (() if self.q0 is None else (self.q0,))
 
 
 class GraphedForward:
@@ -201,9 +216,13 @@ class InferenceRunner:
     rank with the same inputs and the same disparities out. Routing is the
     one without a mesh, with the warped features' memory shared by the view
     ranks (the JAX package's ``mem_shards``); a batch of several views runs
-    exact. Under gloo the forwards run eagerly (:attr:`graphs` False,
-    :attr:`eager_reason` says why). A mesh of another kind (a ``row``
-    axis) raises ``NotImplementedError``.
+    exact. A ``(row,)`` or ``(row, view)`` DeviceMesh
+    (``parallel.make_row_mesh``; :attr:`row_mesh`, :attr:`grid_mesh`):
+    each rank computes its rows (and on a grid its share of the views) and
+    the full disparities are gathered on every rank; batch 1, H a multiple
+    of :attr:`shape_multiple`, routed by :meth:`row_plan`. Under gloo the
+    forwards run eagerly (:attr:`graphs` False, :attr:`eager_reason` says
+    why). A mesh of another kind raises ``ValueError``.
     """
 
     def __init__(self, model: Optional[RAFT] = None, params=None,
@@ -221,8 +240,14 @@ class InferenceRunner:
         accepted so that both packages take the same arguments, and changes
         nothing: the port's kernel takes any window (ROADMAP North star)."""
         del max_k_chunks
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.view_group = view_group(mesh) if mesh is not None else None
-        self.view_shards = world_size(self.view_group)
+        self.row_group = row_group(mesh) if mesh is not None else None
+        # the ranks that share the warped features' memory: the view
+        # ranks, or under a row mesh the row ranks (each holds bands)
+        self.memory_shards = world_size(
+            self.row_group if self.row_group is not None
+            else self.view_group)
         if construction not in ("auto", "exact", "rectified"):
             raise ValueError(f"unknown construction {construction!r}")
         self.device = torch.device(device)
@@ -256,10 +281,12 @@ class InferenceRunner:
         self.last_capture_s = 0.0
         self._static_inputs: Dict[tuple, tuple] = {}
         cuda = self.device.type == "cuda"
-        self.graphs = cuda and collectives_capturable(self.view_group)
+        group = (self.row_group if self.row_group is not None
+                 else self.view_group)
+        self.graphs = cuda and collectives_capturable(group)
         self.eager_reason = (
             None if self.graphs else "a CPU runner" if not cuda else
-            f"{torch.distributed.get_backend(self.view_group)} collectives "
+            f"{torch.distributed.get_backend(group)} collectives "
             f"cannot be captured in a CUDA graph")
         # the stream inference()'s prep thread uploads frames on
         self.upload_stream = torch.cuda.Stream(self.device) if cuda else None
@@ -287,7 +314,59 @@ class InferenceRunner:
         """The warped features' bytes on each card: a view rank holds its
         share of the views."""
         return (2 * batch * n_views * plan.h_r * (plan.w_r + plan.ws_r)
-                * self.model.dim_fmap) // self.view_shards
+                * self.model.dim_fmap) // self.memory_shards
+
+    @property
+    def row_mesh(self) -> bool:
+        """A ``(row,)`` mesh: the image rows over its ranks."""
+        return self.row_group is not None and self.view_group is None
+
+    @property
+    def grid_mesh(self) -> bool:
+        """A ``(row, view)`` mesh: rows and neighbour views."""
+        return self.row_group is not None and self.view_group is not None
+
+    @property
+    def shape_multiple(self) -> int:
+        """The multiple of the image's H and W a forward takes
+        (``inference()`` crops to it): the encoder's stride, or 8 x the row
+        ranks under a row or grid mesh."""
+        f = self.model.stride_factor
+        if self.row_group is not None:
+            return max(f, 8 * world_size(self.row_group))
+        return f
+
+    def row_plan(self, poses, intrinsics, scale, img_shape):
+        """The banded rectified construction's key ``(plan, band_h)`` and
+        band starts ``q0`` (n_row, V) under a row or grid mesh, or
+        ``(None, None)`` for the exact one, as the JAX package's
+        ``_row_plan`` decides: the mean aggregation, H a multiple of 8 x
+        the row ranks with ``GHOST_RECT`` feature rows a rank, and a plan
+        :meth:`plan_for` accepts."""
+        if not self.model.mean_volume:
+            return None, None
+        n = world_size(self.row_group)
+        f = self.model.stride_factor
+        H, W = img_shape
+        h = H // f
+        if H % (8 * n) or h // n < GHOST_RECT:
+            if not self._warned_fallback:
+                warnings.warn(
+                    f"row-mesh rectified bands unavailable (H={H} needs "
+                    f"H % {8 * n} == 0 and >= {GHOST_RECT} feature rows a "
+                    f"rank); using the exact row-sharded path")
+                self._warned_fallback = True
+            return None, None
+        plan = self.plan_for(poses, intrinsics, scale, img_shape)
+        if not plan.ok:
+            return None, None
+        intr = np.asarray(intrinsics, np.float64).copy()
+        intr[..., :2, :] /= f
+        # the rect homographies are scale-invariant (rotations and
+        # centring), so the unscaled poses give the bands of any rescale
+        q0, band_h = plan_row_bands(np.asarray(poses, np.float64), intr, h,
+                                    W // f, plan, n, GHOST_RECT)
+        return (plan, band_h), q0
 
     def plan_for(self, poses, intrinsics, scale, img_shape) -> RectPlan:
         """Host-side rectification plan on the scaled, feature-stride
@@ -351,11 +430,20 @@ class InferenceRunner:
     def _volume(self, key, n_views: int):
         """The construction of a key, made once: None for the model's exact
         one, a RectPlan's rectified one, a ``(plan, rect_views)`` mixed one;
-        under a view mesh this rank's ``ViewShardedVolume`` of it."""
-        if self.view_group is None and key is None:
+        under a view mesh this rank's ``ViewShardedVolume`` of it, under a
+        row or grid mesh its ``SpatialForward`` (key None or ``(plan,
+        band_h)``)."""
+        meshed = self.mesh is not None
+        if not meshed and key is None:
             return None
-        vkey = (key, n_views) if self.view_group is not None else key
-        if vkey not in self._volumes:
+        vkey = (key, n_views) if meshed else key
+        if vkey in self._volumes:
+            return self._volumes[vkey]
+        if self.row_group is not None:
+            plan, band_h = key if key is not None else (None, 0)
+            self._volumes[vkey] = SpatialForward(
+                n_views, self.row_group, self.view_group, plan, band_h)
+        else:
             plan, rect_views = (key if isinstance(key, tuple)
                                 else (key, None))
             if self.view_group is not None:
@@ -445,7 +533,7 @@ class InferenceRunner:
 
         def eager(*args):
             with torch.no_grad():
-                return self.model(*args, volume_fn=volume_fn)
+                return self._call(args, volume_fn)
 
         if not self.graphs:
             self._cache[cache_key] = eager
@@ -459,6 +547,13 @@ class InferenceRunner:
             return out
 
         return first
+
+    def _call(self, args, volume_fn):
+        """The forward of ``args`` through ``volume_fn``: the model with
+        that construction, or a ``SpatialForward`` of the model."""
+        if isinstance(volume_fn, SpatialForward):
+            return volume_fn(self.model, *args)
+        return self.model(*args, volume_fn=volume_fn)
 
     def _capture(self, args, volume_fn) -> GraphedForward:
         """Capture the forward on static inputs shaped as ``args``, shared
@@ -486,14 +581,15 @@ class InferenceRunner:
                 torch.cuda.graph(graph, pool=self._pool,
                                  stream=self._capture_stream,
                                  capture_error_mode="thread_local"):
-            out = self.model(*static, volume_fn=volume_fn)
+            out = self._call(static, volume_fn)
         return GraphedForward(graph, static, out, launches)
 
     def route(self, images, poses, intrinsics, scales) -> Routed:
         """Route a batch as :meth:`submit_batch` does and return the
         forward's inputs on the device, its construction and key
         (``runner.model(*routed[:4], volume_fn=routed.volume_fn)`` is the
-        eager forward)."""
+        eager forward; under a row or grid mesh
+        ``routed.volume_fn(runner.model, *routed.args)``)."""
         poses = np.asarray(poses, np.float32)
         intrinsics = np.asarray(intrinsics, np.float32)
         scales = [float(s) for s in scales]
@@ -501,8 +597,19 @@ class InferenceRunner:
             images = self._take(images)
         elif not torch.is_tensor(images):
             images = to_bf16(images)
-        key, path = None, "exact"
-        if (self.construction == "rectified" and images.shape[0] > 1
+        key, path, q0 = None, "exact", None
+        if self.row_group is not None:
+            if images.shape[0] != 1:
+                raise ValueError("row and grid sharding take batch 1")
+            if self.construction != "exact":
+                order = self.neighbor_order(poses[0])
+                images = images[:, torch.as_tensor(order,
+                                                   device=images.device)]
+                poses, intrinsics = poses[:, order], intrinsics[:, order]
+                key, q0 = self.row_plan(poses[0], intrinsics[0], scales[0],
+                                        images.shape[2:4])
+                path = "exact" if key is None else "rectified"
+        elif (self.construction == "rectified" and images.shape[0] > 1
                 and self.view_group is None):
             if not self._warned_batched_rect:
                 warnings.warn(
@@ -528,7 +635,9 @@ class InferenceRunner:
         return Routed(images.to(dev), torch.from_numpy(poses).to(dev),
                       torch.from_numpy(intrinsics).to(dev),
                       torch.tensor(scales, dtype=torch.float32, device=dev),
-                      self._volume(key, poses.shape[1] - 1), key, path)
+                      self._volume(key, poses.shape[1] - 1), key, path,
+                      None if q0 is None else torch.from_numpy(
+                          q0.astype(np.int64)).to(dev))
 
     def submit_batch(self, images, poses, intrinsics, scales) -> torch.Tensor:
         """A batch of B reference views with their neighbours -> disparities
@@ -548,7 +657,7 @@ class InferenceRunner:
         """The forward of a routed dispatch: its key's (:meth:`_fn`)."""
         fn = self._fn((tuple(r.images.shape[:4]), r.images.dtype, r.key),
                       r.volume_fn)
-        return fn(r.images, r.poses, r.intrinsics, r.scales)
+        return fn(*r.args)
 
     def submit(self, images, poses, intrinsics, scale) -> torch.Tensor:
         """images (N, H, W, 3) in [0, 255] -> disparity (1, h, w) on device."""
@@ -610,10 +719,12 @@ def inference(test_loader, ckpt=None, output_folder="results",
     (with ``view_batch <= 1``, on a CUDA runner): the prep thread casts the
     frames into pinned memory and uploads them on the runner's upload
     stream, so the copy overlaps the previous forward; otherwise the
-    forward's dispatch uploads them. ``mesh``: a ``(data, view)``
-    DeviceMesh: every rank of its view axis reads every item and computes
-    the same disparities, each forward view-sharded (``InferenceRunner``),
-    with no pinned side-stream upload; rank 0 writes the files.
+    forward's dispatch uploads them. ``mesh``: a ``(data, view)``,
+    ``(row,)`` or ``(row, view)`` DeviceMesh: every rank reads every item
+    and gets the same disparities, each forward sharded
+    (``InferenceRunner``), with no pinned side-stream upload; under a row
+    or grid mesh the frames are cropped to the runner's
+    ``shape_multiple``; rank 0 writes the files.
 
     Returns one ``(name, seconds, construction, capture_s)`` record per
     view. ``seconds`` is pipeline-inclusive, as the JAX package's report is:
@@ -626,7 +737,7 @@ def inference(test_loader, ckpt=None, output_folder="results",
     dispatch's lies in no record's interval.
     """
     if mesh is not None:
-        view_group(mesh)  # a mesh of another kind raises before any work
+        check_mesh(mesh)  # a mesh of another kind raises before any work
     if model is None and params is None:
         if ckpt is None:
             raise ValueError("need model, params or a ckpt path")
@@ -651,7 +762,7 @@ def inference(test_loader, ckpt=None, output_folder="results",
     output_folder = Path(output_folder)
     (output_folder / "depths").mkdir(exist_ok=True, parents=True)
     num_frames = test_loader.dataset.num_frames
-    factor = runner.model.stride_factor
+    factor = runner.shape_multiple
     prefetch = (device_prefetch and view_batch <= 1 and mesh is None
                 and runner.upload_stream is not None)
     writer = mesh is None or rank(world()) == 0

@@ -162,7 +162,23 @@ Phases (any failure raises, so the exit code is non-zero):
      of a sphere's true depths against one process's cloud; (c) ``torchrun
      --nproc_per_node=1 -m cermvs_torch.launch_distributed -g train_DTU -p
      train.num_steps=1`` on phase 8's tree. Two ranks on one card show
-     correctness and the split of the work, not scaling.
+     correctness and the split of the work, not scaling;
+ 15. the row and grid axes (``parallel/spatial.py``): (a) a ``(row,)``
+     mesh of one NCCL rank (``make_row_mesh``) on phase 4's scene with the
+     shipped model (delta heads damped): the exact and banded rectified
+     routes through ``InferenceRunner(mesh=)``, a replay bit for bit the
+     eager forward with the collectives in the graph, both against the
+     runner without a mesh at ``SPATIAL_ONE_TOL``, replays timed in turns;
+     (b) ``dryrun_spatial(4, "cuda")``: four gloo ranks sharing this card,
+     rows over four (exact, banded rectified, exact with the mean, max and
+     std) and a 2 x 2 grid (exact, rectified), fp32 with two GRU
+     iterations a stage and TF32 off, each against the unsharded forward
+     on each stage's owned rows (rebuilt from its origins) and on the
+     disparities, each rank's epiband, hat and lookup launches (a row rank
+     launches the unsharded forward's count, a grid's view ranks share
+     it), its collectives timed alone, its seconds and peak; (c) a
+     band-shaped epiband and hat launch (four row ranks' band of phase 4's
+     plan) against their plain versions, timed.
 
 Each phase from 6 on first prints the device memory the phases before it
 left (their runners' graph pools released).
@@ -341,6 +357,28 @@ PAR_TRAIN_TOL = dict(      # phase 14: a step of batch 1 + 1 against 2,
     loss_tol=dict(rtol=1e-4, atol=0.0))     # (4.2e-6 there); the
 #                            weights, each moved by ~lr either way by one
 #                            AdamW step, say nothing more
+SPATIAL_ONE_TOL = dict(    # phase 15(a): a (row,) mesh of one NCCL rank
+    rtol=5e-2, atol=1e-6)  # against the unmeshed runner, of the largest
+#                            |disparity|: the shipped bf16 model, 16 GRU
+#                            iterations, delta heads damped 1e-3; the
+#                            encoders' convolutions take their rows padded
+#                            by a halo (another cuDNN call) and the norm its
+#                            moments in two passes, so bf16 features round
+#                            otherwise here and there
+SPATIAL_SPEC = dict(       # phase 15(b): four gloo ranks sharing the card
+    scene="ring", N=11, rect_lambda_max=0.00375, damp=1e-3, n_view=2,
+    model=dict(dtype="float32", cascade=((64, 64, 2), (-1, 320, 2)),
+               lookup_impl="pallas"),  # fp32, TF32 off, two iterations a
+    tf32=False,            # stage: the rows' differences are fp32 rounding
+    volume_tol=dict(rtol=1e-4, atol=1e-6),  # each stage's owned rows,
+    #                        rebuilt from the same origins, of the largest
+    #                        |value|
+    disp_tol=dict(         # of the largest |disparity| (4.3e-4 to 5.3e-4),
+        exact=dict(rtol=1e-4, atol=1e-9),   # from each route's readings
+        rectified=dict(rtol=7e-3, atol=1e-9)))  # on an H100: exact
+#                            1.6e-9 to 6.1e-9, rectified 1.97e-6 (the edge
+#                            ranks' origin rows, zeros beyond the image as
+#                            in the JAX package)
 PAR_FUSION = dict(n_views=6, H=576, W=800, kind="sphere")  # phase 14's
 #                            sharded fusion: a sphere's true depths
 
@@ -3416,6 +3454,230 @@ def phase_parallel(torch, tree, batch):
     return out, launches
 
 
+def hold_band_kernels(torch, plan, band_h, rows_ext, h, w):
+    """Phase 15(c): one band-shaped ``epiband_fwd`` launch (bf16, stage 1's
+    bases, the plan's widest view on ``band_h`` rect rows) and one
+    band-shaped ``hat_rows_fwd`` launch (bf16, the volume back-warp's second
+    pass: (w, band_h) -> (w, rows_ext)), each held against its plain
+    version at phase 6's tolerances, and timed. Returns each kernel's error
+    and row."""
+    from cermvs_torch.ops import epiband as eb
+    from cermvs_torch.ops import hatwarp as hwp
+
+    rng = np.random.RandomState(15)
+    vmax = int(np.argmax(plan.view_s_max))
+    s_v = plan.view_s_max[vmax]
+    ws = plan.ws_r - (plan.s_max - s_v)
+    (d0, inc0), (d1, inc1) = STAGES
+    rate = np.asarray(plan.view_rates)[vmax]
+    fr, fs, base, sigma = epiband_case(
+        torch, rng, band_h, plan.w_r, ws, C_FEAT, d1, "main",
+        tuple(rate * inc1), torch.bfloat16, (d0, inc0 / inc1))
+    args = (fr, fs, base, sigma, d1, s_v)
+    out = eb.epiband(*args)
+    torch.cuda.synchronize()
+    ref = eb.epiband_reference(*args)
+    errs = {"epiband_fwd": float((out - ref).abs().max())}
+    ok = {"epiband_fwd": bool(torch.allclose(out, ref, rtol=1e-3,
+                                             atol=1e-2))}
+    bound, by = epiband_bounds(torch, fr, fs, base, sigma, d1,
+                               s_v)["epiband_fwd"]
+    ms, device_ms = cuda_ms_both(torch, lambda: eb.epiband(*args), 20)
+    rows = {"epiband_fwd": dict(
+        shape=[1, band_h, plan.w_r, ws, C_FEAT], D=d1, ms=ms,
+        device_ms=device_ms, bound_ms=bound, bound_by=by,
+        plain_ms=cuda_ms(lambda: eb.epiband_reference(*args), 3))}
+    del out, ref, fr, fs
+    img, pos = hat_case(torch, rng, w, band_h, rows_ext, d1, torch.bfloat16)
+    out = hwp.hat_resample_rows(img, pos)
+    torch.cuda.synchronize()
+    ref = hwp.hat_resample_rows_reference(img, pos)
+    errs["hat_rows_fwd"] = float((out - ref).abs().max())
+    ok["hat_rows_fwd"] = bool(torch.allclose(out, ref, rtol=1e-5, atol=1e-5))
+    bound, by = hat_bounds(torch, img, pos)["hat_rows_fwd"]
+    ms, device_ms = cuda_ms_both(torch, lambda: hwp.hat_resample_rows(img,
+                                                                      pos))
+    lib = grid_sample_rows(torch, img, pos)
+    lib_ms, lib_device_ms = cuda_ms_both(torch, lib)
+    rows["hat_rows_fwd"] = dict(
+        shape=[w, band_h, rows_ext, d1], ms=ms, device_ms=device_ms,
+        bound_ms=bound, bound_by=by, library_ms=lib_ms,
+        library_device_ms=lib_device_ms,
+        plain_ms=cuda_ms(lambda: hwp.hat_resample_rows_reference(img, pos),
+                         3))
+    for name, row in rows.items():
+        print(f"phase 15: (c) {name} band {row['shape']} bf16: max|kernel - "
+              f"plain| {errs[name]:.3e} ok={ok[name]}; kernel "
+              f"{row['ms']:.4f} ms (device {row['device_ms']:.4f}), plain "
+              f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})" + (
+                  f", grid_sample {row['library_ms']:.4f} ms"
+                  if "library_ms" in row else ""), flush=True)
+        if not ok[name]:
+            raise RuntimeError(f"phase 15: band-shaped {name} disagrees "
+                               f"with its plain version")
+    return errs, rows
+
+
+def spatial_world_of_one(torch, mesh, model, scene):
+    """Phase 15(a): the exact and banded rectified routes through a runner
+    with a (row,) mesh of one NCCL rank and one without: the first dispatch
+    (eager, then the capture with the collectives inside) against a replay
+    bit for bit, and against the unmeshed runner at SPATIAL_ONE_TOL;
+    PAR_REPLAYS replays of each, in turns, timed. Returns the figures, the
+    meshed runs' launches, and the rectified route's plan."""
+    from cermvs_torch.ops import cudalib
+    from cermvs_torch.pipeline.inference import GraphedForward, InferenceRunner
+
+    images, poses, intr = scene
+    out, launches, plan = {}, {k: 0 for k in KERNELS}, None
+    for construction in ("exact", "rectified"):
+        meshed = InferenceRunner(model=model, mesh=mesh, device="cuda",
+                                 construction=construction)
+        plain = InferenceRunner(model=model, device="cuda",
+                                construction=construction)
+        cudalib.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        first = meshed.submit(images, poses, intr, 1.0).clone()
+        replay = meshed.submit(images, poses, intr, 1.0).clone()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        for k in KERNELS:
+            launches[k] += cudalib.launches.get(k, 0)
+        run = dict(cudalib.launches)
+        p_first = plain.submit(images, poses, intr, 1.0).clone()
+        graphed = [isinstance(f, GraphedForward)
+                   for f in meshed._cache.values()]
+        d_max = float(p_first.abs().max())
+        errs = {"replay": float((replay - first).abs().max()),
+                "unmeshed": float((first - p_first).abs().max())}
+        times = {"meshed": [], "plain": []}
+        for _ in range(PAR_REPLAYS):
+            for name, runner in (("plain", plain), ("meshed", meshed)):
+                t, _ = synced_s(torch, lambda: runner.submit(
+                    images, poses, intr, 1.0))
+                times[name].append(t)
+        (fwd,) = meshed._volumes.values()
+        if construction == "rectified":
+            plan = fwd.plan
+        out[construction] = {
+            "path": meshed.last_path, "graphed": graphed,
+            "graphs": meshed.graphs, "errs": errs, "disp_max": d_max,
+            "s": times, "launches": run, "peak_bytes": peak,
+            "band_h": fwd.band_h}
+        print(f"phase 15: (a) (row,) mesh of one, {construction}: path "
+              f"{meshed.last_path}/{plain.last_path}, captured {graphed}, "
+              f"band_h {fwd.band_h}; max|replay - eager| {errs['replay']}, "
+              f"max|meshed - unmeshed| {errs['unmeshed']:.3e} (of "
+              f"{d_max:.3e}); launches {run}; peak {peak / 2**30:.2f} GiB; "
+              f"replays s (meshed) {[round(t, 4) for t in times['meshed']]}"
+              f", (no mesh) {[round(t, 4) for t in times['plain']]}",
+              flush=True)
+        if not (meshed.last_path == plain.last_path == construction
+                and meshed.graphs and graphed == [True]):
+            raise RuntimeError(f"phase 15 {construction}: route or capture")
+        if errs["replay"] != 0.0:
+            raise RuntimeError(f"phase 15 {construction}: a replay is not "
+                               f"the eager forward bit for bit")
+        if errs["unmeshed"] > (SPATIAL_ONE_TOL["atol"]
+                               + SPATIAL_ONE_TOL["rtol"] * d_max):
+            raise RuntimeError(f"phase 15 {construction}: the meshed "
+                               f"forward is off the unmeshed one: {errs}")
+        del meshed, plain, fwd
+        released(torch, f"phase 15, {construction}")
+    return out, launches, plan
+
+
+def phase_spatial(torch):
+    """Phase 15: row and grid sharding (``parallel/spatial.py``). (a) A
+    (row,) mesh of one NCCL rank on phase 4's scene with the shipped model:
+    the exact and banded rectified routes through ``InferenceRunner(mesh=)``
+    against the runner without a mesh, and a replay bit for bit against
+    the eager forward with the collectives in the graph; (b) four gloo
+    ranks sharing this card (``dryrun.dryrun_spatial(4, "cuda")``): rows
+    over four (exact, rectified, exact with the mean, max and std) and a
+    2 x 2 grid (exact, rectified), each against the unsharded forward on
+    the stage volumes and the disparities, each rank's launches, peak and
+    seconds; (c) a band-shaped epiband and hat launch against their plain
+    versions. Returns the figures, (a)'s launches and (c)'s rows."""
+    import torch.distributed as dist
+
+    from cermvs_torch.models.raft import RAFT
+    from cermvs_torch.parallel import dryrun
+    from cermvs_torch.parallel.mesh import (initialize_distributed,
+                                            make_row_mesh)
+    from cermvs_torch.parallel.spatial import GHOST_RECT
+
+    t0 = time.perf_counter()
+    out = {}
+    scene = dtu_scene(H, W, NUM_FRAMES + 1)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        initialize_distributed("cuda", store=dist.FileStore(
+            str(Path(tmp) / "store"), 1), rank=0, world_size=1)
+        try:
+            model = RAFT(test_mode=True,
+                         generator=torch.Generator().manual_seed(0))
+            with torch.no_grad():
+                for i in range(len(model.cascade)):
+                    getattr(model.update_block, f"delta{i}")[2].weight.mul_(
+                        1e-3)
+            out["world_of_one"], launches, plan = spatial_world_of_one(
+                torch, make_row_mesh(), model, scene)
+            del model
+        finally:
+            dist.destroy_process_group()
+    released(torch, "phase 15 (b)")
+    t1 = time.perf_counter()
+    spec = dict(SPATIAL_SPEC, H=H, W=W)
+    report = dryrun.dryrun_spatial(4, "cuda", spec=spec)
+    for kind, case, aggregation in dryrun.SPATIAL_CASES:
+        label = dryrun.spatial_label(kind, case, aggregation)
+        f = report[label]
+        print(f"phase 15: (b) four gloo ranks, {label}: views {f['views']}, "
+              f"band_h {f['band_h']}, stage volumes max|sharded - one| "
+              f"{f['volume_err']} (of {f['volume_max']}), disparity "
+              f"{f['disp_err']:.3e} (of {f['disp_max']:.3e}); launches by "
+              f"rank {f['launches_by_rank']} against one rank's "
+              f"{f['plain_launches']}; eager ({f['eager_reason']}); a "
+              f"second forward {[round(t, 4) for t in f['s']]} s by rank "
+              f"against one rank's {f['plain_s']:.4f}; collectives timed "
+              f"alone (count, MiB, s of the forward's s) by rank "
+              f"{[(c['n'], round(c['bytes'] / 2**20, 1), round(c['s'], 4), round(c['forward_s'], 4)) for c in f['collectives']]}"
+              f"; peak allocated by rank "
+              f"{[round(b / 2**30, 2) for b in f['peak_bytes']]} GiB",
+              flush=True)
+    out["four_ranks"] = report
+    out["four_ranks_s"] = time.perf_counter() - t1
+    # (c) the band of four row ranks on phase 4's plan
+    h, w = H // 4, W // 4
+    hloc = h // 4
+    q0, band_h = plan_row_bands_of(scene, plan, 4)
+    errs, rows = hold_band_kernels(torch, plan, band_h, hloc + 2 * GHOST_RECT,
+                                   h, w)
+    out["band_kernels"] = {"q0": q0.tolist(), "band_h": band_h,
+                           "rows": rows}
+    out["s"] = time.perf_counter() - t0
+    print(f"phase 15: (b) in {out['four_ranks_s']:.1f} s; {out['s']:.1f} s",
+          flush=True)
+    return out, launches, errs, rows
+
+
+def plan_row_bands_of(scene, plan, n):
+    """``rectify.plan_row_bands`` of a (images, poses, intrinsics) scene
+    in the runner's neighbour order at the feature stride."""
+    from cermvs_torch.ops.rectify import plan_row_bands
+    from cermvs_torch.parallel.spatial import GHOST_RECT
+    from cermvs_torch.pipeline.inference import InferenceRunner
+
+    images, poses, intr = scene
+    order = InferenceRunner.neighbor_order(poses)
+    K4 = np.asarray(intr[order], np.float64).copy()
+    K4[..., :2, :] /= 4
+    return plan_row_bands(np.asarray(poses[order], np.float64), K4,
+                          images.shape[1] // 4, images.shape[2] // 4, plan, n,
+                          GHOST_RECT)
+
+
 def mark(ends, phase):
     """Record and print the seconds since the start at which ``phase``
     ended (where the run's time goes)."""
@@ -3664,6 +3926,9 @@ def main():
                                                  train_batch)
     mark(ends, "phase 14")
     dtu_dir.cleanup()
+    released(torch, "phase 15")
+    spatial, spatial_launches, band_errs, band_rows = phase_spatial(torch)
+    mark(ends, "phase 15")
     rows.update(lookup_rows)
 
     s0 = stages["stage0"]
@@ -3679,13 +3944,18 @@ def main():
             rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
     for name, row in demo.pop("kernel_rows_rescale2").items():
         rows[name]["demo_rescale2"] = row
+    for name, row in band_rows.items():
+        rows[name]["row_band"] = row
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                        band_errs[name])
     by_path = {"inference": infer_launches, "mixed": mixed["launches"],
                "demo": demo["launches"], "training": training["launches"],
                "training_fused_lookup": fused_training["launches"],
                "tnt_demo": tnt.pop("launches"),
                "custom_demo": custom.pop("launches"),
                "training_blended": blended.pop("launches"),
-               "parallel": parallel_launches}
+               "parallel": parallel_launches,
+               "parallel_spatial": spatial_launches}
     # launches: the main path's count of each kernel: the demo's for the
     # fused lookup forward, the fused-lookup training run's for its
     # gradient (the prefix-sum variant is on no path), training's for the
@@ -3725,7 +3995,7 @@ def main():
         "fused_lookup_training": {k: v for k, v in fused_training.items()
                                   if k != "launches"},
         "tnt_demo": tnt, "custom_demo": custom, "blended_training": blended,
-        "parallel": parallel,
+        "parallel": parallel, "parallel_spatial": spatial,
         "host_runtime": host,
         "build_s": build_s, "phase_end_s": ends, "card": smi,
         "total_s": time.perf_counter() - T_START}}), flush=True)

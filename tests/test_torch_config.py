@@ -39,6 +39,8 @@ from test_torch_slice import TOL as SLICE_TOL
 from test_torch_slice import _Loader, _scene
 
 CASCADE = ((8, 64, 1), (-1, 320, 1))
+# parallel.mesh.check_mesh's message: the three meshes the port takes
+MESHES_TAKEN = r"\('data', 'view'\) or \('row',\) or \('row', 'view'\)"
 FLAX_FIELDS = {"name", "parent"}  # every flax module has them
 
 
@@ -187,8 +189,10 @@ def test_inference_device_prefetch_changes_nothing(bindings, tmp_path):
 
 
 def test_inference_mesh_names_its_queue_item(bindings):
+    """A bound mesh that is none of the three DeviceMeshes the port takes
+    raises before any work, naming them."""
     bindings('inference.mesh = "views"')
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(ValueError, match=MESHES_TAKEN):
         inference(_Loader(), device="cpu")
 
 
@@ -271,9 +275,10 @@ def test_float32_binding_matches_jax_on_the_slice(bindings):
 def test_runner_takes_every_jax_parameter():
     """``InferenceRunner`` is no configurable, so the registry check above
     does not see it: the port's takes every parameter of JAX's by name.
-    ``mesh`` is accepted and refused, naming its queue item."""
+    A ``mesh`` that is none of the three DeviceMeshes it takes is refused,
+    naming them."""
     assert _parameters(JRunner) - _parameters(InferenceRunner) == set()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(ValueError, match=MESHES_TAKEN):
         InferenceRunner(model=RAFT(cascade=CASCADE, device="cpu"),
                         mesh="views", device="cpu")
 

@@ -141,6 +141,11 @@ def test_fusion_matches_jax(tmp_path, capsys, view_batch, stream):
 
 
 def test_fusion_refuses_what_is_not_ported(tmp_path):
+    """A mesh that is no ``(data, view)`` DeviceMesh is refused before any
+    work: fusion shards its reference views over that mesh alone, as the
+    JAX package's does."""
     scene = PlaneScene(n=3, H=8, W=8, num_frames=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(ValueError, match=r"fusion's mesh .* must be a "
+                       r"DeviceMesh with the axes \('data', 'view'\), "
+                       r"got object"):
         fusion([scene[0]], tmp_path, mesh=object(), device="cpu")

@@ -250,23 +250,32 @@ def test_world_of_one_train_step_is_bit_for_bit(world_of_one):
 
 
 def test_row_mesh_raises_naming_its_item(world_of_one, tmp_path):
-    """A mesh with a ``row`` axis (row and grid sharding) is not ported."""
+    """A mesh that is none of the three the port takes, ``(data, view)``,
+    ``(row,)`` and ``(row, view)``, is refused before any work, naming
+    them; the view-sharded forward takes ``(data, view)`` alone, and fusion
+    refuses a row mesh, whose axis shards the rows of a forward."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    row = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "row"))
+    from cermvs_torch.parallel.mesh import make_row_mesh
+
+    other = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "row"))
+    taken = r"\('data', 'view'\) or \('row',\) or \('row', 'view'\)"
     model = tasks.seeded_model(MODEL)
     images, poses, intr = _scene()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        InferenceRunner(model=model, mesh=row, device="cpu")
-    with pytest.raises(NotImplementedError, match="row and grid"):
+    with pytest.raises(ValueError, match=taken + r".*got \('data', 'row'\)"):
+        InferenceRunner(model=model, mesh=other, device="cpu")
+    with pytest.raises(ValueError, match=r"view-sharded forward's mesh "
+                       r"must be a DeviceMesh with the axes "
+                       r"\('data', 'view'\), got \('row',\)"):
         view_sharded_forward(model, torch.from_numpy(images[None]),
                              torch.from_numpy(poses[None]),
                              torch.from_numpy(intr[None]), torch.ones(1),
-                             row)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        inference([], model=model, mesh=row, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        fusion([], tmp_path, mesh=row, device="cpu")
+                             make_row_mesh())
+    with pytest.raises(ValueError, match=taken):
+        inference([], model=model, mesh=other, device="cpu")
+    with pytest.raises(ValueError, match=r"fusion's mesh .* \('data', "
+                       r"'view'\), got \('row',\)"):
+        fusion([], tmp_path, mesh=make_row_mesh(), device="cpu")
 
 
 def test_more_ranks_than_views_raises(world_of_one):

@@ -35,6 +35,66 @@ def seeded_model(model_kwargs, damp=None, test_mode=True, seed=0):
     return model
 
 
+def row_forward(model_kwargs, damp, images, poses, intr, scale, n_view=1,
+                plan_vec=None):
+    """``spatial.row_sharded_forward`` of the port's seeded model over a
+    ``(row,)`` mesh of the world, or a ``(row, view)`` grid with ``n_view``
+    view ranks: the disparities, each rank's rows and views. ``plan_vec``:
+    a packed plan selecting the banded rectified construction (its bands
+    planned by the port)."""
+    from cermvs_torch.parallel.mesh import make_row_mesh
+    from cermvs_torch.parallel.spatial import row_sharded_forward
+
+    model = seeded_model(model_kwargs, damp)
+    plan = (None if plan_vec is None
+            else unpack_plan(plan_vec, images.shape[1] - 1))
+    mesh = make_row_mesh(n_view=n_view)
+    out = row_sharded_forward(model, torch.from_numpy(images),
+                              torch.from_numpy(poses),
+                              torch.from_numpy(intr),
+                              torch.as_tensor(scale, dtype=torch.float32),
+                              mesh, plan=plan)
+    return out.numpy()
+
+
+def row_runner(model_kwargs, damp, images, poses, intr, construction):
+    """``InferenceRunner`` of the seeded model under a ``(row,)`` mesh of
+    the world: its mesh flags, ``shape_multiple``, the route of one
+    ``submit`` with the band height, starts and packed plan of a banded
+    rectified one, and the disparities."""
+    from cermvs_torch.parallel.mesh import make_row_mesh
+    from cermvs_torch.pipeline.inference import InferenceRunner
+
+    runner = InferenceRunner(model=seeded_model(model_kwargs, damp),
+                             mesh=make_row_mesh(), construction=construction,
+                             device="cpu")
+    r = runner.route(images[None], poses[None], intr[None], [1.0])
+    disp = runner.forward(r)
+    out = {"row_mesh": runner.row_mesh, "grid_mesh": runner.grid_mesh,
+           "shape_multiple": runner.shape_multiple, "path": r.path,
+           "disp": disp.numpy()}
+    if r.key is not None:
+        plan, band_h = r.key
+        out.update(band_h=band_h, q0=r.q0.numpy(),
+                   plan=pack_plan(plan, images.shape[0] - 1))
+    return out
+
+
+def encoder_rows(model_kwargs, frames, norm_fn):
+    """``spatial.encoder_rows`` of the seeded model's fnet ("instance") or
+    cnet ("none") on this rank's rows of ``frames`` (F, H, W, 3): its rows
+    of the features."""
+    from cermvs_torch.parallel.spatial import encoder_rows as enc_rows
+
+    model = seeded_model(model_kwargs)
+    n, r = world_size(world()), rank(world())
+    rows = frames.shape[1] // n
+    x = torch.from_numpy(frames[:, r * rows:(r + 1) * rows])
+    enc = model.fnet if norm_fn == "instance" else model.cnet
+    with torch.no_grad():
+        return enc_rows(enc, x, world(), norm_fn).numpy()
+
+
 def sharded_forward(model_kwargs, damp, images, poses, intr, scale,
                     plan_vec=None, rect_views=None):
     """``view_sharded_forward`` over a (1, world) mesh of the port's seeded
@@ -150,3 +210,40 @@ def fusion_two_ranks(loader_dir, out_dir):
 
     return str(fusion(FusionLoader(loader_dir), out_dir, suffix="", glb=0.25,
                       rescale=1, tot_iter=4, view_batch=0, device="cpu"))
+
+
+def skip_ghost_refresh(skip):
+    """A planted fault, on this rank until called with ``skip`` False: the
+    row-sharded forward keeps its stale ghost rows where it should take
+    them again from its neighbours before each stage and iteration."""
+    from cermvs_torch.parallel.spatial import SpatialForward
+
+    if skip:
+        _PLANTED.setdefault("refresh", SpatialForward.refresh)
+        SpatialForward.refresh = lambda self, *xs: list(xs)
+    elif "refresh" in _PLANTED:
+        SpatialForward.refresh = _PLANTED.pop("refresh")
+
+
+# what skip_ghost_refresh replaced, to put back
+_PLANTED = {}
+
+
+def halo_both_ways(seed):
+    """``spatial.halo``'s two forms on the default group (gloo, host
+    tensors): each rank's seeded rows of an fp32 and a bf16 tensor, with
+    (up, down) halos of (1, 1), (1, 0), (0, 2) and (3, 1) rows, through the
+    send/recv batch and through the slot all-reduce: a list of (p2p, slots)
+    pairs of numpy arrays (bf16 as fp32)."""
+    from cermvs_torch.parallel.spatial import _halo_p2p, _halo_slots
+
+    g = torch.Generator().manual_seed(seed + rank(world()))
+    xs = [torch.randn((1, 5, 3, 2), generator=g),
+          torch.randn((1, 5, 4), generator=g).to(torch.bfloat16)]
+    out = []
+    for up, down in ((1, 1), (1, 0), (0, 2), (3, 1)):
+        p2p = _halo_p2p(xs, up, down, dist.group.WORLD, 1)
+        slots = _halo_slots(xs, up, down, dist.group.WORLD, 1)
+        out += [(a.float().numpy(), b.float().numpy())
+                for a, b in zip(p2p, slots)]
+    return out
