@@ -38,6 +38,9 @@ TRAINING_SET = [
     30, 68, 121, 127, 105, 93, 53, 102, 64, 72, 27, 123, 128, 2, 116, 108, 20,
     112, 92, 85, 50, 84, 70, 95, 26, 97, 60, 54, 31, 74, 71, 115,
 ]
+VAL_SET = [3, 5, 17, 21, 28, 35, 37, 38, 40, 43, 56, 59, 66, 67, 82, 86, 106, 117]
+TEST_SET = [1, 4, 9, 10, 11, 12, 13, 15, 23, 24, 29, 32, 33, 34, 48, 49, 62,
+            75, 77, 110, 114, 118]
 VIEWS = 49  # per scan and light
 
 

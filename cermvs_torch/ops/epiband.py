@@ -25,7 +25,9 @@ forward kernel's tile, hypotheses per block, chunk, copy width, shared
 memory and grid,
 :func:`dfs_launch_geometry` the dfs kernel's column window, shared memory and
 grid, :func:`dfr_launch_geometry` the dfr kernel's pixel tile, channel layout,
-shared memory and grid.
+shared memory and grid. :func:`work` is each kernel's (bytes, FLOPs) for
+given inputs; while a FLOP count is open (``utils/flops.py``) the wrappers
+add its FLOPs and hide their plain versions' products from the counter.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from dataclasses import dataclass
 import torch
 
 from cermvs_torch.ops import cudalib
+from cermvs_torch.utils import flops
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 LIB = cudalib.KernelLibrary("epiband", {
@@ -236,6 +239,45 @@ def epiband_reference(fr, fs, base, sigma, n_hyp: int, s_max: int):
     return torch.stack(outs)
 
 
+def work(fr, fs, base, sigma, n_hyp: int, s_max: int):
+    """``{kernel: (bytes, flops)}`` of the forward and the two backward
+    kernels for these inputs: what the inputs need, not the most they
+    could. Bytes: the fr rows of pixels with an in-band tap, the fs columns
+    that some in-band tap of the row reaches, base and sigma, each read
+    once; the fp32 volume (forward) or dout (backward) once; the gradient
+    written once. FLOPs: 2 * C per in-band tap, plus 4 per output in the
+    forward (the lerp). The taps are counted from the data (one device
+    sync)."""
+    V, h_r, w_r, C = fr.shape
+    ws = fs.shape[2]
+    x = torch.arange(w_r, dtype=torch.float32, device=fr.device)
+    k = torch.arange(n_hyp, dtype=torch.float32, device=fr.device)
+    b = 0.0 if base is None else base[..., None]
+    pos = (x + float(s_max))[None, None, :, None] - (b + sigma[..., None] * k)
+    fl = torch.floor(pos)
+    ok0 = (fl >= 0) & (fl <= ws - 1)
+    ok1 = (fl >= -1) & (fl <= ws - 2)
+    reached = torch.zeros(V * h_r, ws + 1, dtype=torch.uint8,
+                          device=fr.device)
+    for tap, ok in ((fl, ok0), (fl + 1, ok1)):
+        col = torch.where(ok, tap, float(ws)).to(torch.int64)
+        reached.scatter_(1, col.reshape(V * h_r, -1), 1)
+    cols = int(reached[:, :ws].sum())
+    pixels = int((ok0 | ok1).any(-1).sum())
+    taps = int(ok0.sum() + ok1.sum())
+    e = fr.element_size()
+    params = sigma.numel() * 4 + (0 if base is None else base.numel() * 4)
+    vol = V * h_r * w_r * n_hyp * 4
+    return {
+        "epiband_fwd": ((pixels + cols) * C * e + params + vol,
+                        2 * C * taps + 4 * V * h_r * w_r * n_hyp),
+        "epiband_bwd_dfr": (cols * C * e + params + vol + fr.numel() * e,
+                            2 * C * taps),
+        "epiband_bwd_dfs": (pixels * C * e + params + vol + fs.numel() * e,
+                            2 * C * taps),
+    }
+
+
 def _check(fr, fs, base, sigma, n_hyp, s_max):
     if fr.dim() != 4 or fs.dim() != 4 or sigma.dim() != 3:
         raise ValueError("expected fr (V,h_r,w_r,C), fs (V,h_r,ws,C), "
@@ -403,6 +445,15 @@ def epiband_backward(fr, fs, base, sigma, dout, s_max: int):
                          f"{fr.device}, got {dout.dtype} "
                          f"{tuple(dout.shape)} on {dout.device}")
     dout = dout.contiguous()
+    if flops.counting():
+        return flops.counted(
+            ("epiband_bwd_dfr", "epiband_bwd_dfs"),
+            lambda: work(fr, fs, base, sigma, dout.shape[-1], s_max),
+            _backward, fr, fs, base, sigma, dout, s_max)
+    return _backward(fr, fs, base, sigma, dout, s_max)
+
+
+def _backward(fr, fs, base, sigma, dout, s_max):
     if fr.is_cuda:
         return (backward_dfr(fr, fs, base, sigma, dout, s_max),
                 backward_dfs(fr, fs, base, sigma, dout, s_max))
@@ -412,6 +463,15 @@ def epiband_backward(fr, fs, base, sigma, dout, s_max: int):
 
 
 def _forward(fr, fs, base, sigma, n_hyp, s_max):
+    if flops.counting():
+        return flops.counted(
+            ("epiband_fwd",),
+            lambda: work(fr, fs, base, sigma, n_hyp, s_max),
+            _run_forward, fr, fs, base, sigma, n_hyp, s_max)
+    return _run_forward(fr, fs, base, sigma, n_hyp, s_max)
+
+
+def _run_forward(fr, fs, base, sigma, n_hyp, s_max):
     if fr.is_cuda:
         return _launch(fr, fs, base, sigma, n_hyp, s_max)
     if fr.device.type != "cpu":

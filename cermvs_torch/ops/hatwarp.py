@@ -24,6 +24,9 @@ transpose gathers per row: it writes each element of ``dimg`` once, in the
 image's dtype, with no atomics). On CPU tensors they run the plain
 versions, the hat-matrix products built in row chunks of at most
 ``HAT_BUDGET`` bytes. There is no fallback from one to the other.
+:func:`work` is each kernel's (bytes, FLOPs) for given inputs; while a FLOP
+count is open (``utils/flops.py``) the wrappers add its FLOPs and hide their
+plain versions' products from the counter.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from dataclasses import dataclass
 import torch
 
 from cermvs_torch.ops import cudalib
+from cermvs_torch.utils import flops
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 LIB = cudalib.KernelLibrary("hatwarp", {
@@ -189,6 +193,22 @@ def hat_resample_rows_backward_reference(dout, pos, S: int, img_dtype,
     return dimg.to(img_dtype)
 
 
+def work(pos, S: int, C: int, dtype):
+    """``{kernel: (bytes, flops)}`` of the resample and its transpose for
+    an image (R, S, C) of ``dtype`` resampled at ``pos`` (R, O): the image,
+    pos and dout read once, out or dimg written once, over 2 * C FLOPs per
+    in-range tap (fp32 products). The taps are counted from the data (one
+    device sync)."""
+    fl = torch.floor(pos)
+    taps = int(((fl >= 0) & (fl <= S - 1)).sum()
+               + ((fl >= -1) & (fl <= S - 2)).sum())
+    img = pos.shape[0] * S * C * (2 if dtype == torch.bfloat16 else 4)
+    out = pos.numel() * C * 4
+    nflops = 2 * C * taps
+    return {"hat_rows_fwd": (img + pos.numel() * 4 + out, nflops),
+            "hat_rows_bwd": (out + pos.numel() * 4 + img, nflops)}
+
+
 def _check(img, pos):
     if img.dim() != 3 or pos.dim() != 2 or pos.shape[0] != img.shape[0]:
         raise ValueError(f"expected img (R,S,C) and pos (R,O), got "
@@ -264,6 +284,14 @@ def hat_rows_backward(dout, pos, S: int, img_dtype, out=None):
         raise ValueError(f"out must be a contiguous {(R, S, C)} "
                          f"{img_dtype} tensor on {dout.device}")
     dout = dout.float().contiguous()
+    if flops.counting():
+        return flops.counted(("hat_rows_bwd",),
+                             lambda: work(pos, S, C, img_dtype),
+                             _backward, dout, pos, S, img_dtype, out)
+    return _backward(dout, pos, S, img_dtype, out)
+
+
+def _backward(dout, pos, S, img_dtype, out):
     if dout.is_cuda:
         return _launch_backward(dout, pos.contiguous(), S, img_dtype, out)
     if dout.device.type != "cpu":
@@ -273,6 +301,15 @@ def hat_rows_backward(dout, pos, S: int, img_dtype, out=None):
 
 
 def _forward(img, pos):
+    if flops.counting():
+        return flops.counted(("hat_rows_fwd",),
+                             lambda: work(pos, img.shape[1], img.shape[2],
+                                          img.dtype),
+                             _run_forward, img, pos)
+    return _run_forward(img, pos)
+
+
+def _run_forward(img, pos):
     if img.is_cuda:
         return _launch_forward(img, pos)
     if img.device.type != "cpu":

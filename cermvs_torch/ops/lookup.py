@@ -28,7 +28,10 @@ prefix-sum variant) and :func:`backward_launch_geometry` (the gradient) set
 the tile of pixels each block stages in shared memory. On CPU tensors they
 run the plain versions. There is no fallback from one to the other. Inputs
 are taken as contiguous fp32 (``.contiguous()`` copies a strided volume,
-such as a permuted view, once per call).
+such as a permuted view, once per call). :func:`work` is each kernel's
+(bytes, FLOPs) for given indices; while a FLOP count is open
+(``utils/flops.py``) the wrappers add its FLOPs and hide their plain
+versions' work from the counter.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from dataclasses import dataclass
 import torch
 
 from cermvs_torch.ops import cudalib
+from cermvs_torch.utils import flops
 
 _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 LIB = cudalib.KernelLibrary("lookup", {
@@ -250,6 +254,37 @@ def lookup_fused_v2_reference(corr0, x0, radius: int = 5,
     return torch.cat(outs, dim=-1)
 
 
+def work(x0, D: int, radius: int = 5, num_levels: int = 3):
+    """``{kernel: (bytes, flops)}`` of the fused lookup (forward and
+    prefix-sum variant) and of its gradient for the indices ``x0`` over
+    volumes of D cells. Bytes: the level-0 cells some in-range tap reaches
+    and x0, read once; the taps written (forward) or read (gradient) once;
+    the gradient's D cells per pixel written once. Operations (fp32): per
+    (tap, in-range pooled cell) 2^l adds and a scale, and a 3-operation
+    lerp per tap (forward); 2 * 2^l per (tap, in-range pooled cell)
+    (gradient). The cells are counted from the data (device syncs)."""
+    M, K = x0.numel(), 2 * radius + 1
+    T = num_levels * K
+    x = x0.reshape(-1).float()
+    j = torch.arange(D, device=x.device)[None]
+    reached = torch.zeros(M, D, dtype=torch.bool, device=x.device)
+    fwd_ops, bwd_ops = 3 * M * T, 0
+    for lvl in range(num_levels):
+        n, Dl = 1 << lvl, D >> lvl
+        c0 = torch.floor(x / n)[:, None]
+        cells = c0 - radius + torch.arange(K + 1, device=x.device)
+        inside = (cells >= 0) & (cells < Dl)
+        pairs = int(inside[:, :-1].sum() + inside[:, 1:].sum())
+        fwd_ops += pairs * (n + 1)
+        bwd_ops += pairs * 2 * n
+        jl = j >> lvl
+        reached |= (jl >= c0 - radius) & (jl <= c0 + radius + 1) & (jl < Dl)
+    taps = M * T * 4
+    fwd = (int(reached.sum()) * 4 + M * 4 + taps, fwd_ops)
+    return {"lookup_fused_fwd": fwd, "lookup_fused_v2": fwd,
+            "lookup_fused_bwd": (taps + M * 4 + M * D * 4, bwd_ops)}
+
+
 def _check(corr0, x0, radius, num_levels):
     if tuple(x0.shape) != tuple(corr0.shape[:-1]):
         raise ValueError(f"x0 {tuple(x0.shape)} does not match the volume "
@@ -315,6 +350,15 @@ def lookup_fused_backward(g, x0, D: int, radius: int = 5,
     if tuple(g.shape) != tuple(x0.shape) + (T,) or g.device != x0.device:
         raise ValueError(f"g {tuple(g.shape)} does not match x0 "
                          f"{tuple(x0.shape)} and {T} taps")
+    if flops.counting():
+        return flops.counted(("lookup_fused_bwd",),
+                             lambda: work(x0, D, radius, num_levels),
+                             _backward, g, x0, D, radius, num_levels)
+    return _backward(g, x0, D, radius, num_levels)
+
+
+def _backward(g, x0, D, radius, num_levels):
+    T = num_levels * (2 * radius + 1)
     if g.is_cuda:
         out = _launch_backward(_flat(g, T),
                                x0.float().contiguous().reshape(-1), D,
@@ -325,17 +369,26 @@ def lookup_fused_backward(g, x0, D: int, radius: int = 5,
     return lookup_fused_backward_reference(g, x0, D, radius, num_levels)
 
 
+def _forward(corr0, x0, radius, num_levels):
+    if not corr0.is_cuda:
+        return lookup_fused_reference(corr0, x0, radius, num_levels)
+    D = corr0.shape[-1]
+    out = _launch_forward(_flat(corr0, D), x0.float().contiguous(),
+                          radius, num_levels)
+    return out.reshape(tuple(x0.shape) + (out.shape[-1],))
+
+
 class _LookupFused(torch.autograd.Function):
     @staticmethod
     def forward(ctx, corr0, x0, radius, num_levels):
         ctx.save_for_backward(x0)
         ctx.D, ctx.radius, ctx.num_levels = corr0.shape[-1], radius, num_levels
-        if not corr0.is_cuda:
-            return lookup_fused_reference(corr0, x0, radius, num_levels)
-        D = corr0.shape[-1]
-        out = _launch_forward(_flat(corr0, D), x0.float().contiguous(),
-                              radius, num_levels)
-        return out.reshape(tuple(x0.shape) + (out.shape[-1],))
+        if flops.counting():
+            return flops.counted(
+                ("lookup_fused_fwd",),
+                lambda: work(x0, corr0.shape[-1], radius, num_levels),
+                _forward, corr0, x0, radius, num_levels)
+        return _forward(corr0, x0, radius, num_levels)
 
     @staticmethod
     def backward(ctx, g):
@@ -361,9 +414,17 @@ def lookup_fused_v2(corr0: torch.Tensor, x0: torch.Tensor, radius: int = 5,
     D = corr0.shape[-1]
     if D > V2_MAX_D:
         raise ValueError(f"lookup_fused_v2 takes D <= {V2_MAX_D}, got {D}")
+    if flops.counting():
+        return flops.counted(("lookup_fused_v2",),
+                             lambda: work(x0, D, radius, num_levels),
+                             _forward_v2, corr0, x0, radius, num_levels)
+    return _forward_v2(corr0, x0, radius, num_levels)
+
+
+def _forward_v2(corr0, x0, radius, num_levels):
     if not corr0.is_cuda:
         return lookup_fused_v2_reference(corr0, x0, radius, num_levels)
-    out = _launch_forward(_flat(corr0, D),
+    out = _launch_forward(_flat(corr0, corr0.shape[-1]),
                           x0.detach().float().contiguous().reshape(-1),
                           radius, num_levels, prefix=True)
     return out.reshape(tuple(x0.shape) + (out.shape[-1],))

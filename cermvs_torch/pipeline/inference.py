@@ -68,6 +68,7 @@ from cermvs_torch.parallel.mesh import (check_mesh, collectives_capturable,
                                         rank, row_group, view_group, world,
                                         world_size)
 from cermvs_torch.parallel.spatial import GHOST_RECT, SpatialForward
+from cermvs_torch.utils.memory import device_memory_stats
 
 
 def _prefetched(iterable, fn, depth: int = 2):
@@ -783,8 +784,11 @@ def inference(test_loader, ckpt=None, output_folder="results",
         seconds = time.perf_counter() - tic
         records.append((name, seconds, path, capture_s))
         if do_report:
-            peak = (torch.cuda.max_memory_allocated(runner.device) / 2**20
-                    if runner.device.type == "cuda" else 0.0)
+            # the peak since the run's start (utils/memory.py), as the JAX
+            # package's inference() reads it; the CPU reports none
+            peak = max((s["peak_bytes_in_use_mb"] for s in
+                        device_memory_stats(runner.device).values()),
+                       default=0.0)
             note = (f"  [incl. {capture_s:.1f}s graph capture]"
                     if capture_s > 0 else "")
             print(f"per view time: {seconds:.3f}s  "

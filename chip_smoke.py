@@ -179,6 +179,22 @@ Phases (any failure raises, so the exit code is non-zero):
      it), its collectives timed alone, its seconds and peak; (c) a
      band-shaped epiband and hat launch (four row ranks' band of phase 4's
      plan) against their plain versions, timed.
+ 16. the tooling: (a) one fp32 train-mode forward of a small model on a
+     lateral scene and its backward, each FLOP-counted
+     (``utils/flops.count_flops``) on the CPU and on the card: the
+     convolutions and products equal, each kernel's formula within
+     KERNEL_COUNT_TOL; (b) the FLOPs of phase 4's rectified bf16 forward
+     and of one ``train_DTU.gin`` step on phase 8's batch, each counted
+     once eagerly, with the kernels' share, over the median replay of
+     phase 4 and of phase 9's remat run, as TFLOP/s and MFU
+     (``device_peak_flops``), each line with the card's name and power
+     limit; (c) ``utils/memory.device_memory_stats`` and ``report``
+     against ``torch.cuda.max_memory_allocated``, a ``ViewTimer`` record,
+     and a ``utils/profiling.trace`` naming ``raft.encoders`` and
+     ``epiband_mma_kernel``; (d) ``examples/e2e_synthetic`` on the card
+     (3 views of 576x800: inference at rescale 1 and 2, multires, fusion)
+     and its files, then the scan's true depths fused into points on its
+     plane.
 
 Each phase from 6 on first prints the device memory the phases before it
 left (their runners' graph pools released).
@@ -217,8 +233,6 @@ REPO = Path(__file__).resolve().parent
 T_START = time.perf_counter()
 H, W = 1152, 1600          # DTU images, cropped to the encoder stride
 NUM_FRAMES = 10            # neighbours; 11 views in all
-PEAK_BYTES_S = 3.35e12     # H100 SXM HBM3
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, non-TF32 fp32
 DTU_HW = (1200, 1600)      # DTU training images and depths
 TRAIN_STEPS = 11           # train.num_steps: 12 steps; the synthetic tree's
 PALLAS_STEPS = 11          # batches took 3-5 plan keys in 6-8 steps
@@ -381,6 +395,15 @@ SPATIAL_SPEC = dict(       # phase 15(b): four gloo ranks sharing the card
 #                            in the JAX package)
 PAR_FUSION = dict(n_views=6, H=576, W=800, kind="sphere")  # phase 14's
 #                            sharded fusion: a sphere's true depths
+TOOLING_CASCADE = ((8, 64, 2), (-1, 320, 2))  # phase 16(a): the CPU slice
+TOOLING_HW = (128, 256)    # test's cascade, on phase 4's small lateral scene
+KERNEL_COUNT_TOL = 1e-3    # phase 16(a): each kernel's FLOPs, card against
+# CPU, relative: a tap whose position lands on the other side of a floor
+# on the card moves its count by 2 C
+E2E_ARGS = ["--views", "3", "--num_frames", "2", "--size", "576", "800"]
+E2E_Z = 600.0              # phase 16(d): SyntheticScan's plane (mm), the
+# true depth of every view (its cameras only translate in x and y)
+TOOLING_LIMIT_S = 60.0     # phase 16's share of the run
 
 
 def dtu_ring_poses(n):
@@ -773,47 +796,24 @@ def epiband_case(torch, rng, h_r, w_r, ws, C, D, base_kind, sig, dtype,
 
 def epiband_bounds(torch, fr, fs, base, sigma, D, s_max):
     """Least time for the work of these inputs, for the forward and the two
-    backward kernels: the bytes each must move over the memory rate,
-    against its flops over the peak rate of the inputs' type. Bytes count
-    what these inputs need: the fr rows of pixels with an in-band tap, the
-    fs columns that some in-band tap of the row reaches, base and sigma,
-    each read once; the fp32 volume (forward) or dout (backward) once; the
-    gradient written once. Flops: 2*C per in-band tap, plus 4 per output
-    in the forward (the lerp). Returns {name: (bound_ms, bound_by)}."""
-    V, h_r, w_r, C = fr.shape
-    ws = fs.shape[2]
-    x = torch.arange(w_r, dtype=torch.float32, device=fr.device)
-    k = torch.arange(D, dtype=torch.float32, device=fr.device)
-    b = 0.0 if base is None else base[..., None]
-    pos = (x + float(s_max))[None, None, :, None] - (b + sigma[..., None] * k)
-    fl = torch.floor(pos)
-    ok0 = (fl >= 0) & (fl <= ws - 1)
-    ok1 = (fl >= -1) & (fl <= ws - 2)
-    reached = torch.zeros(V * h_r, ws + 1, dtype=torch.uint8,
-                          device=fr.device)
-    for tap, ok in ((fl, ok0), (fl + 1, ok1)):
-        col = torch.where(ok, tap, float(ws)).to(torch.int64)
-        reached.scatter_(1, col.reshape(V * h_r, -1), 1)
-    cols = int(reached[:, :ws].sum())
-    pixels = int((ok0 | ok1).any(-1).sum())
-    taps = int(ok0.sum() + ok1.sum())
-    e = fr.element_size()
-    params = sigma.numel() * 4 + (0 if base is None else base.numel() * 4)
-    vol = V * h_r * w_r * D * 4
+    backward kernels: the bytes each must move (``ops/epiband.work``: what
+    these inputs need, the in-band taps counted from the data) over the
+    memory rate, against its FLOPs over the peak rate of the inputs' type.
+    Returns {name: (bound_ms, bound_by)}."""
+    from cermvs_torch.ops import epiband as eb
+    from cermvs_torch.utils.flops import PEAK_FLOPS
+
     peak = PEAK_FLOPS[str(fr.dtype).split(".")[-1]]
-    work = {  # name: (bytes, flops)
-        "epiband_fwd": ((pixels + cols) * C * e + params + vol,
-                        2 * C * taps + 4 * V * h_r * w_r * D),
-        "epiband_bwd_dfr": (cols * C * e + params + vol + fr.numel() * e,
-                            2 * C * taps),
-        "epiband_bwd_dfs": (pixels * C * e + params + vol + fs.numel() * e,
-                            2 * C * taps),
-    }
-    return {name: bound_of(nbytes, flops, peak)
-            for name, (nbytes, flops) in work.items()}
+    return {name: bound_of(nbytes, nflops, peak) for name, (nbytes, nflops)
+            in eb.work(fr, fs, base, sigma, D, s_max).items()}
 
 
 def bound_of(nbytes, flops, peak):
+    """(ms, "bytes" or "operations"): the larger of ``nbytes`` over the
+    card's memory rate and ``flops`` over ``peak``
+    (``cermvs_torch/utils/flops.py``)."""
+    from cermvs_torch.utils.flops import PEAK_BYTES_S
+
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
@@ -821,20 +821,15 @@ def bound_of(nbytes, flops, peak):
 
 
 def hat_bounds(torch, img, pos):
-    """Least time of the hat resample and its transpose for these inputs:
-    img, pos and dout read once, out or dimg written once, over 2*C flops
-    per in-range tap (fp32 products)."""
-    R, S, C = img.shape
-    fl = torch.floor(pos)
-    taps = int(((fl >= 0) & (fl <= S - 1)).sum()
-               + ((fl >= -1) & (fl <= S - 2)).sum())
-    e = img.element_size()
-    out = pos.numel() * C * 4
-    flops = 2 * C * taps
-    return {"hat_rows_fwd": bound_of(img.numel() * e + pos.numel() * 4 + out,
-                                     flops, PEAK_FLOPS["float32"]),
-            "hat_rows_bwd": bound_of(out + pos.numel() * 4 + img.numel() * e,
-                                     flops, PEAK_FLOPS["float32"])}
+    """Least time of the hat resample and its transpose for these inputs
+    (``ops/hatwarp.work``: img, pos and dout read once, out or dimg written
+    once, 2 * C fp32 FLOPs per in-range tap)."""
+    from cermvs_torch.ops import hatwarp as hw
+    from cermvs_torch.utils.flops import PEAK_FLOPS
+
+    work = hw.work(pos, img.shape[1], img.shape[2], img.dtype)
+    return {name: bound_of(nbytes, nflops, PEAK_FLOPS["float32"])
+            for name, (nbytes, nflops) in work.items()}
 
 
 def hat_case(torch, rng, R, S, O, C, dtype):
@@ -1504,34 +1499,16 @@ def lookup_case(torch, rng, shape):
 
 def lookup_bounds(torch, x0, D, radius=5, levels=3):
     """Least time of the fused lookup (forward and prefix-sum variant) and
-    of its gradient for these indices. Bytes: the level-0 cells some
-    in-range tap reaches and x0, read once; the taps written (forward) or
-    read (gradient) once; the gradient's D cells per pixel written once.
-    Operations (fp32): per (tap, in-range pooled cell) 2^l adds and a scale,
-    and a 3-operation lerp per tap (forward); 2 * 2^l per (tap, in-range
-    pooled cell) (gradient). Returns {name: (bound_ms, bound_by)}."""
-    M, K = x0.numel(), 2 * radius + 1
-    T = levels * K
-    x = x0.reshape(-1).float()
-    j = torch.arange(D, device=x.device)[None]
-    reached = torch.zeros(M, D, dtype=torch.bool, device=x.device)
-    fwd_ops, bwd_ops = 3 * M * T, 0
-    for lvl in range(levels):
-        n, Dl = 1 << lvl, D >> lvl
-        c0 = torch.floor(x / n)[:, None]
-        cells = c0 - radius + torch.arange(K + 1, device=x.device)
-        inside = (cells >= 0) & (cells < Dl)
-        pairs = int(inside[:, :-1].sum() + inside[:, 1:].sum())
-        fwd_ops += pairs * (n + 1)
-        bwd_ops += pairs * 2 * n
-        jl = j >> lvl
-        reached |= (jl >= c0 - radius) & (jl <= c0 + radius + 1) & (jl < Dl)
-    peak = PEAK_FLOPS["float32"]
-    taps = M * T * 4
-    fwd = bound_of(int(reached.sum()) * 4 + M * 4 + taps, fwd_ops, peak)
-    return {"lookup_fused_fwd": fwd, "lookup_fused_v2": fwd,
-            "lookup_fused_bwd": bound_of(taps + M * 4 + M * D * 4, bwd_ops,
-                                         peak)}
+    of its gradient for these indices (``ops/lookup.work``: the level-0
+    cells some in-range tap reaches, x0, the taps and the gradient moved
+    once; fp32 operations per in-range pooled cell and per tap). Returns
+    {name: (bound_ms, bound_by)}."""
+    from cermvs_torch.ops import lookup as lk
+    from cermvs_torch.utils.flops import PEAK_FLOPS
+
+    return {name: bound_of(nbytes, nflops, PEAK_FLOPS["float32"])
+            for name, (nbytes, nflops) in lk.work(x0, D, radius,
+                                                   levels).items()}
 
 
 def phase_lookup_kernels(torch):
@@ -3662,6 +3639,263 @@ def phase_spatial(torch):
     return out, launches, errs, rows
 
 
+def count_small_step(torch, device):
+    """Phase 16(a): one fp32 train-mode forward of a small model
+    (TOOLING_CASCADE, the fused lookup, remat, the delta heads damped as
+    phase 4's small model's) on phase 4's small lateral scene through the
+    rectified construction, and the backward of its predictions' sum, each
+    counted on ``device`` (``utils/flops.count_flops``). Returns the two
+    counts and a function that runs the forward again without autograd."""
+    from cermvs_torch.models.raft import RAFT
+    from cermvs_torch.pipeline.inference import InferenceRunner
+    from cermvs_torch.utils.flops import count_flops
+
+    model = RAFT(cascade=TOOLING_CASCADE, dtype=torch.float32,
+                 lookup_impl="pallas", device=device,
+                 generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        for i in range(len(model.cascade)):
+            getattr(model.update_block, f"delta{i}")[2].weight.mul_(1e-3)
+    images, poses, intr = lateral_scene(*TOOLING_HW, 3)
+    # a runner of its own routes the scene (it puts its model in test mode)
+    runner = InferenceRunner(model=RAFT(cascade=TOOLING_CASCADE,
+                                        dtype=torch.float32, device=device),
+                             construction="rectified", rect_lambda_max=0.1,
+                             device=device)
+    r = routed(runner, images, poses, intr)
+    if r.path != "rectified":
+        raise RuntimeError(f"phase 16: the small scene routed {r.path}")
+    held = {}
+
+    def forward():
+        held["loss"] = model(*r[:4], volume_fn=r.volume_fn).sum()
+
+    def again():
+        with torch.no_grad():
+            return model(*r[:4], volume_fn=r.volume_fn)
+
+    fwd = count_flops(forward)
+    bwd = count_flops(lambda: held["loss"].backward())
+    return fwd, bwd, again
+
+
+def count_text(c):
+    """A count, printable: its total and parts."""
+    return (f"{c.total:.6e} FLOPs = {c.aten_total:.6e} convolutions and "
+            f"products {c.aten} + {c.kernel_total:.6e} kernels {c.kernels} "
+            f"(calls {c.calls})")
+
+
+def count_dict(c):
+    return {"total": c.total, "aten": c.aten, "kernels": c.kernels,
+            "calls": c.calls}
+
+
+def mfu_of(torch, label, count, seconds, smi):
+    """Print and return ``count`` over the median replay ``seconds`` as
+    FLOP/s and as a share of the card's dense bf16 peak."""
+    from cermvs_torch.utils.flops import device_peak_flops, mfu
+
+    peak = device_peak_flops()
+    share = mfu(count.total, seconds)
+    if share is None:
+        raise RuntimeError(f"phase 16: no peak known for "
+                           f"{torch.cuda.get_device_name(0)}")
+    kernel_share = count.kernel_total / count.total
+    print(f"phase 16: {label}: {count_text(count)}; the kernels' share "
+          f"{kernel_share:.5f}; over the median replay {seconds:.4f} s: "
+          f"{count.total / seconds / 1e12:.3f} TFLOP/s, MFU {share:.5f} of "
+          f"{peak / 1e12:.0f} TFLOP/s dense bf16 ({smi})", flush=True)
+    return {"count": count_dict(count), "median_replay_s": seconds,
+            "kernel_share": kernel_share, "tflops": count.total / seconds
+            / 1e12, "mfu": share, "peak_flops": peak, "card": smi}
+
+
+def phase_tooling(torch, smi, replay_s, step_replay_s, train_plan,
+                  train_batch, build):
+    """Phase 16, the port's tooling on the card: (a) the FLOP count of a
+    small fp32 forward and backward on the CPU and on the card (the
+    convolutions and products equal, each kernel's formula within
+    KERNEL_COUNT_TOL); (b) the FLOPs of phase 4's full-width bf16
+    rectified forward and of one phase-9 ``train_DTU.gin`` step, each
+    counted once eagerly, over the median replay its phase timed
+    (``replay_s``, ``step_replay_s``), and the MFU; (c)
+    ``utils/memory``'s stats and report against
+    ``torch.cuda.max_memory_allocated``, a ``ViewTimer`` record of phase
+    4's eager forward and a ``utils/profiling.trace`` of (a)'s forward on
+    the card naming ``raft.encoders`` and ``epiband_mma_kernel``; (d) ``examples/e2e_synthetic`` on the card
+    (3 views of 576x800) and its file contract, then the scan's true
+    depths fused on the card into a cloud on the plane."""
+    from cermvs_torch import config as pcfg
+    from cermvs_torch.data.loader import DataLoader
+    from cermvs_torch.examples import e2e_synthetic
+    from cermvs_torch.io.pfm import read_pfm, write_pfm
+    from cermvs_torch.io.ply import read_ply
+    from cermvs_torch.models.raft import RAFT
+    from cermvs_torch.ops.corr_rectified import RectifiedVolume
+    from cermvs_torch.pipeline.fusion import fusion
+    from cermvs_torch.pipeline.inference import InferenceRunner
+    from cermvs_torch.training.step import (batch_to_device, init_state,
+                                            train_step)
+    from cermvs_torch.utils.flops import count_flops
+    from cermvs_torch.utils.memory import device_memory_stats, report
+    from cermvs_torch.utils.profiling import ViewTimer, trace
+
+    t0 = time.perf_counter()
+    pcfg.clear_config()
+    out = {}
+    # (a) the same small forward and backward counted on both devices
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    *cpu, _ = count_small_step(torch, "cpu")
+    *card, small_forward = count_small_step(torch, "cuda")
+    rel = {}
+    for part, a, b in zip(("forward", "backward"), cpu, card):
+        print(f"phase 16: small fp32 {part}: CPU {count_text(a)}; card "
+              f"{count_text(b)}", flush=True)
+        if a.aten != b.aten or a.calls != b.calls or set(a.kernels) != set(
+                b.kernels):
+            raise RuntimeError(f"phase 16: the {part}'s convolutions, "
+                               f"products or kernel calls differ between "
+                               f"the CPU and the card")
+        for name, n in a.kernels.items():
+            rel[f"{part}.{name}"] = abs(b.kernels[name] - n) / max(n, 1)
+    print(f"phase 16: the kernels' FLOPs, card against CPU, relative: {rel} "
+          f"(limit {KERNEL_COUNT_TOL})", flush=True)
+    if max(rel.values()) > KERNEL_COUNT_TOL:
+        raise RuntimeError(f"phase 16: the kernels' counts differ beyond "
+                           f"{KERNEL_COUNT_TOL}: {rel}")
+    out["small"] = {"cpu": [count_dict(c) for c in cpu],
+                    "card": [count_dict(c) for c in card],
+                    "kernels_rel_diff": rel}
+    parts = {"a": time.perf_counter() - t0}
+
+    # (b) the full-width forward and train step, counted eagerly
+    torch.backends.cudnn.allow_tf32 = True  # the bf16 model's own setting
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = RAFT(test_mode=True, generator=torch.Generator().manual_seed(0))
+    runner = InferenceRunner(model=model, construction="rectified",
+                             device="cuda")
+    images, poses, intr = dtu_scene(H, W, NUM_FRAMES + 1)
+    r = routed(runner, images, poses, intr)
+    with torch.no_grad():
+        fwd = count_flops(eager, torch, runner, r)
+    out["forward"] = mfu_of(torch, "phase 4's rectified forward, bf16, "
+                            "11 views of 1152x1600", fwd,
+                            float(np.median(replay_s)), smi)
+    state = init_state(RAFT(device="cuda",
+                            generator=torch.Generator().manual_seed(7)),
+                       1000)
+    batch = batch_to_device(train_batch, "cuda")
+    step = count_flops(train_step, state, batch, 0.5,
+                       volume_fn=RectifiedVolume(train_plan))
+    out["train_step"] = mfu_of(
+        torch, "a train_DTU.gin step (batch 2, nf10, 1056x1440, remat)",
+        step, float(np.median(step_replay_s)), smi)
+    del state, batch
+    parts["b"] = time.perf_counter() - t0 - sum(parts.values())
+
+    # (c) memory, the view timer and a trace
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timer = ViewTimer(device="cuda")
+    with timer.view("phase 4's eager forward"):
+        eager(torch, runner, r)
+    stats = device_memory_stats()
+    mine = stats[str(torch.device("cuda", 0))]
+    peak = torch.cuda.max_memory_allocated(0) / 2**20
+    total = torch.cuda.get_device_properties(0).total_memory / 2**20
+    report()
+    rec = timer.records
+    print(f"phase 16: device_memory_stats {stats}; max_memory_allocated "
+          f"{peak:.3f} MiB; ViewTimer records {rec}, summary "
+          f"{timer.summary()}", flush=True)
+    if (len(stats) != torch.cuda.device_count()
+            or mine["peak_bytes_in_use_mb"] != peak
+            or mine["bytes_limit_mb"] != total or len(rec) != 1
+            or rec[0]["peak_hbm_mb"] != peak or not rec[0]["seconds"] > 0):
+        raise RuntimeError("phase 16: the memory stats or the view timer "
+                           "disagree with the allocator")
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        t_trace = time.perf_counter()
+        with trace(d) as prof:
+            small_forward()
+            torch.cuda.synchronize()
+        files = list(Path(d).glob("*.pt.trace.json"))
+        text = files[0].read_text() if len(files) == 1 else ""
+        names = {n: n in text for n in ("raft.encoders",
+                                         "epiband_mma_kernel")}
+        device_us = sum(e.device_time_total for e in prof.key_averages())
+        print(f"phase 16: trace {[f.name for f in files]} "
+              f"({len(text) / 2**20:.1f} MiB) in "
+              f"{time.perf_counter() - t_trace:.1f} s names {names}; "
+              f"device time in its key averages {device_us / 1e3:.1f} ms",
+              flush=True)
+        if not all(names.values()):
+            raise RuntimeError(f"phase 16: the trace misses {names}")
+    out["memory"] = {"stats": stats, "view_timer": rec,
+                     "trace_names": names, "trace_device_ms": device_us / 1e3}
+    del runner, model, r
+    parts["c"] = time.perf_counter() - t0 - sum(parts.values())
+    released(torch, "phase 16(d)")
+
+    # (d) the synthetic end-to-end example on the card
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        t_e2e = time.perf_counter()
+        e2e = Path(d) / "e2e"
+        ply = e2e_synthetic.main(E2E_ARGS + ["--out", str(e2e)])
+        views = range(3)
+        want = ({f"depths/{v}_scale{s}_nf2.pfm" for v in views
+                 for s in (1, 2)}
+                | {f"depths/{v}_nf2_nf2_th0.02.pfm" for v in views}
+                | {f"depths/{v}.png" for v in views}
+                | {f"mask/{v}_nf2_nf2_th0.02.png" for v in views}
+                | {"result.ply"})
+        names = {str(f.relative_to(e2e)) for f in e2e.rglob("*")
+                 if f.is_file()}
+        shapes = {s: read_pfm(e2e / "depths" / f"0_scale{s}_nf2.pfm").shape
+                  for s in (1, 2)}
+        random_points = len(read_ply(ply)[0])
+        e2e_s = time.perf_counter() - t_e2e
+        if names != want or shapes != {1: (144, 200), 2: (288, 400)}:
+            raise RuntimeError(f"phase 16: e2e_synthetic wrote {names} "
+                               f"(shapes {shapes}), not {want}")
+        # the scan's true depths through the same fusion: a cloud on the
+        # plane (random weights' depths agree across no views)
+        scan = e2e_synthetic.SyntheticScan(3, 576, 800, 2)
+        true = Path(d) / "true"
+        (true / "depths").mkdir(parents=True)
+        for v in views:
+            write_pfm(true / "depths" / f"{v}_true.pfm",
+                      np.full(shapes[2], E2E_Z, np.float32))
+        xyz, _ = read_ply(fusion(DataLoader(scan, batch_size=None,
+                                            num_workers=0),
+                                 true, rescale=2, suffix="_true", tot_iter=4,
+                                 device="cuda"))
+        err = float(np.abs(xyz[:, 2] - E2E_Z).max()) if len(xyz) else None
+        print(f"phase 16: e2e_synthetic {' '.join(E2E_ARGS)} on the card in "
+              f"{e2e_s:.1f} s: {len(names)} files as the JAX example writes "
+              f"them, depth maps {shapes}, {random_points} fused points "
+              f"from the random weights' depths; the scan's true depths "
+              f"fused into {len(xyz)} points, max|z - {E2E_Z}| {err}",
+              flush=True)
+        if not len(xyz) or err > TRUE_TOL_MM:
+            raise RuntimeError(f"phase 16: the true depths fused into "
+                               f"{len(xyz)} points, max error {err}")
+        out["e2e"] = {"seconds": e2e_s, "files": len(names),
+                      "random_points": random_points,
+                      "true_points": len(xyz), "true_max_err_mm": err}
+    out["seconds"] = time.perf_counter() - t0
+    parts["d"] = out["seconds"] - sum(parts.values())
+    out["parts_s"] = parts
+    print(f"phase 16: {out['seconds']:.1f} s (limit {TOOLING_LIMIT_S} s; "
+          f"by part {({k: round(v, 1) for k, v in parts.items()})})",
+          flush=True)
+    if out["seconds"] > TOOLING_LIMIT_S:
+        raise RuntimeError(f"phase 16 took {out['seconds']:.1f} s")
+    return out
+
+
 def plan_row_bands_of(scene, plan, n):
     """``rectify.plan_row_bands`` of a (images, poses, intrinsics) scene
     in the runner's neighbour order at the feature stride."""
@@ -3929,6 +4163,11 @@ def main():
     released(torch, "phase 15")
     spatial, spatial_launches, band_errs, band_rows = phase_spatial(torch)
     mark(ends, "phase 15")
+    released(torch, "phase 16")
+    tooling = phase_tooling(torch, smi, graphed["forward_replay_s"],
+                            training["remat"]["on"]["replay_s"], train_plan,
+                            train_batch, build)
+    mark(ends, "phase 16")
     rows.update(lookup_rows)
 
     s0 = stages["stage0"]
@@ -3996,7 +4235,7 @@ def main():
                                   if k != "launches"},
         "tnt_demo": tnt, "custom_demo": custom, "blended_training": blended,
         "parallel": parallel, "parallel_spatial": spatial,
-        "host_runtime": host,
+        "tooling": tooling, "host_runtime": host,
         "build_s": build_s, "phase_end_s": ends, "card": smi,
         "total_s": time.perf_counter() - T_START}}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,8 @@ import dataclasses
 import importlib
 import inspect
 import pkgutil
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -106,7 +108,13 @@ def _configurables(config, pkg):
 
 def test_port_configurables_take_every_jax_binding():
     jax_side = _configurables(jcfg, cermvs_tpu)
+    # the JAX package's submitter lives in scripts/, outside the package;
+    # the port's in cermvs_torch/scripts/
+    sys.path.insert(0, str(Path(cermvs_tpu.__file__).parent.parent))
+    importlib.import_module("scripts.submitter")
+    jax_side["submitter"] = jcfg._REGISTRY["submitter"]
     port = _configurables(pcfg, cermvs_torch)
+    assert port["submitter"].__module__ == "cermvs_torch.scripts.submitter"
     assert set(jax_side) - set(port) == set()
     missing = {name: sorted(_parameters(fn) - _parameters(port[name]))
                for name, fn in jax_side.items() if name in port}

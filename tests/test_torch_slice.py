@@ -137,8 +137,13 @@ def test_port_imports_nothing_of_jax():
         "'cermvs_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'cermvs_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'cermvs_tpu', 'scripts', 'examples')]\n"
         "assert not bad, bad\n"
+        "for m in ('cermvs_torch.scripts.submit_depthmap', "
+        "'cermvs_torch.scripts.submit_fusion', "
+        "'cermvs_torch.examples.e2e_synthetic', 'cermvs_torch.utils.flops', "
+        "'cermvs_torch.utils.profiling'):\n"
+        "    assert m in sys.modules, m\n"
         "print('ok', len(sys.modules))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
@@ -155,12 +160,19 @@ def test_port_sources_do_not_reference_jax():
     files = [p for p in (REPO / "cermvs_torch").rglob("*") if p.is_file()
              and p.suffix in (".py", ".cu", ".cuh")]
     assert len(files) >= 15
+    assert {"scripts/submitter.py", "scripts/submit_depthmap.py",
+            "scripts/submit_fusion.py", "examples/e2e_synthetic.py"} <= {
+        str(p.relative_to(REPO / "cermvs_torch")) for p in files}
+    # nor the JAX package's scripts/ and examples/ (its own copies instead)
+    outside = re.compile(r"^\s*(import|from)\s+(scripts|examples)\b", re.M)
     for p in files:
         text = p.read_text()
         assert "cermvs_tpu" not in text, p
         assert not imports.search(text), p
+        assert not outside.search(text), p
     smoke = (REPO / "chip_smoke.py").read_text()
     assert not imports.search(smoke)
+    assert not outside.search(smoke)
     assert "import jax" not in smoke
 
 
