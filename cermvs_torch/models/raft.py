@@ -23,7 +23,6 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from cermvs_torch.config import configurable
@@ -31,6 +30,7 @@ from cermvs_torch.models.extractor import (BasicEncoder, compute_dtype,
                                            init_conv_)
 from cermvs_torch.models.update import UpdateBlock
 from cermvs_torch.ops import corr as corr_ops
+from cermvs_torch.utils import profiling
 
 
 @configurable("RAFT")
@@ -183,8 +183,7 @@ class RAFT(nn.Module):
         remat = (self.remat and not self.test_mode
                  and torch.is_grad_enabled())
 
-        # the named ranges show up in torch.profiler traces
-        with record_function("raft.encoders"):
+        with profiling.span("raft.encoders", on=images):
             net_inp = self._run(remat, self.cnet, images[:, 0])
             net = torch.tanh(net_inp[..., :self.dim_net])
             inp = torch.relu(net_inp[..., self.dim_net:])
@@ -192,7 +191,7 @@ class RAFT(nn.Module):
                                         remat)
             fmaps = fmaps.reshape(B, N, h, w, -1).float()
 
-        with record_function("raft.volume_prepare"):
+        with profiling.span("raft.volume_prepare", on=images):
             vctx = vol_fn.prepare(fmaps, poses, intrinsics, ii, jj,
                                    self.dtype)
 
@@ -202,14 +201,15 @@ class RAFT(nn.Module):
         for stage, (n_hyp, n_div, n_iters) in enumerate(self.cascade):
             n_hyp = self.auto_hyps(n_hyp)
             incre = 0.0025 / n_div
-            with record_function(f"raft.volume_stage{stage}"):
+            with profiling.span(f"raft.volume_stage{stage}", on=images):
                 pyr = corr_ops.build_corr_pyramid(
                     vol_fn, vctx, disp.detach()[..., 0][:, None], n_hyp,
                     incre, shift=(stage == 0), num_levels=self.num_levels,
                     hyp_chunk=self.hyp_chunk,
                     mean_over_views=self.mean_volume, zero_slab=(stage == 0),
                     materialize_pyramid=(self.lookup_impl != "pallas"))
-            with record_function(f"raft.iterations_stage{stage}"):
+            with profiling.span(f"raft.iterations_stage{stage}",
+                                on=images):
                 g_ctx = self.update_block.gru_ctx(inp, stage)
 
                 def body(net, disp, pyr=pyr, stage=stage, g_ctx=g_ctx):

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from cermvs_torch.ops.hatwarp import hat_resample_rows
+from cermvs_torch.utils import profiling
 
 # ---------------------------------------------------------------------------
 # Host planner (numpy, float64)
@@ -399,19 +400,26 @@ class PlanCache:
     """Bounds the number of distinct plans (and constructions kept for
     them) over a run: :meth:`key_for` returns a cached plan that covers the
     batch's plan, else registers and returns the widened plan.
-    Deterministic in the stream of plans."""
+    Deterministic in the stream of plans.
+
+    While tracing is on (``utils/profiling.py``) :meth:`key_for` counts
+    ``plan_cache.hit`` or ``plan_cache.new``, and ``plan_cache.widened``
+    where it gives a two-pass plan a one-pass key (a one-pass plan covers
+    two-pass ones)."""
 
     def __init__(self, notches: int = 2):
         self.notches = notches
         self._plans: list = []
 
     def key_for(self, plan: RectPlan) -> RectPlan:
-        for q in self._plans:
-            if q.covers(plan):
-                return q
-        wide = widen_plan(plan, self.notches)
-        self._plans.append(wide)
-        return wide
+        key = next((q for q in self._plans if q.covers(plan)), None)
+        profiling.count("plan_cache.new" if key is None else "plan_cache.hit")
+        if key is None:
+            key = widen_plan(plan, self.notches)
+            self._plans.append(key)
+        if plan.twopass and not key.twopass:
+            profiling.count("plan_cache.widened")
+        return key
 
     def __len__(self) -> int:
         return len(self._plans)

@@ -66,7 +66,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from cermvs_torch.ops import rectify
 from cermvs_torch.ops.corr import (CorrPyramid, build_corr_volume_from,
@@ -75,6 +74,7 @@ from cermvs_torch.ops.epiband import epiband
 from cermvs_torch.ops.geometry import relative_projection
 from cermvs_torch.parallel.infer import shard_views
 from cermvs_torch.parallel.mesh import rank, world_size
+from cermvs_torch.utils import profiling
 
 # ghost rows (feature grid) >= one iteration's reach (6 rows)
 GHOST = 8
@@ -114,11 +114,12 @@ def observe_collectives(observer):
         _observer = prev
 
 
-def _collective(nbytes: int, run) -> None:
+def _collective(nbytes: int, run, on: torch.Tensor) -> None:
     """The one site every collective of this module goes through: ``run()``
-    in a ``spatial.collective`` span of the profiler, or through the
-    observer of :func:`observe_collectives`."""
-    with record_function("spatial.collective"):
+    in a ``spatial.collective`` span (``utils/profiling.py``; its marks on
+    the stream of ``on``, a tensor it moves), or through the observer of
+    :func:`observe_collectives`."""
+    with profiling.span("spatial.collective", on=on):
         if _observer is None:
             run()
         else:
@@ -128,7 +129,7 @@ def _collective(nbytes: int, run) -> None:
 def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     """``t`` summed in place over ``group``."""
     _collective(t.numel() * t.element_size(),
-                lambda: dist.all_reduce(t, group=group))
+                lambda: dist.all_reduce(t, group=group), t)
     return t
 
 
@@ -237,7 +238,7 @@ def _halo_p2p(xs, up, down, group, dim):
         out.append(parts)
     if ops:
         _collective(nbytes, lambda: [w.wait() for w in
-                                     dist.batch_isend_irecv(ops)])
+                                     dist.batch_isend_irecv(ops)], xs[0])
     return [torch.cat(parts, dim) for parts in out]
 
 
@@ -508,13 +509,14 @@ class SpatialForward:
             disp, net = self.refresh(disp, net)
             origin = slab_origin(disp[..., 0][:, None], n_hyp, incre,
                                  shift=(stage == 0))
-            with record_function(f"spatial.volume_stage{stage}"):
+            with profiling.span(f"spatial.volume_stage{stage}", on=inp):
                 vol = self.volume(ctx, origin, n_hyp, incre,
                                   zero_slab=(stage == 0))
             levels = (build_pyramid(vol, model.num_levels)
                       if model.lookup_impl != "pallas" else [vol])
             pyr = CorrPyramid(levels, origin, incre, n_hyp, model.num_levels)
-            with record_function(f"spatial.iterations_stage{stage}"):
+            with profiling.span(f"spatial.iterations_stage{stage}",
+                                on=inp):
                 g_ctx = model.update_block.gru_ctx(inp, stage)
                 Vv = vol.shape[1]
                 for it in range(n_iters):
@@ -571,7 +573,7 @@ class SpatialForward:
         frames = (images[0, :, r * Hloc:(r + 1) * Hloc].float()
                   * (2.0 / 255.0) - 1.0)
 
-        with record_function("spatial.encoders"):
+        with profiling.span("spatial.encoders", on=frames):
             net_inp = encoder_rows(model.cnet, frames[:1], rg, "none")
             net = torch.tanh(net_inp[..., :model.dim_net])
             inp = torch.relu(net_inp[..., model.dim_net:])

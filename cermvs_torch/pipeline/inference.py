@@ -35,6 +35,14 @@ cast) and, with ``device_prefetch`` on a CUDA runner, casts into pinned
 memory and uploads on the runner's own stream; batch i is dispatched before
 batch i-1 is fetched and written. A record whose interval holds the next
 dispatch's capture says so, as the JAX package's report names a compile.
+
+Tracing (``utils/profiling.py``, while it is on): host spans ``route``,
+``dispatch`` (a batch's route and forward), ``capture`` (a graph's),
+``prep`` (in the prep thread), ``prep_wait`` (the dispatching thread
+waiting for a prepared item), ``fetch_wait`` (waiting for a batch's
+disparities) and ``write``; the model's spans carry device marks. Counters:
+``routes.<route>``, ``captures`` (a key's first dispatch) and
+``dispatch.replay`` / ``dispatch.eager``.
 """
 
 from __future__ import annotations
@@ -68,6 +76,7 @@ from cermvs_torch.parallel.mesh import (check_mesh, collectives_capturable,
                                         rank, row_group, view_group, world,
                                         world_size)
 from cermvs_torch.parallel.spatial import GHOST_RECT, SpatialForward
+from cermvs_torch.utils import profiling
 from cermvs_torch.utils.memory import device_memory_stats
 
 
@@ -80,7 +89,7 @@ def _prefetched(iterable, fn, depth: int = 2):
     its next bounded put and exits instead of blocking on a full queue, and
     the close waits for it (a thread left in native code at interpreter
     exit aborts the process). An exception in the worker is raised in the
-    consumer."""
+    consumer. The consumer's wait for an item is a ``prep_wait`` span."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     end = object()
     stop = threading.Event()
@@ -109,7 +118,8 @@ def _prefetched(iterable, fn, depth: int = 2):
     thread.start()
     try:
         while True:
-            item = q.get()
+            with profiling.span("prep_wait"):
+                item = q.get()
             if item is end:
                 return
             if isinstance(item, BaseException):
@@ -531,6 +541,7 @@ class InferenceRunner:
         self.last_dispatch_compiled = cache_key not in self._cache
         if not self.last_dispatch_compiled:
             return self._cache[cache_key]
+        profiling.count("captures")
 
         def eager(*args):
             with torch.no_grad():
@@ -578,7 +589,8 @@ class InferenceRunner:
         gc.collect()
         torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
-        with cudalib.captured_launches() as launches, torch.no_grad(), \
+        with profiling.span("capture"), \
+                cudalib.captured_launches() as launches, torch.no_grad(), \
                 torch.cuda.graph(graph, pool=self._pool,
                                  stream=self._capture_stream,
                                  capture_error_mode="thread_local"):
@@ -591,54 +603,59 @@ class InferenceRunner:
         (``runner.model(*routed[:4], volume_fn=routed.volume_fn)`` is the
         eager forward; under a row or grid mesh
         ``routed.volume_fn(runner.model, *routed.args)``)."""
-        poses = np.asarray(poses, np.float32)
-        intrinsics = np.asarray(intrinsics, np.float32)
-        scales = [float(s) for s in scales]
-        if isinstance(images, Upload):
-            images = self._take(images)
-        elif not torch.is_tensor(images):
-            images = to_bf16(images)
-        key, path, q0 = None, "exact", None
-        if self.row_group is not None:
-            if images.shape[0] != 1:
-                raise ValueError("row and grid sharding take batch 1")
-            if self.construction != "exact":
+        with profiling.span("route"):
+            poses = np.asarray(poses, np.float32)
+            intrinsics = np.asarray(intrinsics, np.float32)
+            scales = [float(s) for s in scales]
+            if isinstance(images, Upload):
+                images = self._take(images)
+            elif not torch.is_tensor(images):
+                images = to_bf16(images)
+            key, path, q0 = None, "exact", None
+            if self.row_group is not None:
+                if images.shape[0] != 1:
+                    raise ValueError("row and grid sharding take batch 1")
+                if self.construction != "exact":
+                    order = self.neighbor_order(poses[0])
+                    images = images[:, torch.as_tensor(
+                        order, device=images.device)]
+                    poses, intrinsics = poses[:, order], intrinsics[:, order]
+                    key, q0 = self.row_plan(poses[0], intrinsics[0],
+                                            scales[0], images.shape[2:4])
+                    path = "exact" if key is None else "rectified"
+            elif (self.construction == "rectified" and images.shape[0] > 1
+                    and self.view_group is None):
+                if not self._warned_batched_rect:
+                    warnings.warn(
+                        "construction='rectified' with view_batch > 1 unions "
+                        "the batch's plans, which widens every view's epiband "
+                        "windows, and builds the samples' volumes one after "
+                        "another; construction='auto' runs batches through "
+                        "the exact construction")
+                    self._warned_batched_rect = True
+                key, images, poses, intrinsics = self._route_batch(
+                    images, poses, intrinsics, scales)
+                path = "exact" if key is None else "rectified"
+            elif self.construction != "exact" and images.shape[0] == 1:
+                # neighbour order by baseline: the view aggregation is
+                # permutation-invariant, and a canonical order keeps
+                # per-view plans comparable across reference views
                 order = self.neighbor_order(poses[0])
                 images = images[:, torch.as_tensor(order,
                                                    device=images.device)]
                 poses, intrinsics = poses[:, order], intrinsics[:, order]
-                key, q0 = self.row_plan(poses[0], intrinsics[0], scales[0],
-                                        images.shape[2:4])
-                path = "exact" if key is None else "rectified"
-        elif (self.construction == "rectified" and images.shape[0] > 1
-                and self.view_group is None):
-            if not self._warned_batched_rect:
-                warnings.warn(
-                    "construction='rectified' with view_batch > 1 unions the "
-                    "batch's plans, which widens every view's epiband "
-                    "windows, and builds the samples' volumes one after "
-                    "another; construction='auto' runs batches through the "
-                    "exact construction")
-                self._warned_batched_rect = True
-            key, images, poses, intrinsics = self._route_batch(
-                images, poses, intrinsics, scales)
-            path = "exact" if key is None else "rectified"
-        elif self.construction != "exact" and images.shape[0] == 1:
-            # neighbour order by baseline: the view aggregation is
-            # permutation-invariant, and a canonical order keeps per-view
-            # plans comparable across reference views
-            order = self.neighbor_order(poses[0])
-            images = images[:, torch.as_tensor(order, device=images.device)]
-            poses, intrinsics = poses[:, order], intrinsics[:, order]
-            key, path = self._route_one(poses[0], intrinsics[0], scales[0],
-                                        images.shape[2:4])
-        dev = self.device
-        return Routed(images.to(dev), torch.from_numpy(poses).to(dev),
-                      torch.from_numpy(intrinsics).to(dev),
-                      torch.tensor(scales, dtype=torch.float32, device=dev),
-                      self._volume(key, poses.shape[1] - 1), key, path,
-                      None if q0 is None else torch.from_numpy(
-                          q0.astype(np.int64)).to(dev))
+                key, path = self._route_one(poses[0], intrinsics[0],
+                                            scales[0], images.shape[2:4])
+            dev = self.device
+            routed = Routed(
+                images.to(dev), torch.from_numpy(poses).to(dev),
+                torch.from_numpy(intrinsics).to(dev),
+                torch.tensor(scales, dtype=torch.float32, device=dev),
+                self._volume(key, poses.shape[1] - 1), key, path,
+                None if q0 is None else torch.from_numpy(
+                    q0.astype(np.int64)).to(dev))
+        profiling.count(f"routes.{routed.path}")
+        return routed
 
     def submit_batch(self, images, poses, intrinsics, scales) -> torch.Tensor:
         """A batch of B reference views with their neighbours -> disparities
@@ -650,14 +667,17 @@ class InferenceRunner:
         the JAX package: one view goes through :meth:`plan_for` and
         :meth:`mixed_plan` unless the construction is "exact"; a batch runs
         exact unless the construction is "rectified" (and no view mesh)."""
-        r = self.route(images, poses, intrinsics, scales)
-        self.last_path = r.path
-        return self.forward(r)
+        with profiling.span("dispatch"):
+            r = self.route(images, poses, intrinsics, scales)
+            self.last_path = r.path
+            return self.forward(r)
 
     def forward(self, r: Routed) -> torch.Tensor:
         """The forward of a routed dispatch: its key's (:meth:`_fn`)."""
         fn = self._fn((tuple(r.images.shape[:4]), r.images.dtype, r.key),
                       r.volume_fn)
+        profiling.count("dispatch.replay" if isinstance(fn, GraphedForward)
+                        else "dispatch.eager")
         return fn(*r.args)
 
     def submit(self, images, poses, intrinsics, scale) -> torch.Tensor:
@@ -684,7 +704,8 @@ class InferenceRunner:
         (B, h, w) float32 on the host."""
         if isinstance(disp, Fetch):
             if disp.done is not None:
-                disp.done.synchronize()
+                with profiling.span("fetch_wait"):
+                    disp.done.synchronize()
             disp = disp.disp
         d = disp.float().cpu().numpy()
         return np.where(d == 0, 0, 1.0 / np.where(d == 0, 1, d)).astype(
@@ -771,13 +792,14 @@ def inference(test_loader, ckpt=None, output_folder="results",
 
     def prep(item):
         images, poses, intrinsics, image_names, scale = item
-        images, intrinsics = scale_operation(images, intrinsics, rescale)
-        if crop is not None:
-            images, intrinsics = crop_operation(images, intrinsics, *crop)
-        images, intrinsics = pad_to_multiple(images, intrinsics, factor)
-        frames = to_bf16(images, pin=prefetch)
-        if prefetch:
-            frames = runner.upload(frames)
+        with profiling.span("prep", image_names[0]):
+            images, intrinsics = scale_operation(images, intrinsics, rescale)
+            if crop is not None:
+                images, intrinsics = crop_operation(images, intrinsics, *crop)
+            images, intrinsics = pad_to_multiple(images, intrinsics, factor)
+            frames = to_bf16(images, pin=prefetch)
+            if prefetch:
+                frames = runner.upload(frames)
         return frames, poses, intrinsics, image_names, scale
 
     def emit(name, depth, tic, path, capture_s):
@@ -795,15 +817,16 @@ def inference(test_loader, ckpt=None, output_folder="results",
                   f"peak device memory: {peak:.0f} MB ({name}, {path}){note}")
         if not writer:
             return
-        write_pfm(output_folder / "depths"
-                  / f"{name}_scale{rescale}_nf{num_frames}.pfm", depth)
-        if write_min_depth is not None:
-            md_dir = Path(write_min_depth)
-            md_dir.mkdir(exist_ok=True, parents=True)
-            valid = depth[depth > 0]
-            min_depth = (float(np.quantile(valid, 0.1) / 2) if valid.size
-                         else 0.0)
-            (md_dir / f"{name}.txt").write_text(f"{min_depth}\n")
+        with profiling.span("write", name):
+            write_pfm(output_folder / "depths"
+                      / f"{name}_scale{rescale}_nf{num_frames}.pfm", depth)
+            if write_min_depth is not None:
+                md_dir = Path(write_min_depth)
+                md_dir.mkdir(exist_ok=True, parents=True)
+                valid = depth[depth > 0]
+                min_depth = (float(np.quantile(valid, 0.1) / 2)
+                             if valid.size else 0.0)
+                (md_dir / f"{name}.txt").write_text(f"{min_depth}\n")
 
     def flush(buf):
         frames = [b[1] for b in buf]

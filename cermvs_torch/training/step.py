@@ -33,6 +33,7 @@ from cermvs_torch.ops import cudalib
 from cermvs_torch.parallel.mesh import collectives_capturable
 from cermvs_torch.training.loss import sequence_loss
 from cermvs_torch.training.optim import clip_by_global_norm, fetch_optimizer
+from cermvs_torch.utils import profiling
 
 BATCH_KEYS = ("images", "depths", "poses", "intrinsics")
 
@@ -67,9 +68,11 @@ def disp_ground_truth(depths: torch.Tensor) -> torch.Tensor:
 
 
 def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
-    """A loader batch (numpy or tensors) as float32 tensors on ``device``."""
-    return {k: torch.as_tensor(batch[k]).to(device, torch.float32)
-            for k in BATCH_KEYS}
+    """A loader batch (numpy or tensors) as float32 tensors on ``device``
+    (an ``upload`` span)."""
+    with profiling.span("upload"):
+        return {k: torch.as_tensor(batch[k]).to(device, torch.float32)
+                for k in BATCH_KEYS}
 
 
 def data_parallel_mean(params, loss: torch.Tensor,
@@ -115,21 +118,31 @@ def step_body(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
 
     The gradients are zeroed in place, not freed: after a model's first
     step they keep their addresses, outside any graph's memory pool, and a
-    captured step accumulates into them."""
+    captured step accumulates into them.
+
+    Its spans (``utils/profiling.py``, each with device marks):
+    ``step.forward`` (the forward and the loss), ``step.backward`` (the
+    gradients zeroed and ``loss.backward()``, ``RAFT.remat``'s recompute
+    among it) and ``step.optimizer`` (the all-reduce, the clip and AdamW)."""
     model.train()
     model.test_mode = False
-    preds = model(batch["images"], batch["poses"], batch["intrinsics"],
-                  volume_fn=volume_fn)
-    loss, metrics = sequence_loss(preds, disp_ground_truth(batch["depths"]),
-                                  gradual_weight)
-    optimizer.zero_grad(set_to_none=False)
-    loss.backward()
-    if group is not None:
-        loss, metrics = data_parallel_mean(model.parameters(), loss, metrics,
-                                           batch["depths"], group)
-    grad_norm = clip_by_global_norm(
-        [p.grad for p in model.parameters()], clip_norm)
-    optimizer.step()
+    on = batch["images"]
+    with profiling.span("step.forward", on=on):
+        preds = model(batch["images"], batch["poses"], batch["intrinsics"],
+                      volume_fn=volume_fn)
+        loss, metrics = sequence_loss(
+            preds, disp_ground_truth(batch["depths"]), gradual_weight)
+    with profiling.span("step.backward", on=on):
+        optimizer.zero_grad(set_to_none=False)
+        loss.backward()
+    with profiling.span("step.optimizer", on=on):
+        if group is not None:
+            loss, metrics = data_parallel_mean(model.parameters(), loss,
+                                               metrics, batch["depths"],
+                                               group)
+        grad_norm = clip_by_global_norm(
+            [p.grad for p in model.parameters()], clip_norm)
+        optimizer.step()
     names = tuple(metrics) + ("loss", "grad_norm")
     return names, torch.stack(list(metrics.values())
                               + [loss.detach(), grad_norm])
@@ -178,11 +191,14 @@ class GraphedStep:
         self.launches = launches
 
     def __call__(self, batch, gradual_weight):
-        for k, dst in self.inputs.items():
-            dst.copy_(batch[k])
-        self.gw.fill_(gradual_weight)
-        self.graph.replay()
+        with profiling.span("step.copy_in"):
+            for k, dst in self.inputs.items():
+                dst.copy_(batch[k])
+            self.gw.fill_(gradual_weight)
+        with profiling.span("step.replay"):
+            self.graph.replay()
         cudalib.add_launches(self.launches)
+        profiling.count("dispatch.replay")
         return self.names, self.values
 
 
@@ -220,7 +236,14 @@ class StepRunner:
     Under NCCL each graph holds the step's ``all_reduce`` calls; a gloo
     collective cannot be captured, so under gloo every step runs eagerly on
     the same device and kernels (:attr:`graphs` False, :attr:`eager_reason`
-    says why)."""
+    says why).
+
+    Tracing (``utils/profiling.py``, while it is on): host spans
+    ``step.copy_in`` and ``step.replay`` (a replay's), ``capture``,
+    ``step.metrics_wait`` (the metrics' copy to the host) and
+    ``step.schedule``, beside :func:`step_body`'s spans with device marks;
+    counters ``captures`` (a key's first dispatch) and ``dispatch.replay``
+    / ``dispatch.eager``."""
 
     def __init__(self, state: TrainState, group=None):
         self.model = state.model
@@ -265,16 +288,25 @@ class StepRunner:
         self.last_dispatch_compiled = cache_key not in self._steps
         self.last_eager_s = self.last_capture_s = 0.0
         if not self.last_dispatch_compiled:
-            names, values = self._steps[cache_key](batch, gradual_weight)
+            step = self._steps[cache_key]
+            if not isinstance(step, GraphedStep):
+                profiling.count("dispatch.eager")
+            names, values = step(batch, gradual_weight)
         elif self._pool is None:
+            profiling.count("captures")
+            profiling.count("dispatch.eager")
             self._steps[cache_key] = functools.partial(
                 step_body, self.model, self.optimizer, self.clip_norm,
                 volume_fn=_volume_of(key), group=self.group)
             names, values = self._steps[cache_key](batch, gradual_weight)
         else:
+            profiling.count("captures")
             names, values = self._first(cache_key, batch, gradual_weight)
-        self.scheduler.step()
-        return dict(zip(names, values.tolist()))
+        with profiling.span("step.metrics_wait"):
+            values = values.tolist()
+        with profiling.span("step.schedule"):
+            self.scheduler.step()
+        return dict(zip(names, values))
 
     def _first(self, cache_key, batch, gradual_weight):
         """A new key on CUDA: the eager step where the batch shape is new,
@@ -285,6 +317,7 @@ class StepRunner:
         t0 = time.perf_counter()
         if eager:
             self._gw.fill_(gradual_weight)
+            profiling.count("dispatch.eager")
             names, values = step_body(self.model, self.optimizer,
                                       self.clip_norm, batch, self._gw,
                                       volume_fn, self.group)
@@ -300,7 +333,8 @@ class StepRunner:
         gc.collect()
         torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
-        with cudalib.captured_launches() as launches, \
+        with profiling.span("capture"), \
+                cudalib.captured_launches() as launches, \
                 torch.cuda.graph(graph, pool=self._pool,
                                  stream=self._capture_stream,
                                  capture_error_mode="thread_local"):

@@ -39,21 +39,24 @@ import torch
 
 from cermvs_torch.config import configurable
 from cermvs_torch.parallel import mesh as pmesh
+from cermvs_torch.utils import profiling
 
 
 def plan_batch(batch, stride_factor: int):
     """The rectification plan of a host batch: ``plan_rectification`` of
     each sample at feature stride, merged by ``plan_union`` (not ok when
-    the planner rejects a sample)."""
+    the planner rejects a sample); a ``plan`` span."""
     from cermvs_torch.ops.rectify import plan_rectification, plan_union
 
-    poses = np.asarray(batch["poses"], np.float64)
-    intr = np.asarray(batch["intrinsics"], np.float64).copy()
-    intr[..., :2, :] /= stride_factor
-    H, W = np.asarray(batch["images"]).shape[2:4]
-    return plan_union(plan_rectification(poses[b], intr[b], H // stride_factor,
-                                         W // stride_factor)
-                      for b in range(poses.shape[0]))
+    with profiling.span("plan"):
+        poses = np.asarray(batch["poses"], np.float64)
+        intr = np.asarray(batch["intrinsics"], np.float64).copy()
+        intr[..., :2, :] /= stride_factor
+        H, W = np.asarray(batch["images"]).shape[2:4]
+        return plan_union(plan_rectification(poses[b], intr[b],
+                                             H // stride_factor,
+                                             W // stride_factor)
+                          for b in range(poses.shape[0]))
 
 
 def exchange_plan(plan, n_views: int, group):

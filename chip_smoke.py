@@ -189,9 +189,9 @@ Phases (any failure raises, so the exit code is non-zero):
      phase 4 and of phase 9's remat run, as TFLOP/s and MFU
      (``device_peak_flops``), each line with the card's name and power
      limit; (c) ``utils/memory.device_memory_stats`` and ``report``
-     against ``torch.cuda.max_memory_allocated``, a ``ViewTimer`` record,
-     and a ``utils/profiling.trace`` naming ``raft.encoders`` and
-     ``epiband_mma_kernel``; (d) ``examples/e2e_synthetic`` on the card
+     against ``torch.cuda.max_memory_allocated``, and a
+     ``utils/profiling.trace`` with tracing on naming
+     ``cermvs.raft.encoders``, its device marks and ``epiband_mma_kernel``; (d) ``examples/e2e_synthetic`` on the card
      (3 views of 576x800: inference at rescale 1 and 2, multires, fusion)
      and its files, then the scan's true depths fused into points on its
      plane.
@@ -3721,9 +3721,10 @@ def phase_tooling(torch, smi, replay_s, step_replay_s, train_plan,
     counted once eagerly, over the median replay its phase timed
     (``replay_s``, ``step_replay_s``), and the MFU; (c)
     ``utils/memory``'s stats and report against
-    ``torch.cuda.max_memory_allocated``, a ``ViewTimer`` record of phase
-    4's eager forward and a ``utils/profiling.trace`` of (a)'s forward on
-    the card naming ``raft.encoders`` and ``epiband_mma_kernel``; (d) ``examples/e2e_synthetic`` on the card
+    ``torch.cuda.max_memory_allocated`` after phase 4's eager forward and a
+    ``utils/profiling.trace`` of (a)'s forward on the card with tracing on,
+    naming ``cermvs.raft.encoders``, its device marks and
+    ``epiband_mma_kernel``; (d) ``examples/e2e_synthetic`` on the card
     (3 views of 576x800) and its file contract, then the scan's true
     depths fused on the card into a cloud on the plane."""
     from cermvs_torch import config as pcfg
@@ -3739,7 +3740,7 @@ def phase_tooling(torch, smi, replay_s, step_replay_s, train_plan,
                                             train_step)
     from cermvs_torch.utils.flops import count_flops
     from cermvs_torch.utils.memory import device_memory_stats, report
-    from cermvs_torch.utils.profiling import ViewTimer, trace
+    from cermvs_torch.utils import profiling
 
     t0 = time.perf_counter()
     pcfg.clear_config()
@@ -3795,35 +3796,36 @@ def phase_tooling(torch, smi, replay_s, step_replay_s, train_plan,
     del state, batch
     parts["b"] = time.perf_counter() - t0 - sum(parts.values())
 
-    # (c) memory, the view timer and a trace
+    # (c) memory and a trace
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    timer = ViewTimer(device="cuda")
-    with timer.view("phase 4's eager forward"):
-        eager(torch, runner, r)
+    eager(torch, runner, r)
+    torch.cuda.synchronize()
     stats = device_memory_stats()
     mine = stats[str(torch.device("cuda", 0))]
     peak = torch.cuda.max_memory_allocated(0) / 2**20
     total = torch.cuda.get_device_properties(0).total_memory / 2**20
     report()
-    rec = timer.records
     print(f"phase 16: device_memory_stats {stats}; max_memory_allocated "
-          f"{peak:.3f} MiB; ViewTimer records {rec}, summary "
-          f"{timer.summary()}", flush=True)
+          f"{peak:.3f} MiB", flush=True)
     if (len(stats) != torch.cuda.device_count()
             or mine["peak_bytes_in_use_mb"] != peak
-            or mine["bytes_limit_mb"] != total or len(rec) != 1
-            or rec[0]["peak_hbm_mb"] != peak or not rec[0]["seconds"] > 0):
-        raise RuntimeError("phase 16: the memory stats or the view timer "
-                           "disagree with the allocator")
+            or mine["bytes_limit_mb"] != total):
+        raise RuntimeError("phase 16: the memory stats disagree with the "
+                           "allocator")
     with tempfile.TemporaryDirectory(dir=build) as d:
         t_trace = time.perf_counter()
-        with trace(d) as prof:
-            small_forward()
-            torch.cuda.synchronize()
+        profiling.enable()
+        try:
+            with profiling.trace(d) as prof:
+                small_forward()
+                torch.cuda.synchronize()
+        finally:
+            profiling.enable(False)
         files = list(Path(d).glob("*.pt.trace.json"))
         text = files[0].read_text() if len(files) == 1 else ""
-        names = {n: n in text for n in ("raft.encoders",
+        names = {n: n in text for n in ("cermvs.raft.encoders",
+                                         "cermvs_mark_begin_0",
                                          "epiband_mma_kernel")}
         device_us = sum(e.device_time_total for e in prof.key_averages())
         print(f"phase 16: trace {[f.name for f in files]} "
@@ -3833,8 +3835,7 @@ def phase_tooling(torch, smi, replay_s, step_replay_s, train_plan,
               flush=True)
         if not all(names.values()):
             raise RuntimeError(f"phase 16: the trace misses {names}")
-    out["memory"] = {"stats": stats, "view_timer": rec,
-                     "trace_names": names, "trace_device_ms": device_us / 1e3}
+    out["memory"] = {"stats": stats, "trace_names": names, "trace_device_ms": device_us / 1e3}
     del runner, model, r
     parts["c"] = time.perf_counter() - t0 - sum(parts.values())
     released(torch, "phase 16(d)")

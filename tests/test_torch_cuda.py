@@ -7,7 +7,8 @@ train step (with ``RAFT.remat``: replay against eager, remat on against
 off), the group-norm encoder against the CPU, and the parallel paths (an
 NCCL world of one: the meshed forward and the data-parallel step captured
 with their ``all_reduce`` and replayed; two gloo ranks sharing the card:
-the view-sharded forward's launches split between them). They skip where
+the view-sharded forward's launches split between them), and the tracing
+marks that a captured forward and train step replay. They skip where
 ``torch.cuda.is_available()`` is false. This file imports nothing of JAX, so
 it also runs on a machine without it:
 
@@ -23,6 +24,7 @@ rounds, so under 1% of the elements may differ at all.
 """
 
 import copy
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -1638,6 +1640,93 @@ def test_train_replays_count_the_launches_of_the_eager_step(cuda_device):
     assert set(counts[0]) == {"epiband_fwd", "epiband_bwd_dfr",
                               "epiband_bwd_dfs", "hat_rows_fwd",
                               "hat_rows_bwd"}
+
+
+@pytest.fixture
+def tracing():
+    """Tracing on (the marks' library built and loaded), off and cleared
+    after the test."""
+    from cermvs_torch.utils import profiling
+
+    profiling.reset()
+    profiling.enable()
+    yield profiling
+    profiling.enable(False)
+    profiling.reset()
+
+
+def replay_trace(directory, fn):
+    """``fn()`` under ``profiling.trace``, synchronised; its trace file."""
+    from cermvs_torch.utils import profiling
+
+    with profiling.trace(directory):
+        out = fn()
+        torch.cuda.synchronize()
+    (path,) = Path(directory).glob("*.pt.trace.json")
+    return out, path
+
+
+@pytest.mark.cuda
+def test_forward_replays_run_their_marks(cuda_device, tracing, tmp_path):
+    """A forward captured with tracing on: its replay runs the begin and
+    end mark of every model span, gives a replay captured with tracing off
+    its disparities bit for bit and counts the same launches; captured
+    with tracing off, it runs no mark."""
+    from cermvs_torch.pipeline.inference import InferenceRunner
+
+    images, poses, intr = graph_scene("lateral")
+    got = {}
+    for on in (True, False):
+        tracing.enable(on)
+        runner = InferenceRunner(model=pipeline_model(cuda_device),
+                                 construction="auto", rect_lambda_max=0.1,
+                                 device=cuda_device)
+        runner.submit(images, poses, intr, 1.0)  # eager, then the capture
+        cudalib.reset_launches()
+        out, path = replay_trace(tmp_path / str(on), lambda: runner.submit(
+            images, poses, intr, 1.0))
+        assert not runner.last_dispatch_compiled
+        got[on] = (out, {k: v for k, v in cudalib.launches.items() if v},
+                   tracing.marked_spans(path))
+    assert torch.equal(got[True][0], got[False][0])
+    assert got[True][1] == got[False][1] and got[True][1]["epiband_fwd"]
+    assert got[False][2] == []
+    spans = got[True][2]
+    assert sorted(n for n, _, _ in spans) == sorted(
+        ["raft.encoders", "raft.volume_prepare", "raft.volume_stage0",
+         "raft.volume_stage1", "raft.iterations_stage0",
+         "raft.iterations_stage1"])
+    assert all(e > s for _, s, e in spans)
+    assert [n for n, _, _ in spans][0] == "raft.encoders"
+
+
+@pytest.mark.cuda
+def test_train_replay_runs_the_step_marks(cuda_device, tracing, tmp_path):
+    """A train step captured with tracing on: its replay runs the forward,
+    backward and optimizer marks in that order, the model's inside the
+    forward; the runner counts one capture, one eager and one replayed
+    dispatch, and the replay's host spans lie in the trace."""
+    from cermvs_torch.training.step import batch_to_device
+
+    state = train_state(cuda_device)
+    b = train_batch(0)
+    key = train_key(b)
+    batch = batch_to_device(b, cuda_device)
+    state.runner(batch, 0.5, key)  # eager, then the capture
+    _, path = replay_trace(tmp_path, lambda: state.runner(batch, 0.5, key))
+    spans = {n: (s, e) for n, s, e in tracing.marked_spans(path)}
+    fwd, bwd, opt = (spans[f"step.{p}"] for p in ("forward", "backward",
+                                                  "optimizer"))
+    assert fwd[1] <= bwd[0] and bwd[1] <= opt[0]
+    assert fwd[0] <= spans["raft.encoders"][0] <= spans["raft.encoders"][1]
+    assert spans["raft.iterations_stage1"][1] <= fwd[1]
+    got = tracing.counters()
+    assert (got["captures"], got["dispatch.eager"],
+            got["dispatch.replay"]) == (1, 1, 1)
+    assert got["capture_s"] > 0
+    hosts = {n for n, *_ in tracing.host_spans(path)}
+    assert {"step.copy_in", "step.replay", "step.metrics_wait",
+            "step.schedule"} <= hosts
 
 
 @pytest.mark.cuda
