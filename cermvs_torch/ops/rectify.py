@@ -24,8 +24,8 @@ Two halves:
     (:class:`RectPlan`), :func:`plan_rectification_partial` plans the subset
     of neighbours that can;
   * in-graph geometry and warps as torch ops in float32:
-    :func:`rect_geometry`, :func:`warp_image` (quad bilinear),
-    :func:`warp_image_twopass` (two 1-D hat resamples).
+    :func:`rect_geometry`, :func:`warp_image` (quad bilinear,
+    ``ops/quadwarp.py``), :func:`warp_image_twopass` (two 1-D hat resamples).
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from cermvs_torch.ops.hatwarp import hat_resample_rows
+from cermvs_torch.ops.quadwarp import quad_warp
 from cermvs_torch.utils import profiling
 
 # ---------------------------------------------------------------------------
@@ -695,32 +696,15 @@ def warp_image(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     mode="zero": out-of-image corner taps contribute zero (feature warps).
     mode="clamp": positions are clamped to the image (edge-extend; per-pixel
     parameter maps like the slab origin). Taps are read in ``img.dtype``;
-    lerp weights are fp32.
+    lerp weights are fp32. On CUDA tensors the hand-written kernels of
+    ``ops/quadwarp.py`` (the image's gradient summed in fp32 and rounded
+    once), on CPU tensors the plain four-gather version; the positions get
+    no gradient.
     """
     H, W = img.shape[:2]
     C = img.shape[2] if img.dim() == 3 else 1
-    img = img.reshape(H, W, C)
-    if mode == "clamp":
-        x = x.clamp(0.0, W - 1.0)
-        y = y.clamp(0.0, H - 1.0)
-    x0 = torch.floor(x)
-    y0 = torch.floor(y)
-    fx = x - x0
-    fy = y - y0
-    ix0 = x0.to(torch.int64)
-    iy0 = y0.to(torch.int64)
-    flat = img.reshape(H * W, C)
-
-    def tap(iy, ix, wgt):
-        inside = ((ix >= 0) & (ix <= W - 1) & (iy >= 0) & (iy <= H - 1))
-        idx = iy.clamp(0, H - 1) * W + ix.clamp(0, W - 1)
-        v = flat[idx.reshape(-1)].reshape(idx.shape + (C,)).float()
-        return v * (wgt * inside.to(torch.float32))[..., None]
-
-    return (tap(iy0, ix0, (1 - fx) * (1 - fy))
-            + tap(iy0, ix0 + 1, fx * (1 - fy))
-            + tap(iy0 + 1, ix0, (1 - fx) * fy)
-            + tap(iy0 + 1, ix0 + 1, fx * fy))
+    return quad_warp(img.reshape(H, W, C).contiguous(), x.contiguous(),
+                     y.contiguous(), mode)
 
 
 def _twopass_maps(Hi: torch.Tensor, h_s: int, out_w: int) -> torch.Tensor:

@@ -906,7 +906,7 @@ def dryrun_multiprocess(n: int = 2, device: str = "cuda",
 
 # the kernels a view's warps and volume launch: a grid's view ranks share
 # them, where each runs every lookup of the iterations
-PER_VIEW_KERNELS = ("epiband_fwd", "hat_rows_fwd")
+PER_VIEW_KERNELS = ("epiband_fwd", "hat_rows_fwd", "quad_warp_fwd")
 
 SPATIAL_CASES = (("row", "exact", ("mean",)), ("row", "rectified", ("mean",)),
                  ("row", "exact", ("mean", "max", "std")),

@@ -7,7 +7,8 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``.
 Phases (any failure raises, so the exit code is non-zero):
 
   1. build the kernels from ``cermvs_torch/csrc`` (``epiband.cu``,
-     ``hatwarp.cu``, ``lookup.cu``), one nvcc each, all at once, and beside
+     ``hatwarp.cu``, ``lookup.cu``, ``quadwarp.cu``), one nvcc each, all at
+     once, and beside
      them the host data runtime (``dataio.cpp``, g++, ``io/native.py``);
      hold this host's build of the runtime against its numpy version at the
      DTU and BlendedMVS training crops (and its PFM codec against the
@@ -194,7 +195,16 @@ Phases (any failure raises, so the exit code is non-zero):
      ``cermvs.raft.encoders``, its device marks and ``epiband_mma_kernel``; (d) ``examples/e2e_synthetic`` on the card
      (3 views of 576x800: inference at rescale 1 and 2, multires, fusion)
      and its files, then the scan's true depths fused into points on its
-     plane.
+     plane;
+ 17. the quad warp kernels (``quadwarp.cu``) at phase 8's batch planned
+     as one-pass warps: the share of the transpose's blocks that fell back
+     to global atomics over every view of both samples, and at the widest
+     view each warp (reference and source features, the two stages'
+     volume back-warps, the origin) against its plain version (the forward
+     bit for bit), its ms beside its bound by bytes (the forward's over
+     the image pixels the positions reach), the plain versions'
+     ms and ``grid_sample`` / ``grid_sampler_2d_backward`` as the
+     library's (``phase_quad_warp``).
 
 Each phase from 6 on first prints the device memory the phases before it
 left (their runners' graph pools released).
@@ -257,8 +267,12 @@ LOOKUPS = ("lookup_fused_fwd", "lookup_fused_bwd", "lookup_fused_v2")
 TRAIN_KERNELS = ("epiband_bwd_dfr", "epiband_bwd_dfs", "hat_rows_fwd",
                  "hat_rows_bwd")  # held against plain at the training plan
 KERNELS = ("epiband_fwd",) + TRAIN_KERNELS + LOOKUPS
+# the one-pass warps' kernels, counted in the training runs (phases 9, 10
+# and 13) and held against plain in phase 17
+QUADS = ("quad_warp_fwd", "quad_warp_bwd")
 _EB, _HW = "cermvs_torch/csrc/epiband.cu", "cermvs_torch/csrc/hatwarp.cu"
-_LK = "cermvs_torch/csrc/lookup.cu"
+_LK, _QW = "cermvs_torch/csrc/lookup.cu", "cermvs_torch/csrc/quadwarp.cu"
+_TAKE = "none: jnp.take left to XLA (cermvs_tpu/ops/rectify.py:173)"
 SOURCES = {  # kernel: (source, the TPU kernel's entry it replaces)
     "epiband_fwd": (_EB, "cermvs_tpu/ops/pallas/epiband.py:529"),
     "epiband_bwd_dfr": (_EB, "cermvs_tpu/ops/pallas/epiband.py:919"),
@@ -268,6 +282,8 @@ SOURCES = {  # kernel: (source, the TPU kernel's entry it replaces)
     "lookup_fused_fwd": (_LK, "cermvs_tpu/ops/pallas/lookup.py:104"),
     "lookup_fused_bwd": (_LK, "cermvs_tpu/ops/pallas/lookup.py:138"),
     "lookup_fused_v2": (_LK, "cermvs_tpu/ops/pallas/lookup_v2.py:99"),
+    "quad_warp_fwd": (_QW, _TAKE),
+    "quad_warp_bwd": (_QW, _TAKE),
 }
 NO_LIBRARY = "none: no single PyTorch call computes the pooled 33-tap lookup"
 # The earlier designs' times of the kernels redesigned since (ms per launch,
@@ -1106,6 +1122,198 @@ def phase_training_kernels(torch, plan, batch):
     return rows
 
 
+def quad_grid_sample(torch, img, x, y, dout):
+    """The same warp as one ``grid_sample`` call (bilinear, zero padding,
+    align_corners=True) on the image as (1, C, H, W) fp32, and its input
+    gradient as one ``grid_sampler_2d_backward`` call: the yardsticks the
+    port never calls. Returns the two calls, their inputs made."""
+    F = torch.nn.functional
+    H, W, C = img.shape
+    im = img.float().permute(2, 0, 1)[None].contiguous()
+    g = torch.stack([x * (2.0 / (W - 1)) - 1.0, y * (2.0 / (H - 1)) - 1.0],
+                    -1)[None].contiguous()
+    go = dout.permute(2, 0, 1)[None].contiguous()
+    bwd = torch.ops.aten.grid_sampler_2d_backward
+    return (lambda: F.grid_sample(im, g, mode="bilinear",
+                                  padding_mode="zeros", align_corners=True),
+            lambda: bwd(go, im, g, 0, 0, True, [True, False])[0])
+
+
+def quad_transpose(torch, dout, x, y, shape, dtype, mode, counter=None):
+    """The quad warp's transpose as the port reaches it: autograd through
+    ``quad_warp`` of an image of ``shape`` and ``dtype``."""
+    from cermvs_torch.ops import quadwarp as qw
+
+    leaf = torch.zeros(shape, dtype=dtype, device=dout.device,
+                       requires_grad=True)
+    out = qw.quad_warp(leaf, x, y, mode, counter=counter)
+    return torch.autograd.grad(out, leaf, dout)[0]
+
+
+def quad_maps(torch, plan, batch, b):
+    """Sample ``b`` of a training batch as a one-pass key warps it: the
+    rect geometry's position maps per view, as (image shape, x, y) of the
+    reference and source feature warps and the two stages' volume
+    back-warps."""
+    from cermvs_torch.ops import rectify
+
+    N = batch["images"].shape[1]
+    h, w = (s // 4 for s in batch["images"].shape[2:4])
+    poses = torch.as_tensor(batch["poses"][b:b + 1]).float().cuda()
+    intr = torch.as_tensor(batch["intrinsics"][b:b + 1]).float().cuda()
+    intr[:, :, :2] /= 4.0
+    ii = torch.zeros(N - 1, dtype=torch.int64, device="cuda")
+    jj = torch.arange(1, N, dtype=torch.int64, device="cuda")
+    geo = rectify.rect_geometry(poses, intr, ii, jj, h, w, plan,
+                                need_grids=True)
+    (rrx, rry), (rsx, rsy), (fwx, fwy) = (geo["ref_ref_xy"],
+                                          geo["ref_src_xy"], geo["fwd_xy"])
+    (d0, _), (d1, _) = STAGES
+    views = []
+    for v in range(N - 1):
+        col0 = plan.s_max - plan.view_s_max[v]
+        views.append({
+            "ref_warp": ((h, w, C_FEAT), rrx[v], rry[v]),
+            "src_warp": ((h, w, C_FEAT), rsx[v, :, col0:].contiguous(),
+                         rsy[v, :, col0:].contiguous()),
+            "back_warp_d64": ((plan.h_r, plan.w_r, d0), fwx[v], fwy[v]),
+            "back_warp_d44": ((plan.h_r, plan.w_r, d1), fwx[v], fwy[v])})
+    return views
+
+
+def phase_quad_warp(torch, plan, batch):
+    """The quad warp kernels (``ops/quadwarp.py``) at phase 8's batch
+    planned as one-pass warps (the plan's grids, ``twopass`` off): over
+    every view of both samples, each backward launch's blocks that fell
+    back to global atomics (the fallback share); at the widest view, each
+    warp's forward against the plain version bit for bit (bf16) and its
+    transpose against the plain fp32 transpose (one bf16 ulp and fp32
+    reordering), then in bf16 the forward's and transpose's ms back to back
+    and in device time, each beside its bound by bytes (the forward's
+    counting only the image pixels the positions reach), the plain
+    versions' ms (the four gathers; autograd's transpose of them, which
+    the port ran before, and the fp32 ``index_add_``) and one
+    ``grid_sample`` / ``grid_sampler_2d_backward`` call's ms as the
+    library's; the origin warp's forward (C = 1, fp32, clamp) alike."""
+    import dataclasses
+
+    from cermvs_torch.ops import quadwarp as qw
+    from cermvs_torch.utils.flops import PEAK_BYTES_S
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    one_pass = dataclasses.replace(plan, twopass=False)
+    B = batch["images"].shape[0]
+    counter = torch.zeros(2, dtype=torch.int32, device="cuda")
+    counts = {}
+    samples = [quad_maps(torch, one_pass, batch, b) for b in range(B)]
+    for views in samples:
+        for maps in views:
+            for name, (shape, x, y) in maps.items():
+                dout = torch.ones(tuple(x.shape) + (shape[2],),
+                                  device="cuda")
+                counter.zero_()
+                quad_transpose(torch, dout, x, y, shape, torch.bfloat16,
+                               "zero", counter)
+                a, f = counter.tolist()
+                c = counts.setdefault(name, [0, 0, 0])
+                c[0] += 1
+                c[1] += a
+                c[2] += f
+    active = sum(c[1] for c in counts.values())
+    fell = sum(c[2] for c in counts.values())
+    share = fell / max(active, 1)
+    print(f"phase 17: quad_warp_bwd fallback over {B} samples x "
+          f"{len(samples[0])} views: " + "; ".join(
+              f"{k} {c[2]} of {c[1]} blocks in {c[0]} launches"
+              for k, c in counts.items()) + f"; share {share:.4f}",
+          flush=True)
+    rng = np.random.RandomState(17)
+    vmax = int(np.argmax(plan.view_s_max))
+    maps = samples[0][vmax]
+    h, w = (n // 4 for n in batch["images"].shape[2:4])
+    maps["origin"] = ((h, w, 1), *maps["ref_warp"][1:])
+    rows = {"fallback": {"share": share, "blocks": active,
+                         "fell_back": fell,
+                         "by_warp": {k: dict(zip(("launches", "blocks",
+                                                  "fell_back"), c))
+                                     for k, c in counts.items()}},
+            "warps": {}}
+    for name, (shape, x, y) in maps.items():
+        dtype, mode = ((torch.float32, "clamp") if name == "origin"
+                       else (torch.bfloat16, "zero"))
+        gen = torch.Generator(device="cuda").manual_seed(
+            int(rng.randint(2 ** 31)))
+        img = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        dout = torch.randn(tuple(x.shape) + (shape[2],), generator=gen,
+                           device="cuda")
+        out = qw.quad_warp(img, x, y, mode)
+        ref = qw.warp_image_reference(img, x, y, mode)
+        dimg = quad_transpose(torch, dout, x, y, shape, dtype, mode)
+        ref32 = qw.warp_image_backward_reference(dout, x, y, shape,
+                                                 torch.float32, mode)
+        terms = qw.warp_image_backward_reference(dout.abs(), x, y, shape,
+                                                 torch.float32, mode)
+        torch.cuda.synchronize()
+        bits = torch.equal(out.view(torch.int32), ref.view(torch.int32))
+        err = (dimg.float() - ref32).abs()
+        ulp = 2.0 ** -7 * ref32.abs() if dtype == torch.bfloat16 else 0.0
+        within = bool((err <= ulp + 64 * 2.0 ** -24 * terms).all())
+        print(f"phase 17: {name} img {shape} {str(dtype)[6:]} {mode} at "
+              f"{tuple(x.shape)} positions: forward bit for bit {bits}; "
+              f"transpose max|kernel - plain fp32| {float(err.max()):.3e} "
+              f"(|plain| max {float(ref32.abs().max()):.3e}), within one "
+              f"ulp and reordering {within}", flush=True)
+        if not (bits and within):
+            raise RuntimeError(f"quad warp {name} disagrees with its plain "
+                               f"version")
+        # the forward reads only the pixels the positions reach; the
+        # transpose writes dimg whole
+        reached = qw.reached_pixels(x, y, shape[:2], mode)
+        nbytes = qw.work(x.numel(), *shape, dtype, pixels=reached)
+        lib_fwd, lib_bwd = quad_grid_sample(torch, img, x, y, dout)
+        row = {"shape": [*shape, *x.shape], "dtype": str(dtype)[6:],
+               "mode": mode, "reached_pixels": reached}
+        fwd = cuda_ms_both(torch, lambda: qw.quad_warp(img, x, y, mode))
+        row["fwd"] = dict(
+            ms=fwd[0], device_ms=fwd[1],
+            bound_ms=nbytes["quad_warp_fwd"] / PEAK_BYTES_S * 1e3,
+            plain_ms=cuda_ms(lambda: qw.warp_image_reference(img, x, y,
+                                                             mode), 5),
+            library_ms=cuda_ms_both(torch, lib_fwd))
+        if name != "origin":
+            leaf = img.clone().requires_grad_(True)
+            plain_out = qw.warp_image_reference(leaf, x, y, mode)
+            # the transpose's launch alone, as _QuadWarp.backward makes it
+            # (autograd's engine would run it off a graph's capture stream)
+            bwd = cuda_ms_both(torch, lambda: qw._launch_backward(
+                dout, x, y, shape, dtype, mode == "clamp"))
+            row["bwd"] = dict(
+                ms=bwd[0], device_ms=bwd[1],
+                bound_ms=nbytes["quad_warp_bwd"] / PEAK_BYTES_S * 1e3,
+                autograd_plain_ms=cuda_ms(lambda: torch.autograd.grad(
+                    plain_out, leaf, dout, retain_graph=True), 3),
+                plain_ms=cuda_ms(lambda: qw.warp_image_backward_reference(
+                    dout, x, y, shape, dtype, mode), 3),
+                library_ms=cuda_ms_both(torch, lib_bwd))
+            del leaf, plain_out
+        for part in ("fwd", "bwd"):
+            if part not in row:
+                continue
+            r = row[part]
+            extra = (f", autograd through the plain forward "
+                     f"{r['autograd_plain_ms']:.3f} ms"
+                     if "autograd_plain_ms" in r else "")
+            print(f"phase 17: quad_warp_{part} {name} timing: kernel "
+                  f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), bound "
+                  f"{r['bound_ms']:.4f} ms (bytes), plain {r['plain_ms']:.3f}"
+                  f" ms{extra}, library {r['library_ms'][0]:.4f} ms (device "
+                  f"{r['library_ms'][1]:.4f})", flush=True)
+        rows["warps"][name] = row
+    print(json.dumps({"quad_warp": rows}), flush=True)
+    return rows
+
+
 def plan_label(plan):
     """A training step's construction key, printable."""
     if plan is None:
@@ -1170,7 +1378,7 @@ def train_through_graphs(torch, tree, label, name):
                   on_step=on_step, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: cudalib.launches.get(k, 0) for k in KERNELS}
+    launches = {k: cudalib.launches.get(k, 0) for k in KERNELS + QUADS}
     peak = torch.cuda.max_memory_allocated()
     reserved = torch.cuda.max_memory_reserved()
     pool = graph_pool_bytes(torch, state.runner._pool)
@@ -1210,11 +1418,14 @@ def train_launches(records, model, fused_lookup=False):
     """The launches a training run's steps make: per sample, view and stage
     an epiband forward and its two gradients on each rectified step; two
     hat passes per feature warp (2 per view) and per stage's volume
-    back-warp, forward and transposed, on each two-pass one (a plan that
-    is not two-pass warps by quad gathers, no kernel); with the fused
-    lookup, its taps and their gradient once per GRU iteration, and under
-    ``RAFT.remat`` the taps once more per iteration, recomputed in the
-    backward pass."""
+    back-warp, forward and transposed, on each two-pass one; the quad
+    warp's forward for the origin of every stage after the first (the
+    first's is constant) on each rectified step, and on each one-pass step
+    the quad warp forward and transposed for the two feature warps and
+    each stage's volume back-warp (phase 17; the volumes are built outside
+    remat's recomputed parts); with the fused lookup, its taps and their
+    gradient once per GRU iteration, and under ``RAFT.remat`` the taps
+    once more per iteration, recomputed in the backward pass."""
     B, V, S = 2, NUM_FRAMES, len(model.cascade)
     rect = sum(r["plan"] is not None for r in records)
     twopass = sum(r["plan"] is not None and r["plan"].twopass
@@ -1226,7 +1437,10 @@ def train_launches(records, model, fused_lookup=False):
             "hat_rows_fwd": twopass * B * V * (2 + S) * 2,
             "hat_rows_bwd": twopass * B * V * (2 + S) * 2,
             "lookup_fused_fwd": taps * (1 + bool(model.remat)),
-            "lookup_fused_bwd": taps, "lookup_fused_v2": 0}
+            "lookup_fused_bwd": taps, "lookup_fused_v2": 0,
+            "quad_warp_fwd": (rect * (S - 1)
+                              + (rect - twopass) * (2 + S)) * B * V,
+            "quad_warp_bwd": (rect - twopass) * (2 + S) * B * V}
 
 
 def replay_against_eager(torch, state, batch, plan, label,
@@ -3935,6 +4149,7 @@ def main():
     from cermvs_torch.ops import epiband as eb
     from cermvs_torch.ops import hatwarp as hw
     from cermvs_torch.ops import lookup as lk
+    from cermvs_torch.ops import quadwarp as qw
     from cermvs_torch.ops.corr_rectified import RectifiedVolume
     from cermvs_torch.pipeline.inference import InferenceRunner, inference
 
@@ -3949,10 +4164,11 @@ def main():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:  # g++ beside the nvcc builds
         host_build = pool.submit(native.build)
-        cudalib.build_all([eb.LIB, hw.LIB, lk.LIB], verbose=True)
+        cudalib.build_all([eb.LIB, hw.LIB, lk.LIB, qw.LIB], verbose=True)
         host_build.result()
     build_s = time.perf_counter() - t0
-    print(f"phase 1: epiband.cu, hatwarp.cu and lookup.cu (nvcc) and "
+    print(f"phase 1: epiband.cu, hatwarp.cu, lookup.cu and quadwarp.cu "
+          f"(nvcc) and "
           f"dataio.cpp (g++) built in {build_s:.1f} s", flush=True)
     host = host_runtime(torch)
     ends = {}
@@ -4169,6 +4385,9 @@ def main():
                             training["remat"]["on"]["replay_s"], train_plan,
                             train_batch, build)
     mark(ends, "phase 16")
+    released(torch, "phase 17")
+    quad_warp = phase_quad_warp(torch, train_plan, train_batch)
+    mark(ends, "phase 17")
     rows.update(lookup_rows)
 
     s0 = stages["stage0"]
@@ -4213,6 +4432,21 @@ def main():
                             path: counts[name]
                             for path, counts in by_path.items()},
                         **rows[name]})
+    # the quad warps: launches from the training runs, which count them,
+    # and times at the widest view of phase 17
+    for name in QUADS:
+        src, replaces = SOURCES[name]
+        part = name[len("quad_warp_"):]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces,
+                        "launches": training["launches"][name],
+                        "launches_by_path": {
+                            path: counts[name]
+                            for path, counts in by_path.items()
+                            if name in counts},
+                        "warps": {warp: row[part] for warp, row in
+                                  quad_warp["warps"].items() if part in row},
+                        "fallback_share": quad_warp["fallback"]["share"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"slice": {
         "rectified_s_per_view": times, "exact_s_per_view": t_exact,
@@ -4236,7 +4470,7 @@ def main():
                                   if k != "launches"},
         "tnt_demo": tnt, "custom_demo": custom, "blended_training": blended,
         "parallel": parallel, "parallel_spatial": spatial,
-        "tooling": tooling, "host_runtime": host,
+        "tooling": tooling, "quad_warp": quad_warp, "host_runtime": host,
         "build_s": build_s, "phase_end_s": ends, "card": smi,
         "total_s": time.perf_counter() - T_START}}), flush=True)
     print(json.dumps({"ok": True, "device": {

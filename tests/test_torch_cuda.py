@@ -1,7 +1,7 @@
 """CUDA-only tests of the port: the epiband forward and backward kernels, the
-hat-resample kernels and the fused lookup kernels (forward, gradient,
-prefix-sum) against their plain PyTorch versions on the card,
-wrong inputs raising and leaving the card usable, the small end-to-end
+hat-resample kernels, the quad warp kernels and the fused lookup kernels
+(forward, gradient, prefix-sum) against their plain PyTorch versions on the
+card, wrong inputs raising and leaving the card usable, the small end-to-end
 agreement of the rectified (kernel) and exact constructions, the compiled
 train step (with ``RAFT.remat``: replay against eager, remat on against
 off), the group-norm encoder against the CPU, and the parallel paths (an
@@ -20,7 +20,10 @@ accumulate in fp32; only the summation order differs). The backward kernels
 are held at the same tolerances in fp32 and at 1e-2 in bf16 (their results
 are returned in bf16, where another summation order may move a value by
 one bf16 rounding); with bf16 features they round where the plain version
-rounds, so under 1% of the elements may differ at all.
+rounds, so under 1% of the elements may differ at all. The quad warp's
+forward is held bit for bit; its transpose (fp32 atomics, rounded once) to
+one ulp of the image's dtype plus fp32 reordering of the plain fp32
+transpose (``assert_backward_close``).
 """
 
 import copy
@@ -33,6 +36,7 @@ import torch
 from cermvs_torch.ops import cudalib
 from cermvs_torch.ops import epiband as eb
 from cermvs_torch.ops import hatwarp as hw
+from cermvs_torch.ops import quadwarp as qw
 
 V, H_R, W_R, WS, C = 2, 8, 128, 224, 8
 S_MAX = WS - W_R - 16
@@ -701,6 +705,341 @@ def test_hat_kernel_rejects_bad_inputs_and_card_stays_usable(cuda_device):
     out = hw.hat_resample_rows(img + 1.0, pos + 3.0)
     torch.cuda.synchronize()
     assert float(out.min()) == float(out.max()) == 1.0
+
+
+# ---------------------------------------------------------------------------
+# The quad warp (ops/quadwarp.py): forward bit for bit the plain version,
+# transpose within one rounding of the image's dtype and fp32 reordering
+# ---------------------------------------------------------------------------
+
+# (image (H, W, C), dtype, positions (rows, cols), rotation in degrees,
+# mode) of the one-pass warps at a training plan's shapes: the reference
+# and source feature warps, the two stages' volume back-warps, the origin
+QUAD_CASES = {
+    "ref_warp": ((264, 360, 64), torch.bfloat16, (448, 512), 12.0, "zero"),
+    "src_warp": ((264, 360, 64), torch.bfloat16, (448, 1040), -7.0, "zero"),
+    "back_warp_d64": ((448, 512, 64), torch.bfloat16, (264, 360), -12.0,
+                      "zero"),
+    "back_warp_d44": ((448, 512, 44), torch.bfloat16, (264, 360), 25.0,
+                      "zero"),
+    "origin": ((264, 360, 1), torch.float32, (448, 512), 12.0, "clamp"),
+}
+
+
+def rotation_map(dev, rows, cols, H, W, angle, rng, scale=1.0):
+    """Positions of a (rows, cols) grid rotated by ``angle`` about the
+    image's centre (a rectifying rotation keeps the focal length: scale
+    1), jittered by up to a tenth of a pixel."""
+    t = np.deg2rad(angle)
+    r, q = np.mgrid[0:rows, 0:cols].astype(np.float64)
+    r -= (rows - 1) / 2
+    q -= (cols - 1) / 2
+    x = scale * (np.cos(t) * q - np.sin(t) * r) + (W - 1) / 2
+    y = scale * (np.sin(t) * q + np.cos(t) * r) + (H - 1) / 2
+    x += rng.uniform(-0.1, 0.1, x.shape)
+    y += rng.uniform(-0.1, 0.1, y.shape)
+    return (torch.from_numpy(x.astype(np.float32)).to(dev),
+            torch.from_numpy(y.astype(np.float32)).to(dev))
+
+
+def quad_inputs(dev, rng, shape, dtype, x):
+    img = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev,
+                                                                    dtype)
+    dout = torch.from_numpy(rng.randn(*x.shape, shape[2]).astype(
+        np.float32)).to(dev)
+    return img, dout
+
+
+def quad_transpose(dout, x, y, shape, dtype, mode="zero", counter=None):
+    """The kernel's transpose as the port reaches it: autograd through
+    ``quad_warp`` of an image of ``shape`` and ``dtype``."""
+    leaf = torch.zeros(shape, dtype=dtype, device=dout.device,
+                       requires_grad=True)
+    out = qw.quad_warp(leaf, x, y, mode, counter=counter)
+    (dimg,) = torch.autograd.grad(out, leaf, dout)
+    return dimg
+
+
+def assert_forward_bit_equal(img, x, y, mode):
+    """The kernel's forward against the plain version on the card, bit for
+    bit (NaN and the sign of zero included)."""
+    before = cudalib.launches.get("quad_warp_fwd", 0)
+    out = qw.quad_warp(img, x, y, mode)
+    ref = qw.warp_image_reference(img, x, y, mode)
+    torch.cuda.synchronize()
+    assert cudalib.launches["quad_warp_fwd"] == before + 1
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    return out
+
+
+def assert_backward_close(dimg, dout, x, y, shape, dtype, mode, n_terms=64):
+    """The transpose against the plain fp32 one (``index_add_``, not
+    rounded): within one ulp of the image's dtype (at most 2^-7 of the
+    value in bf16, none in fp32) plus fp32 reordering, n_terms * 2^-24 of
+    the element's sum of |terms|."""
+    ref = qw.warp_image_backward_reference(dout, x, y, shape, torch.float32,
+                                           mode)
+    terms = qw.warp_image_backward_reference(dout.abs(), x, y, shape,
+                                             torch.float32, mode)
+    assert dimg.dtype == dtype and tuple(dimg.shape) == tuple(shape)
+    ulp = 2.0 ** -7 * ref.abs() if dtype == torch.bfloat16 else 0.0
+    err = (dimg.float() - ref).abs()
+    allowed = ulp + n_terms * 2.0 ** -24 * terms
+    assert bool((err <= allowed).all()), float((err - allowed).max())
+    return ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(QUAD_CASES))
+def test_quad_warp_matches_plain_at_training_shapes(cuda_device, case):
+    shape, dtype, (rows, cols), angle, mode = QUAD_CASES[case]
+    rng = np.random.RandomState(21)
+    x, y = rotation_map(cuda_device, rows, cols, *shape[:2], angle, rng)
+    img, dout = quad_inputs(cuda_device, rng, shape, dtype, x)
+    out = assert_forward_bit_equal(img, x, y, mode)
+    assert float(out.abs().max()) > 0
+    counter = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    before = cudalib.launches.get("quad_warp_bwd", 0)
+    dimg = quad_transpose(dout, x, y, shape, dtype, mode, counter=counter)
+    torch.cuda.synchronize()
+    assert cudalib.launches["quad_warp_bwd"] == before + 1
+    assert_backward_close(dimg, dout, x, y, shape, dtype, mode)
+    active, fallback = counter.tolist()
+    # a rotation of scale 1: every tile's footprint fits shared memory
+    assert active > 0 and fallback == 0
+
+
+def edge_positions(dev, kind, rng, H, W, shape=(40, 56)):
+    """Positions outside the image and across its edges, on its last row
+    and column, or on integers."""
+    if kind == "outside":
+        x = rng.uniform(-6, W + 5, shape)
+        y = rng.uniform(-6, H + 5, shape)
+        x.reshape(-1)[:4] = [-1e4, 1e4, -1.0, W - 0.5]
+        y.reshape(-1)[:4] = [3.0, 2.0, -1e4, 1e4]
+    elif kind == "last_row_and_column":
+        x = np.where(rng.rand(*shape) < 0.5, W - 1.0,
+                     rng.uniform(W - 1.5, W - 0.5, shape))
+        y = np.where(rng.rand(*shape) < 0.5, H - 1.0,
+                     rng.uniform(H - 1.5, H - 0.5, shape))
+    else:  # integers, one past each edge included
+        x = rng.randint(-1, W + 1, shape).astype(np.float64)
+        y = rng.randint(-1, H + 1, shape).astype(np.float64)
+    return (torch.from_numpy(x.astype(np.float32)).to(dev),
+            torch.from_numpy(y.astype(np.float32)).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["outside", "last_row_and_column",
+                                  "integers"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("mode", ["zero", "clamp"])
+@pytest.mark.parametrize("C", [64, 3])
+def test_quad_warp_edges_match_plain(cuda_device, C, mode, dtype, kind):
+    rng = np.random.RandomState(22)
+    H, W = 30, 41
+    x, y = edge_positions(cuda_device, kind, rng, H, W)
+    img, dout = quad_inputs(cuda_device, rng, (H, W, C), dtype, x)
+    assert_forward_bit_equal(img, x, y, mode)
+    dimg = quad_transpose(dout, x, y, (H, W, C), dtype, mode)
+    torch.cuda.synchronize()
+    assert_backward_close(dimg, dout, x, y, (H, W, C), dtype, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [64, 44, 1])
+def test_quad_backward_pile_up(cuda_device, C):
+    """Every position within a third of a pixel of one source pixel: each
+    tile's four shared-memory cells take 64 positions' shares at once
+    (shared atomics contending), and nothing falls back."""
+    rng = np.random.RandomState(23)
+    H, W, rows, cols = 64, 64, 64, 96
+    x = torch.from_numpy((40.0 + rng.uniform(0, 0.3, (rows, cols))).astype(
+        np.float32)).to(cuda_device)
+    y = torch.from_numpy((20.0 + rng.uniform(0, 0.3, (rows, cols))).astype(
+        np.float32)).to(cuda_device)
+    _, dout = quad_inputs(cuda_device, rng, (H, W, C), torch.float32, x)
+    counter = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    for dtype in (torch.float32, torch.bfloat16):
+        counter.zero_()
+        dimg = quad_transpose(dout, x, y, (H, W, C), dtype,
+                                counter=counter)
+        torch.cuda.synchronize()
+        assert counter.tolist() == [(rows // 8) * (cols // 8), 0]
+        ref = assert_backward_close(dimg, dout, x, y, (H, W, C), dtype,
+                                    "zero", n_terms=rows * cols)
+        assert int((ref != 0).any(-1).sum()) == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_quad_backward_falls_back_where_a_footprint_overflows(cuda_device,
+                                                              dtype):
+    """Positions strewn over a 128 x 128 image of 64 channels: a tile's
+    box spans most of the image (~4 MB, past a block's shared memory), so
+    every block with a corner on the image adds straight to the buffer,
+    and the counter says so."""
+    rng = np.random.RandomState(24)
+    H, W, C = 128, 128, 64
+    x = torch.from_numpy(rng.uniform(-2, W + 1, (80, 72)).astype(
+        np.float32)).to(cuda_device)
+    y = torch.from_numpy(rng.uniform(-2, H + 1, (80, 72)).astype(
+        np.float32)).to(cuda_device)
+    _, dout = quad_inputs(cuda_device, rng, (H, W, C), torch.float32, x)
+    counter = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    dimg = quad_transpose(dout, x, y, (H, W, C), dtype, counter=counter)
+    torch.cuda.synchronize()
+    assert counter.tolist() == [10 * 9, 10 * 9]
+    assert_backward_close(dimg, dout, x, y, (H, W, C), dtype, "zero")
+
+
+@pytest.mark.cuda
+def test_quad_backward_runs_agree(cuda_device):
+    """Two launches at the source warp's shape: the atomics meet in
+    another order, so the fp32 sums agree to reordering, and after
+    rounding to bf16 to one ulp."""
+    shape, dtype, (rows, cols), angle, mode = QUAD_CASES["src_warp"]
+    rng = np.random.RandomState(25)
+    x, y = rotation_map(cuda_device, rows, cols, *shape[:2], angle, rng)
+    _, dout = quad_inputs(cuda_device, rng, shape, dtype, x)
+    terms = qw.warp_image_backward_reference(dout.abs(), x, y, shape,
+                                             torch.float32)
+    for dt in (torch.float32, torch.bfloat16):
+        a = quad_transpose(dout, x, y, shape, dt).float()
+        b = quad_transpose(dout, x, y, shape, dt).float()
+        torch.cuda.synchronize()
+        ulp = 2.0 ** -7 * a.abs() if dt == torch.bfloat16 else 0.0
+        assert bool(((a - b).abs() <= ulp + 2 * 64 * 2.0 ** -24
+                     * terms).all())
+
+
+@pytest.mark.cuda
+def test_quad_warp_graph_replay_equals_eager(cuda_device):
+    """The forward and its gradient captured in a CUDA graph (the fp32
+    buffer zeroed and rounded inside it: no host copy, no sync): a replay
+    on new inputs gives the eager forward bit for bit and the gradient to
+    the transpose's tolerance, and the capture's launches come out of the
+    counts."""
+    shape, (rows, cols) = (96, 128, 64), (120, 150)
+    rng = np.random.RandomState(26)
+    x, y = rotation_map(cuda_device, rows, cols, *shape[:2], 20.0, rng)
+    img, dout = quad_inputs(cuda_device, rng, shape, torch.bfloat16, x)
+    leaf = img.clone().requires_grad_(True)
+
+    def step():
+        out = qw.quad_warp(leaf, x, y)
+        (g,) = torch.autograd.grad(out, leaf, dout)
+        return out, g
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with cudalib.captured_launches() as seen:
+        with torch.cuda.graph(graph):
+            out_g, g_g = step()
+    assert seen == {"quad_warp_fwd": 1, "quad_warp_bwd": 1}
+    x2, y2 = rotation_map(cuda_device, rows, cols, *shape[:2], -15.0, rng)
+    img2, dout2 = quad_inputs(cuda_device, rng, shape, torch.bfloat16, x)
+    with torch.no_grad():
+        for dst, src in ((leaf, img2), (x, x2), (y, y2), (dout, dout2)):
+            dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize()
+    out_e, g_e = step()
+    torch.cuda.synchronize()
+    assert torch.equal(out_g.view(torch.int32), out_e.view(torch.int32))
+    assert_backward_close(g_g, dout, x, y, shape, torch.bfloat16, "zero")
+    assert_backward_close(g_e, dout, x, y, shape, torch.bfloat16, "zero")
+
+
+@pytest.mark.cuda
+def test_quad_warp_refuses_and_card_stays_usable(cuda_device):
+    img = torch.zeros(6, 7, 8, device=cuda_device)
+    x = torch.zeros(3, 4, device=cuda_device)
+    with pytest.raises(ValueError, match="one device"):
+        qw.quad_warp(img, x.cpu(), x)
+    with pytest.raises(TypeError):
+        qw.quad_warp(img.half(), x, x)
+    with pytest.raises(ValueError, match="no gradient"):
+        qw.quad_warp(img, x.clone().requires_grad_(True), x)
+    with pytest.raises(ValueError, match="counter"):
+        qw.quad_warp(img, x, x, counter=torch.zeros(2, device=cuda_device))
+    out = qw.quad_warp(img + 1.0, x + 2.5, x + 3.25)
+    torch.cuda.synchronize()
+    assert float(out.min()) == float(out.max()) == 1.0
+
+
+def general_scene_torch(dev, h=24, w=40, n=3):
+    """Cameras on an arc looking at the origin (moderate rotations): a
+    scene the planner rectifies."""
+    def lookat(eye, target=(0.1, -0.1, 0.0), up=(0, 1, 0)):
+        eye = np.asarray(eye, np.float64)
+        fwd = np.asarray(target, np.float64) - eye
+        fwd /= np.linalg.norm(fwd)
+        right = np.cross(fwd, np.asarray(up, np.float64))
+        right /= np.linalg.norm(right)
+        P = np.eye(4)
+        P[:3, :3] = np.stack([right, np.cross(fwd, right), fwd], 0)
+        P[:3, 3] = -P[:3, :3] @ eye
+        return P
+
+    K = np.array([[40.0, 0, w / 2], [0, 40.0, h / 2], [0, 0, 1]])
+    eyes = [(0.0, 0.0, -10.0), (2.0, 0.6, -9.5), (-1.8, -0.8, -9.8)][:n]
+    poses = np.stack([lookat(e) for e in eyes])[None].astype(np.float32)
+    intr = np.tile(K, (1, n, 1, 1)).astype(np.float32)
+    return poses, intr, h, w
+
+
+@pytest.mark.cuda
+def test_one_pass_rectified_volume_runs_the_quad_kernels(cuda_device):
+    """A one-pass plan's volume (stage 1: the origin warped too) and its
+    gradient: per view the feature warps, the origin and the back-warp
+    launch the quad forward, the three with a gradient its transpose, and
+    aten's ``indexing_backward_kernel`` runs once, for the neighbours'
+    gather ``f[0, jj]`` (the four per warp of the plain warps' gradients
+    are gone)."""
+    import dataclasses
+
+    from cermvs_torch.ops import rectify
+    from cermvs_torch.ops.corr_rectified import RectifiedVolume
+
+    poses, intr, h, w = general_scene_torch(cuda_device)
+    plan = rectify.plan_rectification(poses, intr, h, w, lambda_max=0.14)
+    assert plan.ok, plan.reason
+    plan = dataclasses.replace(plan, twopass=False)
+    N = poses.shape[1]
+    ii = torch.zeros(N - 1, dtype=torch.long, device=cuda_device)
+    jj = torch.arange(1, N, device=cuda_device)
+    rng = np.random.RandomState(27)
+    fm = torch.from_numpy(rng.randn(1, N, h, w, 16).astype(np.float32)).to(
+        cuda_device).requires_grad_(True)
+    origin = torch.from_numpy((0.02 + 0.03 * rng.rand(1, 1, h, w)).astype(
+        np.float32)).to(cuda_device)
+    vol_fn = RectifiedVolume(plan)
+    cudalib.reset_launches()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        ctx = vol_fn.prepare(fm, torch.from_numpy(poses).to(cuda_device),
+                             torch.from_numpy(intr).to(cuda_device), ii, jj,
+                             torch.bfloat16)
+        vol = vol_fn.build(ctx, origin, 16, 0.002)
+        vol.square().sum().backward()
+        torch.cuda.synchronize()
+    V = N - 1
+    assert {k: cudalib.launches.get(k, 0) for k in qw.KERNELS} == {
+        "quad_warp_fwd": 4 * V, "quad_warp_bwd": 3 * V}
+    events = prof.key_averages()
+    assert any("quad_warp_bwd_kernel" in e.key for e in events)
+    assert sum(e.count for e in events
+               if "indexing_backward_kernel" in e.key) <= 1
+    assert bool(torch.isfinite(fm.grad).all()) and float(
+        fm.grad.abs().max()) > 0
 
 
 @pytest.mark.cuda
@@ -1637,9 +1976,10 @@ def test_train_replays_count_the_launches_of_the_eager_step(cuda_device):
             state.runner(batch, 0.5, key)
         counts.append({k: v for k, v in cudalib.launches.items() if v})
     assert counts[0] == counts[1] == counts[2]
+    # a two-pass step: the hat warps, and the quad forward for the origin
     assert set(counts[0]) == {"epiband_fwd", "epiband_bwd_dfr",
                               "epiband_bwd_dfs", "hat_rows_fwd",
-                              "hat_rows_bwd"}
+                              "hat_rows_bwd", "quad_warp_fwd"}
 
 
 @pytest.fixture

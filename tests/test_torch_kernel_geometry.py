@@ -4,7 +4,8 @@ kernels, on the CPU: the pure-Python helpers (``epiband.launch_geometry``,
 ``epiband.dfr_launch_geometry``, ``epiband.dfs_launch_geometry``,
 ``hatwarp.launch_geometry``, ``hatwarp.backward_launch_geometry``,
 ``lookup.lookup_launch_geometry``, which the prefix-sum kernel shares,
-``lookup.backward_launch_geometry``) whose values
+``lookup.backward_launch_geometry``, ``quadwarp.launch_geometry``,
+``quadwarp.backward_launch_geometry``) whose values
 the wrappers pass to the C launchers, at the shapes the main path gives the
 kernels (inference, training and the demo at rescale 1 and 2; ws up to 2448;
 C of 64, 44, 16 and 3; D of 64 and 44; fp32 and bf16). Each launch must stay
@@ -24,6 +25,7 @@ import torch
 from cermvs_torch.ops import epiband as eb
 from cermvs_torch.ops import hatwarp as hw
 from cermvs_torch.ops import lookup as lk
+from cermvs_torch.ops import quadwarp as qw
 
 SMEM_LIMIT = 232448  # bytes of shared memory an H100 block can use
 
@@ -723,3 +725,102 @@ def test_split_tf32_product_holds_the_fp32_tolerance(C):
 
     assert worst(split=True) < 0.05
     assert worst(split=False) > 1.0
+
+
+# (P, C) of the quad warp's forward on the one-pass path: a training
+# plan's reference and source feature warps (448 x 512, 448 x 1040 rect
+# positions), its volume back-warps (264 x 360, D = 64 and 44) and the slab
+# origin (C = 1)
+QUAD_SHAPES = {
+    "training_ref_warp": (448 * 512, 64),
+    "training_src_warp": (448 * 1040, 64),
+    "training_back_warp_stage0": (264 * 360, 64),
+    "training_back_warp_stage1": (264 * 360, 44),
+    "origin": (448 * 512, 1),
+    "image_warp": (100, 3),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", list(QUAD_SHAPES.values()),
+                         ids=list(QUAD_SHAPES))
+def test_quad_geometry(shape, dtype):
+    P, C = shape
+    geo = qw.launch_geometry(P, C, dtype)
+    esize = 2 if dtype == torch.bfloat16 else 4
+    groups, positions = geo.block
+    assert C % geo.vec == 0 and geo.vec * esize <= 16
+    # 16-byte loads wherever the channels allow them
+    assert geo.vec * esize == 16 or C % (16 // esize) != 0
+    assert groups == min(C // geo.vec, qw.THREADS)
+    assert groups * positions <= qw.THREADS
+    assert geo.grid[0] * positions >= P > (geo.grid[0] - 1) * positions
+
+
+@pytest.mark.parametrize("dtype,C,align,vec", [
+    (torch.bfloat16, 64, 16, 8), (torch.bfloat16, 64, 8, 4),
+    (torch.bfloat16, 64, 4, 2), (torch.bfloat16, 64, 2, 1),
+    (torch.bfloat16, 44, 16, 4), (torch.bfloat16, 1, 16, 1),
+    (torch.float32, 64, 16, 4), (torch.float32, 64, 8, 2),
+    (torch.float32, 44, 16, 4), (torch.float32, 1, 16, 1)])
+def test_quad_vector_follows_channels_and_alignment(dtype, C, align, vec):
+    assert qw.launch_geometry(1000, C, dtype, align).vec == vec
+
+
+@pytest.mark.parametrize("shape,vec4", [((448, 512, 64), True),
+                                        ((264, 360, 44), True),
+                                        ((448, 512, 1), False),
+                                        ((7, 9, 3), False)])
+def test_quad_backward_geometry(shape, vec4):
+    R, Q, C = shape
+    geo = qw.backward_launch_geometry(R, Q, C)
+    assert geo.vec4 == vec4
+    assert geo.grid == (-(-Q // qw.TILE), -(-R // qw.TILE))
+    # four blocks an SM: the box, the tile's corners (36 bytes a position)
+    # and a block's reserved kilobyte each
+    per_block = geo.smem_bytes + 36 * qw.TILE ** 2 + 16 + 1024
+    assert geo.smem_bytes % 16 == 0 and 4 * per_block <= 228 * 1024
+
+
+def test_quad_backward_geometry_refuses_rows_past_the_grid():
+    with pytest.raises(ValueError):
+        qw.backward_launch_geometry(qw.TILE * qw.MAX_GRID_Y + 1, 8, 64)
+
+
+def tile_boxes(x, y, H, W):
+    """The backward kernel's box per TILE x TILE tile, emulated in numpy:
+    the pixels from the lowest to the highest column and row of the
+    corners that land on the image (tiles with none left out)."""
+    x0, y0 = np.floor(x), np.floor(y)
+    boxes = []
+    for r in range(0, x.shape[0], qw.TILE):
+        for q in range(0, x.shape[1], qw.TILE):
+            xs = x0[r:r + qw.TILE, q:q + qw.TILE]
+            ys = y0[r:r + qw.TILE, q:q + qw.TILE]
+            cx, cy = [], []
+            for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+                m = ((xs + dx >= 0) & (xs + dx <= W - 1) & (ys + dy >= 0)
+                     & (ys + dy <= H - 1))
+                cx.append((xs + dx)[m])
+                cy.append((ys + dy)[m])
+            cx, cy = np.concatenate(cx), np.concatenate(cy)
+            if cx.size:
+                boxes.append((cx.max() - cx.min() + 1)
+                             * (cy.max() - cy.min() + 1))
+    return np.asarray(boxes)
+
+
+@pytest.mark.parametrize("angle", [0.0, 10.0, 30.0, 45.0, 90.0])
+def test_quad_backward_box_fits_a_rotated_unit_map(angle):
+    """A map of scale 1 at any rotation (the rectified warps rotate about
+    the optical axis and keep the focal length): every tile's box of 64
+    channels fits the backward's shared memory, so no block of such a map
+    falls back to global atomics."""
+    H, W = 64, 80
+    t = np.deg2rad(angle)
+    r, q = np.mgrid[0:48, 0:56].astype(np.float64)
+    x = np.cos(t) * q - np.sin(t) * r + 30.3
+    y = np.sin(t) * q + np.cos(t) * r - 10.7
+    boxes = tile_boxes(x, y, H, W)
+    assert len(boxes) > 0
+    assert boxes.max() * 64 * 4 <= qw.BWD_SMEM_BYTES
